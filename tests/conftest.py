@@ -20,3 +20,11 @@ import pytest
 def _bound_xla_executable_footprint():
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips where "
+        "torch.cuda.is_available() is False",
+    )
