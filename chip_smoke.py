@@ -8,20 +8,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. build   every csrc/*.cu kernel with nvcc for sm_90a (one process per
              source, all started together) and print the card's name and
              power limit;
-  2. kernels each of the four kernels against its plain PyTorch version at
-             the full-width Llama-3.2-1B shapes, in bf16 and f32, with its
-             time, the plain version's time, a library yardstick timed only
+  2. kernels each of the six kernels against its plain PyTorch version at
+             the full-width Llama-3.2-1B shapes the serving runs give it
+             (the packed mmt4d GEMM at verify/mixed/many-slot decode rows
+             and prefill slabs, the packed GEMV at 1-8 rows, paged decode
+             at windows of 1 to 256), in bf16 and f32, with its time, the
+             plain version's time, a library yardstick timed only
              (torch.matmul on the unpacked weight, SDPA), and the roofline
              bound computed from the shapes;
   3. forward a depth-2, full-width f32 model served through the kernels and
-             through the plain backends on the card: identical tokens;
+             through the plain backends on the card: identical tokens, for
+             the phase-split engine and for speculative decode (registry
+             routing and backend "pallas"), the token budget (with and
+             without spec decode) and 12 slots, each against the plain
+             phase-split engine;
   4. serve   the full-depth, full-width bf16 Llama-3.2-1B (random weights from
              --seed): 8 requests, half sharing a 256-token prefix so the second
-             wave runs the suffix prefill; every kernel's launch count must
-             equal dispatches x layers x (7 projections or 1 attention).
+             wave runs the suffix prefill;
+  5. windows the same model through the paths of more than 8 rows and the
+             packed kernels: speculative decode (4 slots, tiled prompts), a
+             token budget of 256 admitting a 900-token prompt beside 3
+             decoding requests (zero decode stalls), 16 slots over 32
+             requests, and backend "pallas" (packed GEMV decode, packed GEMM
+             prefill).
 
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
+In phases 4 and 5 every kernel's launch count, set to 0 before each run and
+read after it, must equal the dispatches that resolved to it (tallied here
+from each dispatch's rows and the registry) x layers x (7 projections or 1
+attention), and every kernel must have launched in these runs.
+
+The third line from the end is the kernel table as JSON, the next the card's
+name and power limit, and the last {"ok": true, "device": {...}}.  Details go
+to chiprun_out/chip_smoke.json.
 The script needs torch with CUDA and the repository's src/ beside it.
 """
 
@@ -44,20 +62,26 @@ REPLACES = {
     "fused_pack_mmt4d": "src/repro/kernels/fused_pack_mmt4d.py:59",
     "flash_prefill_attention": "src/repro/kernels/attn.py:465",
     "paged_decode_attention": "src/repro/kernels/attn.py:163",
+    "mmt4d": "src/repro/kernels/mmt4d.py:61",
+    "mmt4d_gemv": "src/repro/kernels/mmt4d_gemv.py:42",
 }
 SOURCES = {
     "fused_gemv": "src/repro_torch/csrc/fused_gemv.cu",
     "fused_pack_mmt4d": "src/repro_torch/csrc/fused_pack_mmt4d.cu",
     "flash_prefill_attention": "src/repro_torch/csrc/flash_prefill.cu",
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode.cu",
+    "mmt4d": "src/repro_torch/csrc/mmt4d.cu",
+    "mmt4d_gemv": "src/repro_torch/csrc/mmt4d_gemv.cu",
 }
 # The shape whose numbers stand for each kernel in the JSON line: the one the
-# serving run (phase 4) gives it most often, in bf16.
+# serving runs (phases 4 and 5) give it most often, in bf16.
 HEADLINE = {
     "fused_gemv": "bf16 M=4 K=2048 N=8192",
     "fused_pack_mmt4d": "bf16 M=2048 K=2048 N=8192",
     "flash_prefill_attention": "bf16 B=4 Sq=512 Sk=512 q_offset=0",
     "paged_decode_attention": "bf16 B=4 L=1",
+    "mmt4d": "bf16 M=20 K=2048 N=8192",
+    "mmt4d_gemv": "bf16 M=4 K=2048 N=8192",
 }
 
 
@@ -106,7 +130,7 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.kernels import attn, fused_gemv, fused_pack_mmt4d, ref
+    from repro_torch.kernels import attn, fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv, ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -153,6 +177,36 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
                        library_ms=timer.ms(lambda: torch.matmul(x, w_t.t())),
                        bytes_moved=(m * k + n * k) * s + m * n * 4, flops=2 * m * n * k,
                        dname=dname)
+            # The packed kernels take the rows packed as ops does (ref.pack):
+            # one block of M0 = M rows for the GEMV; M0 = 8 row blocks for the
+            # GEMM at verify (20 rows), 16-slot decode (16) and mixed (256)
+            # windows, 128-row slabs at prefill.  Bytes and operations count
+            # the packed operands as given, pad rows included.
+            for m in (1, 4, 8):
+                x = rnd(m, k).to(dt)
+                lhs4 = ref.pack(x, (m, 128))
+                got = mmt4d_gemv.mmt4d_gemv(lhs4, rhs4)
+                want = mmt4d_gemv.mmt4d_gemv_plain(lhs4, rhs4)
+                record("mmt4d_gemv", f"{dname} M={m} K={k} N={n}",
+                       err=(got - want).abs().max().item(), tol=1e-3,
+                       ms=timer.ms(lambda: mmt4d_gemv.mmt4d_gemv(lhs4, rhs4)),
+                       plain_ms=timer.ms(lambda: mmt4d_gemv.mmt4d_gemv_plain(lhs4, rhs4)),
+                       library_ms=timer.ms(lambda: torch.matmul(x, w_t.t())),
+                       bytes_moved=(m * k + n * k) * s + m * n * 4, flops=2 * m * n * k,
+                       dname=dname)
+            for m, m0 in ((16, 8), (20, 8), (256, 8), (2048, 128)):
+                x = rnd(m, k).to(dt)
+                lhs4 = ref.pack(x, (m0, 128))
+                rows = lhs4.shape[0] * m0
+                got = mmt4d.mmt4d(lhs4, rhs4)
+                want = mmt4d.mmt4d_plain(lhs4, rhs4)
+                record("mmt4d", f"{dname} M={m} K={k} N={n}",
+                       err=(got - want).abs().max().item(), tol=1e-3,
+                       ms=timer.ms(lambda: mmt4d.mmt4d(lhs4, rhs4)),
+                       plain_ms=timer.ms(lambda: mmt4d.mmt4d_plain(lhs4, rhs4), iters=3),
+                       library_ms=timer.ms(lambda: torch.matmul(x, w_t.t())),
+                       bytes_moved=(rows * k + n * k) * s + rows * n * 4,
+                       flops=2 * rows * n * k, dname=dname)
             del w_t, rhs4
 
     b, h, kvh, d = 4, 32, 8, 64
@@ -179,7 +233,7 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
                    bytes_moved=(2 * b * sq * h * d + 2 * b * sk * kvh * d) * s,
                    flops=4 * b * h * d * pairs, dname=dname)
 
-    bs, nb, pages = 16, 64, 257
+    bs, pages = 16, 257
     pos_list = [37, 300, 511, 900]
     rng = np.random.RandomState(0)
     for dname, dt in dtypes:
@@ -187,10 +241,14 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
         tol = 2e-2 if dname == "bf16" else 1e-4
         k_pool = rnd(pages, bs, kvh, d).to(dt)
         v_pool = rnd(pages, bs, kvh, d).to(dt)
-        table = torch.from_numpy(
-            np.stack([rng.permutation(np.arange(1, pages))[:nb] for _ in range(b)]).astype(np.int32)
+        full_table = torch.from_numpy(
+            np.stack([rng.permutation(np.arange(1, pages))[:80] for _ in range(b)]).astype(np.int32)
         ).to(dev)
-        for L in (1, 4):
+        # L = 1: decode; 4: a short verify window; 16 and 256: verify and
+        # mixed windows of more than 32 query rows per block (G = 4).
+        for L in (1, 4, 16, 256):
+            nb = max(64, -(-(max(pos_list) + L) // bs))  # the table covers every window
+            table = full_table[:, :nb].contiguous()
             pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
             q = rnd(b, L, h, d).to(dt)
             got = attn.paged_decode_attention(q, k_pool, v_pool, table, pos)
@@ -218,7 +276,9 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
 
 def forward_check(torch, dev, seed: int) -> dict:
     """Phase 3: depth-2, full-width f32 model; one batched prefill and 8
-    decode steps through the kernels and through the plain backends."""
+    decode steps through the kernels and through the plain backends; then
+    speculative decode, the token budget and 12 slots through the kernels,
+    each emitting the plain phase-split engine's tokens."""
     import numpy as np
 
     from repro_torch.configs import registry as cfg_registry
@@ -249,9 +309,258 @@ def forward_check(torch, dev, seed: int) -> dict:
     log(f"[forward] depth-2 f32 full width: kernel tokens == plain tokens: {same}")
     if not same:
         raise AssertionError(f"token mismatch: {outs}")
+
+    # The window paths: 6 prompts of a 16-token pattern tiled (drafts are
+    # proposed) and 6 incompressible ones, each engine against the plain
+    # phase-split engine.
+    prompts = [np.tile(rng.randint(1, cfg.vocab_size, 16), 12)[:n].astype(np.int32)
+               for n in (48, 80, 112, 144, 176, 160)]
+    prompts += [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+                for n in (20, 64, 150, 200, 33, 97)]
+    auto = EncodingConfig(backend="auto", attn_backend="auto")
+    cases = [
+        ("plain", EncodingConfig(backend="reference", attn_backend="xla"), dict(slots=12)),
+        ("spec", auto, dict(slots=4, spec_decode=True, draft_k=4)),
+        ("spec_pallas", EncodingConfig(backend="pallas", attn_backend="auto"),
+         dict(slots=4, spec_decode=True, draft_k=4)),
+        ("budget", auto, dict(slots=4, token_budget=64)),
+        ("budget_spec", auto, dict(slots=4, token_budget=64, spec_decode=True, draft_k=4)),
+        ("slots12", auto, dict(slots=12)),
+    ]
+    for label, enc, config in cases:
+        eng = engine_lib.Engine(params, cfg, enc, device=dev,
+                                config=EngineConfig(max_seq=512, block_size=16, **config))
+        for i, p in enumerate(prompts):
+            eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=8))
+        done = eng.run()
+        st = eng.stats
+        outs[label] = {r.uid: r.generated for r in done}
+        if label != "plain" and outs[label] != outs["plain"]:
+            raise AssertionError(f"{label}: tokens differ from the plain engine: "
+                                 f"{outs[label]} vs {outs['plain']}")
+        if st["pages_in_use"] or st["degraded"]:
+            raise AssertionError(f"{label}: pages {st['pages_in_use']} degraded {st['degraded']}")
+        if config.get("spec_decode") and not (st["spec"]["proposed"] > 0
+                                              and st["dispatches"].get("verify", 0)
+                                              + st["dispatches"].get("mixed", 0) > 0):
+            raise AssertionError(f"{label}: no drafts verified: {st['spec']}")
+        if config.get("token_budget") and st["continuous"]["decode_stall_steps"]:
+            raise AssertionError(f"{label}: decode stalls {st['continuous']}")
+        extra = (f" spec proposed={st['spec']['proposed']} accepted={st['spec']['accepted']}"
+                 if "spec" in st else "")
+        log(f"[forward] depth-2 f32 {label}: tokens == plain, dispatches {st['dispatches']}"
+            f"{extra}")
     del params
     torch.cuda.empty_cache()
     return outs
+
+
+def kernel_fns() -> dict:
+    """The six kernel wrappers by name; each counts its launches."""
+    from repro_torch.kernels import attn, fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv
+
+    return {
+        "fused_gemv": fused_gemv.fused_gemv,
+        "fused_pack_mmt4d": fused_pack_mmt4d.fused_pack_mmt4d,
+        "flash_prefill_attention": attn.flash_prefill_attention,
+        "paged_decode_attention": attn.paged_decode_attention,
+        "mmt4d": mmt4d.mmt4d,
+        "mmt4d_gemv": mmt4d_gemv.mmt4d_gemv,
+    }
+
+
+class DispatchTally:
+    """Tallies, for one engine, the launches its dispatches should make.
+
+    Wraps the instance's _dispatch and step (nothing in the engine changes):
+    before each dispatch, the rows it feeds the model (the token tensor's
+    size: batch x padded length at prefill, slots at decode, slots x L for a
+    verify or mixed window) and the registry decide which kernel its 7
+    projections and its attention resolve to, as kernels/ops.py and
+    models/layers.py route them; each adds layers launches per projection.
+    Each step's watchdog duration is kept under the kinds it dispatched
+    (verify and mixed windows with their width L)."""
+
+    def __init__(self, eng, layers: int):
+        import collections
+
+        from repro_torch.core.encoding import GEMV_MAX_ROWS, Phase
+        from repro_torch.kernels import registry
+
+        self.want = collections.Counter()
+        self.by_kind = collections.Counter()  # (kind, kernel) -> launches
+        self.max_rows = collections.Counter()  # kind -> most rows of one dispatch
+        self.step_ms: dict[str, list[float]] = collections.defaultdict(list)
+        kinds: list[str] = []
+        dispatch, step = eng._dispatch, eng.step
+
+        def routed(kind: str, rows: int) -> tuple[str | None, str | None]:
+            phase = Phase.PREFILL if kind == "prefill" else Phase.DECODE
+            small = phase is Phase.DECODE and rows <= GEMV_MAX_ROWS
+            mm = registry.select(quant="none", phase=phase, m=rows, target=eng.enc.target,
+                                 requested=eng.enc.resolved_backend()).backend
+            mm_kernel = {"fused": "fused_gemv" if small else "fused_pack_mmt4d",
+                         "pallas": "mmt4d_gemv" if small else "mmt4d"}.get(mm)
+            at = registry.select_attn(phase=phase, s=eng._attn_s(phase), target=eng.enc.target,
+                                      requested=eng.enc.attn_backend).backend
+            at_kernel = None
+            if at == "pallas":
+                at_kernel = ("flash_prefill_attention" if phase is Phase.PREFILL
+                             else "paged_decode_attention")
+            return mm_kernel, at_kernel
+
+        def counted_dispatch(kind, fn, *args):
+            rows = int(args[0].numel())
+            mm_kernel, at_kernel = routed(kind, rows)
+            out = dispatch(kind, fn, *args)
+            for kernel, n in ((mm_kernel, 7 * layers), (at_kernel, layers)):
+                if kernel is not None:
+                    self.want[kernel] += n
+                    self.by_kind[(kind, kernel)] += n
+            self.max_rows[kind] = max(self.max_rows[kind], rows)
+            kinds.append(kind if kind in ("prefill", "decode") else f"{kind} L={rows // eng.slots}")
+            return out
+
+        def timed_step():
+            kinds.clear()
+            emitted = step()
+            label = "+".join(sorted(set(kinds))) or "idle"
+            self.step_ms[label].append(1e3 * eng.watchdog.last_duration)
+            return emitted
+
+        eng._dispatch = counted_dispatch
+        eng.step = timed_step
+
+    def step_summary(self) -> dict:
+        import numpy as np
+
+        return {k: {"steps": len(v), "p50_ms": float(np.percentile(v, 50)),
+                    "p99_ms": float(np.percentile(v, 99))}
+                for k, v in sorted(self.step_ms.items())}
+
+
+def serve_windows(torch, dev, seed: int) -> dict:
+    """Phase 5: full width and depth, bf16, through the paths of more than 8
+    rows and the packed kernels.  Each run starts every launch count at 0
+    and must end with the counts its dispatches tally."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+
+    cfg = cfg_registry.get_config("llama3.2-1b")
+    auto = EncodingConfig(backend="auto", attn_backend="auto")
+    params = T.model_init(cfg, auto, seed=seed, device=dev)
+    rng = np.random.RandomState(seed + 1)
+    vocab = cfg.vocab_size
+    kernels = kernel_fns()
+    runs = {}
+
+    def run(label, enc, config, drive):
+        eng = engine_lib.Engine(params, cfg, enc, device=dev,
+                                config=EngineConfig(max_seq=1024, block_size=16, **config))
+        tally = DispatchTally(eng, cfg.num_layers)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = drive(eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        want = {name: tally.want[name] for name in kernels}
+        st = eng.stats
+        bad = [(r.uid, r.status, len(r.generated)) for r in done
+               if r.status != "ok" or len(r.generated) != r.max_new_tokens]
+        if bad:
+            raise AssertionError(f"{label}: requests not all ok with their tokens: {bad}")
+        eng.audit()
+        if st["pages_in_use"] or st["degraded"]:
+            raise AssertionError(f"{label}: pages {st['pages_in_use']} degraded {st['degraded']}")
+        if launches != want:
+            raise AssertionError(f"{label}: launch counts {launches} != tallied {want}")
+        tokens = sum(len(r.generated) for r in done)
+        out = {"requests": len(done), "tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
+               "steps": st["steps"], "dispatches": st["dispatches"], "launches": launches,
+               "mmt4d_by_kind": {k: n for (k, name), n in tally.by_kind.items()
+                                 if name == "mmt4d"},
+               "max_rows": dict(tally.max_rows), "step_ms": tally.step_summary(),
+               "watchdog": st["watchdog"], "preemptions": st["preemptions"]}
+        for key in ("spec", "continuous"):
+            if key in st:
+                out[key] = {k: v for k, v in st[key].items() if not k.startswith("per_slot")}
+        runs[label] = out
+        steps = "; ".join(f"{k} x{v['steps']} p50 {v['p50_ms']:.3f} p99 {v['p99_ms']:.3f} ms"
+                          for k, v in out["step_ms"].items())
+        log(f"[windows] {label}: {len(done)} requests, {tokens} tokens in {wall:.3f}s "
+            f"({tokens / wall:.1f} tok/s incl. prefill); dispatches {st['dispatches']}; "
+            f"max rows {out['max_rows']}; steps: {steps}")
+        log(f"[windows] {label}: launches {launches} == tallied; mmt4d by kind "
+            f"{out['mmt4d_by_kind']}")
+        return eng, out
+
+    def submit_all(prompts, max_new):
+        def drive(eng):
+            for i, p in enumerate(prompts):
+                if not eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=max_new)):
+                    raise AssertionError(f"request {i} rejected")
+            return eng.run()
+        return drive
+
+    # (a) Speculative decode: 8 prompts, each a 16-token pattern tiled to
+    # 128-384 tokens, so the prompt-lookup drafter proposes every step.
+    tiled = [np.tile(rng.randint(1, vocab, 16), 24)[: int(n)].astype(np.int32)
+             for n in rng.choice([128, 192, 256, 320, 384], 8)]
+    _, out = run("spec", auto, dict(slots=4, spec_decode=True, draft_k=4), submit_all(tiled, 32))
+    if not (out["dispatches"].get("verify", 0) > 0 and out["spec"]["proposed"] > 0):
+        raise AssertionError(f"spec: no verify dispatch: {out['dispatches']} {out['spec']}")
+    log(f"[windows] spec: acceptance {out['spec']['acceptance_rate']:.3f}, "
+        f"mean committed per slot step {out['spec']['mean_accepted_len']:.3f}")
+
+    # (b) Token budget 256: three requests decode, then a 900-token prompt
+    # is admitted and streams in as chunk rows beside them.
+    short = [rng.randint(1, vocab, int(n)).astype(np.int32) for n in rng.randint(64, 161, 3)]
+    long_prompt = rng.randint(1, vocab, 900).astype(np.int32)
+
+    def budget_drive(eng):
+        for i, p in enumerate(short):
+            eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=64))
+        for _ in range(100):
+            if all(r is not None and r.generated for r in eng.slot_req[:3]):
+                break
+            eng.step()
+        else:
+            raise AssertionError("budget: the three short requests never all decoded")
+        if not eng.submit(engine_lib.Request(uid=3, prompt=long_prompt, max_new_tokens=32)):
+            raise AssertionError("900-token request rejected")
+        return eng.run()
+
+    _, out = run("budget", auto, dict(slots=4, token_budget=256), budget_drive)
+    c = out["continuous"]
+    if c["decode_stall_steps"] != 0 or c["completed_prefills"] != 4:
+        raise AssertionError(f"budget: {c}")
+    if out["max_rows"].get("mixed", 0) < 4 * 256:
+        raise AssertionError(f"budget: no 256-wide mixed window: {out['max_rows']}")
+
+    # (c) 16 slots under registry routing: 32 requests.
+    prompts = [rng.randint(1, vocab, int(n)).astype(np.int32) for n in rng.randint(64, 321, 32)]
+    run("slots16", auto, dict(slots=16), submit_all(prompts, 32))
+
+    # (d) backend "pallas": the packed GEMV at decode, the packed GEMM at prefill.
+    prompts = [rng.randint(1, vocab, int(n)).astype(np.int32) for n in rng.randint(100, 401, 8)]
+    run("packed", EncodingConfig(backend="pallas", attn_backend="auto"), dict(slots=4),
+        submit_all(prompts, 32))
+
+    by_kind = runs["spec"]["mmt4d_by_kind"]
+    if not (by_kind.get("verify", 0) > 0 and runs["budget"]["mmt4d_by_kind"].get("mixed", 0) > 0
+            and runs["slots16"]["mmt4d_by_kind"].get("decode", 0) > 0):
+        raise AssertionError("mmt4d did not serve verify, mixed and 16-slot decode dispatches")
+    del params
+    torch.cuda.empty_cache()
+    return runs
 
 
 def serve(torch, dev, seed: int) -> dict:
@@ -260,7 +569,6 @@ def serve(torch, dev, seed: int) -> dict:
 
     from repro_torch.configs import registry as cfg_registry
     from repro_torch.core.packed import EncodingConfig
-    from repro_torch.kernels import attn, fused_gemv, fused_pack_mmt4d
     from repro_torch.models import transformer as T
     from repro_torch.serving import engine as engine_lib
     from repro_torch.serving.config import EngineConfig
@@ -288,16 +596,16 @@ def serve(torch, dev, seed: int) -> dict:
         if not eng.submit(engine_lib.Request(uid=i, prompt=prompt, max_new_tokens=32)):
             raise AssertionError(f"request {i} rejected")
 
-    kernels = (fused_gemv.fused_gemv, fused_pack_mmt4d.fused_pack_mmt4d,
-               attn.flash_prefill_attention, attn.paged_decode_attention)
-    for k in kernels:
+    tally = DispatchTally(eng, cfg.num_layers)
+    kernels = kernel_fns()
+    for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {name: k.launches for name, k in kernels.items()}
 
     st = eng.stats
     tokens = sum(len(r.generated) for r in done)
@@ -313,13 +621,7 @@ def serve(torch, dev, seed: int) -> dict:
     if st["prefix_cache"]["hit_tokens"] <= 0:
         raise AssertionError("no prefix-cache hit")
     disp = st["dispatches"]
-    layers = cfg.num_layers
-    want = {
-        "fused_gemv": disp["decode"] * layers * 7,
-        "fused_pack_mmt4d": disp["prefill"] * layers * 7,
-        "flash_prefill_attention": disp["prefill"] * layers,
-        "paged_decode_attention": disp["decode"] * layers,
-    }
+    want = {name: tally.want[name] for name in kernels}
     log(f"[serve] launches {launches} expected {want} dispatches {disp}")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
@@ -381,13 +683,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     forward_check(torch, dev, args.seed)
     served = serve(torch, dev, args.seed)
+    windows = serve_windows(torch, dev, args.seed)
+    launches = {name: served["launches"][name] + sum(r["launches"][name] for r in windows.values())
+                for name in REPLACES}
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the serving paths: {idle}")
 
     table = []
     for name in REPLACES:
         row = results[name][HEADLINE[name]]
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": served["launches"][name],
+            "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in results[name].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -396,7 +704,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kind": kind, "build_s": build_s, "kernels": results,
-                   "serve": served, "table": table}, f, indent=1)
+                   "serve": served, "windows": windows, "table": table}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

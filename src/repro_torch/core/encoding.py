@@ -46,8 +46,16 @@ class TileSizes:
 
 def select_tile_sizes(phase: Phase, *, m_hint: int | None = None) -> TileSizes:
     """Pack tiles per phase.  N0 and K0 are the stored weight tile.  M0 is
-    128 rows for the GEMM phases and the live decode rows (at most
-    GEMV_MAX_ROWS) at decode, where no row is padded."""
+    128 rows for the GEMM phases and min(rows, GEMV_MAX_ROWS) at decode.
+
+    The H100 rule for the packed path (backend "pallas", and "xla", which
+    packs the same way): decode with at most 8 rows is one row block (M1 =
+    1) that the packed GEMV takes unpadded; more decode rows (a verify or
+    mixed window, many slots) pack into M1 = ceil(rows / 8) blocks of 8 for
+    the packed GEMM.  The GEMM flattens (m1, m0) rows into its own 64-row
+    tiles (csrc/mmt4d.cu), so a larger M0 would buy it nothing and only pad
+    more rows; 8 keeps the pad under one row block.  Pad rows are zero, so
+    the result is exact whatever M0 is."""
     if phase in (Phase.PREFILL, Phase.TRAIN):
         return TileSizes(PACK_TILE, PACK_TILE, PACK_TILE)
     rows = m_hint if m_hint is not None else 1

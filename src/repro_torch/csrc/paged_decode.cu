@@ -10,17 +10,22 @@
 // What bounds it on the H100: bytes (each live K/V row is read once per
 // kv head; the math is ~2 flops per byte).
 //
-// Design.  One block per (kv head, batch row).  The TPU kernel is driven by
-// a scalar-prefetched block table; here each block reads its own table row
-// and position, and walks only the live keys 0 .. pos+l: (pos+L-1)/bs + 1
-// pages at most.  The row's keys are split across W warps (W = 32 / (L*G)),
-// each warp takes 32 keys at a time, one key per lane: the lane reads its K
-// row (contiguous D elements) and computes the full score, the warp shares
-// max and sum by shuffles, then accumulates p * V row by row with lanes on
-// neighbouring dims.  The W partial (m, l, acc) states of a query row are
-// merged in shared memory at the end.  Idle slots decode at pos 0 against
-// the scratch page and stay finite.  The G query heads of a kv head share
-// the block (head = kv*G + j), so their K/V rows come from L1 after the first.
+// Design.  One block per (query-row tile, kv head, batch row).  The G query
+// heads of a kv head and the L window positions make L*G query rows (l, j),
+// head = kv*G + j; a tile holds LT = min(L, 32/G) window positions, i.e. at
+// most 32 rows, so any L runs as ceil(L/LT) tiles (the mixed step's
+// prefill-sized windows included) and a block keeps the per-row split-key
+// design.  The TPU kernel is driven by a scalar-prefetched block table; here
+// each block reads its own table row and position, and walks only the live
+// keys 0 .. pos+l: (pos+L-1)/bs + 1 pages at most.  A row's keys are split
+// across W warps (W = 32 / (LT*G)), each warp takes 32 keys at a time, one
+// key per lane: the lane reads its K row (contiguous D elements) and
+// computes the full score, the warp shares max and sum by shuffles, then
+// accumulates p * V row by row with lanes on neighbouring dims.  The W
+// partial (m, l, acc) states of a query row are merged in shared memory at
+// the end.  Rows of the last tile past L read no key and write nothing.
+// Idle slots decode at pos 0 against the scratch page and stay finite.  The
+// rows of a tile share its K/V rows, so they come from L1 after the first.
 #include "common.cuh"
 
 namespace {
@@ -31,7 +36,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(1024)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                     const T* __restrict__ v_pool, const int* __restrict__ table,
-                    const int* __restrict__ pos, T* __restrict__ out, int L, int h,
+                    const int* __restrict__ pos, T* __restrict__ out, int L, int lt, int h,
                     int kvh, int bs, int nb, int parts, float scale) {
   constexpr int DPL = (D + 31) / 32;  // accumulator dims per lane
   __shared__ float qs[MAXW][D];
@@ -43,15 +48,16 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int qrow = warp / parts;  // (l, j) query row of this warp
+  const int qrow = warp / parts;  // (l, j) query row of this warp, in the tile
   const int part = warp % parts;
-  const int l = qrow / g;
+  const int l = blockIdx.z * lt + qrow / g;
+  const bool live = l < L;        // the last tile may hold fewer than lt positions
   const int head = kv * g + (qrow % g);
   const int qpos = pos[b] + l;
-  const int t_end = min(qpos, nb * bs - 1);  // last key this row attends
+  const int t_end = live ? min(qpos, nb * bs - 1) : -1;  // last key this row attends
   const int* trow = table + (size_t)b * nb;
 
-  if (part == 0) {
+  if (part == 0 && live) {
     for (int d = lane; d < D; d += 32)
       qs[qrow][d] = to_f32(q[(((size_t)b * L + l) * h + head) * D + d]) * scale;
   }
@@ -117,7 +123,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     if (d < D) accs[warp][d] = acc[i];
   }
   __syncthreads();
-  if (part != 0) return;
+  if (part != 0 || !live) return;
   // Merge the `parts` partial states of this query row.
   const int w0 = qrow * parts;
   float mx = ms[w0];
@@ -137,13 +143,15 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* table, const int* pos,
            void* out, int b, int L, int h, int kvh, int bs, int nb, float scale,
            cudaStream_t stream) {
-  const int rows = L * (h / kvh);
+  const int g = h / kvh;
+  const int lt = min(L, MAXW / g);  // window positions per tile
+  const int rows = lt * g;          // query rows per tile, at most MAXW
   const int parts = MAXW / rows;
-  const dim3 grid(kvh, b);
+  const dim3 grid(kvh, b, (L + lt - 1) / lt);
   const dim3 block(rows * parts * 32);
   paged_decode_kernel<T, D><<<grid, block, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), table,
-      pos, static_cast<T*>(out), L, h, kvh, bs, nb, parts, scale);
+      pos, static_cast<T*>(out), L, lt, h, kvh, bs, nb, parts, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,7 +175,7 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool, const v
                                       int L, int h, int kvh, int d, int bs, int nb,
                                       float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kvh < 1 || h % kvh != 0 || L < 1 || L * (h / kvh) > MAXW) {
+  if (kvh < 1 || h % kvh != 0 || L < 1 || h / kvh > MAXW || L > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int* t = static_cast<const int*>(table);

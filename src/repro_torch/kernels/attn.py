@@ -87,8 +87,9 @@ def _paged_kernel():
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                            table: torch.Tensor, pos, *, kv_quant: str = "bf16") -> torch.Tensor:
     """q (B, L, H, D) against pools (P, bs, KV, D) through table (B, NB) int32
-    and pos (B,) int32 (position of q[:, 0]).  Only live pages are read.
-    Plain version on the CPU; on a CUDA tensor the kernel runs or this raises."""
+    and pos (B,) int32 (position of q[:, 0]), any window L (the kernel tiles
+    the L*G query rows 32 at a time).  Only live pages are read.  Plain
+    version on the CPU; on a CUDA tensor the kernel runs or this raises."""
     if kv_quant != "bf16":
         raise NotImplementedError(
             f"paged_decode_attention: kv_quant={kv_quant!r} waits for the "
@@ -103,9 +104,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
         return paged_decode_attention_plain(q, k_pool, v_pool, table, pos)
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_decode_attention runs on cuda (or cpu: plain), not {q.device}")
-    if d not in (16, 32, 64, 128) or L * (h // kvh) > 32:
+    if d not in (16, 32, 64, 128) or h // kvh > 32:
         raise ValueError(f"paged decode kernel takes D in 16/32/64/128 and "
-                         f"L*G <= 32, got D={d}, L={L}, G={h // kvh}")
+                         f"G <= 32, got D={d}, G={h // kvh}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(f"pool dtype {k_pool.dtype} != query dtype {q.dtype}")
     q, k_pool, v_pool = build.aligned(q), build.aligned(k_pool), build.aligned(v_pool)

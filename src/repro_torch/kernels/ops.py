@@ -10,12 +10,17 @@ through the registry to one of:
     backend="fused"     : the CUDA kernels with pack/unpack inside them: the
                           GEMV for decode with at most GEMV_MAX_ROWS rows, the
                           GEMM otherwise
-    backend="pallas"    : the packed mmt4d GEMM, not ported yet (ROADMAP)
+    backend="pallas"    : plain pack, the packed CUDA kernels, plain unpack:
+                          the packed GEMV (csrc/mmt4d_gemv.cu) for decode
+                          with one packed row block, the packed GEMM
+                          (csrc/mmt4d.cu) otherwise -- the paper's two
+                          microkernels, as in repro/kernels/ops.py
 
 The decode routing comes from the CUDA GEMV's own needs, not from the TPU's
 VMEM plan: the kernel streams the weight from device memory and stages at
 most a K-chunk of the <= 8 rows in shared memory, so any K fits, and rows
-are never padded to a sublane or slab multiple.
+are never padded to a sublane or slab multiple.  M0 for the packed path is
+encoding.select_tile_sizes's rule.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from repro_torch.core import encoding
 from repro_torch.core import targets as targets_lib
 from repro_torch.kernels import fused_gemv as fused_gemv_lib
 from repro_torch.kernels import fused_pack_mmt4d as fused_lib
+from repro_torch.kernels import mmt4d as mmt4d_lib
+from repro_torch.kernels import mmt4d_gemv as gemv_lib
 from repro_torch.kernels import ref
 from repro_torch.kernels import registry
 
@@ -78,13 +85,14 @@ def encoded_matmul(
             out2d = fused_gemv_lib.fused_gemv(x2d, rhs4)
         else:
             out2d = fused_lib.fused_pack_mmt4d(x2d, rhs4)
-    elif backend == "xla":
+    else:  # "xla" and "pallas": pack -> mmt4d -> unpack
         m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
-        out4 = ref.mmt4d(ref.pack(x2d, (m0, k0)), rhs4)
+        lhs4 = ref.pack(x2d, (m0, k0))
+        if backend == "xla":
+            out4 = ref.mmt4d(lhs4, rhs4)
+        elif phase is Phase.DECODE and lhs4.shape[0] == 1:
+            out4 = gemv_lib.mmt4d_gemv(lhs4, rhs4)
+        else:
+            out4 = mmt4d_lib.mmt4d(lhs4, rhs4)
         out2d = ref.unpack(out4, (m, n1 * n0))
-    else:
-        raise NotImplementedError(
-            "backend 'pallas' (the packed mmt4d GEMM that serves decode with more "
-            "than 8 rows) waits for the next port slice (ROADMAP, TPU kernels to port)"
-        )
     return out2d[:, :n].to(out_dtype).reshape(*lead, n)

@@ -28,9 +28,10 @@ every engine of the process.
 
 Backend names keep the JAX vocabulary.  For matmul: "reference" (un-encoded
 torch.matmul), "xla" (plain pack + mmt4d + unpack), "fused" (the CUDA GEMV
-at decode, the CUDA GEMM otherwise) and "pallas" (the packed mmt4d GEMM,
-not ported yet).  For attention: "xla" (plain) and "pallas" (the CUDA
-flash-prefill and paged-decode kernels).
+at decode, the CUDA GEMM otherwise) and "pallas" (plain pack, the packed
+CUDA mmt4d GEMV for one decode row block or the packed mmt4d GEMM, plain
+unpack).  For attention: "xla" (plain) and "pallas" (the CUDA flash-prefill
+and paged-decode kernels).
 """
 
 from __future__ import annotations

@@ -5,6 +5,11 @@
 serves the full-width model on CUDA through the hand-written kernels
 (--backend fused, --attn-backend auto).  --reduced serves the CPU smoke-test
 size of the same family; --device cpu runs the kernels' plain versions.
+--spec-decode (with --draft-k) verifies prompt-lookup drafts in one window
+dispatch per step; --token-budget N runs every step as one mixed
+chunked-prefill + decode dispatch of at most N tokens, with --slo-class
+naming the requests' class; --backend pallas routes every projection
+through the packed mmt4d kernels.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--max-seq", type=int, default=1024)
     ap.add_argument("--backend", default="fused",
-                    choices=["reference", "xla", "fused", "auto"])
+                    choices=["reference", "xla", "fused", "pallas", "auto"])
     ap.add_argument("--attn-backend", default="auto", choices=["xla", "pallas", "auto"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--block-size", type=int, default=16)
@@ -44,6 +49,14 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     ap.add_argument("--prefix-cache", dest="prefix_cache",
                     action=argparse.BooleanOptionalAction, default=True,
                     help="radix-tree prefix cache (--no-prefix-cache disables)")
+    ap.add_argument("--spec-decode", dest="spec_decode", action="store_true",
+                    help="speculative decode with the prompt-lookup drafter")
+    ap.add_argument("--draft-k", dest="draft_k", type=int, default=4)
+    ap.add_argument("--token-budget", dest="token_budget", type=int, default=None,
+                    help="tokens per mixed chunked-prefill + decode step")
+    ap.add_argument("--slo-class", dest="slo_class", default="standard",
+                    choices=["interactive", "standard", "batch"],
+                    help="SLO class of the requests (token-budget admission order)")
     args = ap.parse_args(argv)
 
     config = EngineConfig.from_args(args)
@@ -59,7 +72,8 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     for i in range(args.requests):
         plen = rng.randint(args.prompt_len // 2, args.prompt_len + 1)
         prompt = rng.randint(1, cfg.vocab_size, size=plen).astype(np.int32)
-        eng.submit(engine_lib.Request(uid=i, prompt=prompt, max_new_tokens=args.max_new))
+        eng.submit(engine_lib.Request(uid=i, prompt=prompt, max_new_tokens=args.max_new,
+                                      slo_class=args.slo_class))
     done = eng.run()
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
@@ -75,6 +89,13 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     print(f"[serve] paged: peak_active={stats['peak_active']} pages={stats['pages_total']} "
           f"peak_in_use={stats['peak_in_use']} preemptions={stats['preemptions']} "
           f"prefix hit_rate={pc['hit_rate']:.3f} hit_tokens={pc['hit_tokens']}")
+    if "spec" in stats:
+        sp = stats["spec"]
+        print(f"[serve] spec: proposed={sp['proposed']} accepted={sp['accepted']} "
+              f"acceptance={sp['acceptance_rate']:.3f} "
+              f"mean_accepted_len={sp['mean_accepted_len']:.3f}")
+    if "continuous" in stats:
+        print(f"[serve] token budget: {stats['continuous']}")
     for r in done[: min(4, len(done))]:
         print(f"  req {r.uid}: prompt[:4]={r.prompt[:4].tolist()} -> gen[:8]={r.generated[:8]}")
     return done

@@ -142,7 +142,15 @@ def attention_apply(
             )
         table = cache["table"]
         bs_page = cache["k"].shape[1]
-        # Window pads past the last logical block clamp to the final table entry.
+        # An L > 1 window (spec verify, mixed step) writes all L positions
+        # before attending; positions past a row's real content are pads.
+        # Pads past the last logical block clamp to the final table entry
+        # (JAX's contract).  The engine widens the table to cover every
+        # window (Engine._live_table_width), so a pad inside the table lands
+        # on the scratch page or on a masked future offset of a private page.
+        # index_put_ writes duplicate indices in no fixed order on CUDA; the
+        # only duplicates are such pads (and idle rows on scratch), whose
+        # values are never read unmasked.
         blk = torch.clamp(positions // bs_page, max=table.shape[1] - 1)
         pg = torch.gather(table.long(), 1, blk)
         off = positions % bs_page

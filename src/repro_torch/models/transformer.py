@@ -87,16 +87,25 @@ def cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, cache_mode: str = 
 
 def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
             enc: packed.EncodingConfig, phase: Phase, caches: dict | None = None,
-            pos: torch.Tensor | int = 0, last_logits_only: bool = False) -> torch.Tensor:
-    """tokens (B, S) -> f32 logits (B, S or 1, vocab); caches update in place.
+            pos: torch.Tensor | int = 0, last_logits_only: bool = False,
+            logits_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens (B, S) -> f32 logits (B, S or 1 or K, vocab); caches update in place.
 
     `pos` is the position of tokens[:, 0]: an int shared by every row, or a
-    (B,) tensor (decode: each row at its own depth)."""
+    (B,) tensor (decode: each row at its own depth; S > 1 is a masked-causal
+    window, the verify window of speculative decode or the token-budget mixed
+    step's chunk).  `logits_idx` (B, K) int keeps only those per-row window
+    positions: the hidden states are gathered before the final norm and the
+    head, so a chunk row pays for K logit rows, never S.  It overrides
+    last_logits_only."""
     x = params["embed"][tokens].to(cfg.activation_dtype)
     layer_caches = caches["layers"] if caches is not None else [None] * len(params["layers"])
     for lp, lc in zip(params["layers"], layer_caches):
         x = blocks.attn_block_apply(lp, x, cfg=cfg, enc=enc, phase=phase, cache=lc, pos=pos)
-    if last_logits_only:
+    if logits_idx is not None:
+        idx = logits_idx.to(device=x.device, dtype=torch.int64)
+        x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    elif last_logits_only:
         x = x[:, -1:, :]
     x = L.norm_apply(params["final_norm"], x, cfg)
     if cfg.tie_embeddings:

@@ -1,5 +1,5 @@
-"""Serving engine for the phase-split paged path (counterpart of
-repro/serving/engine.py: Engine with EngineConfig defaults).
+"""Serving engine on the paged KV cache (counterpart of
+repro/serving/engine.py: Engine with the paged cache).
 
 Slot-based continuous batching with the paged KV cache: admission charges
 only the pages a prompt needs, a radix prefix cache shares full prompt
@@ -10,8 +10,26 @@ blocks into the pool pages in place.  Decode is vectorized: one dispatch per
 step serves every slot at its own position; the first decode step of a
 request recomputes the last prompt token (its logits give the first
 generated token), exactly as in the JAX engine.  Decode growth preempts the
-latest-admitted slot when the pool is dry (its request replays; greedy
+lowest-priority slot when the pool is dry (its request replays; greedy
 decode makes the replay identical).
+
+Two step kinds ride the masked-causal decode window (an L > 1 decode-phase
+forward, models/layers.py):
+
+  spec_decode   a prompt-lookup drafter (serving/spec.py, or `drafter=`)
+                proposes up to draft_k tokens per slot; ONE verify dispatch
+                over the (slots, L) window scores them, and each slot
+                commits its longest greedy-consistent draft prefix plus the
+                model's next token.  Rejected draft pages return to the pool.
+  token_budget  every step is ONE mixed dispatch whose window packs decode
+                rows (1 token or their verify window) beside chunked-prefill
+                rows, so a long prompt streams in without pausing decode;
+                admission order, budget split and preemption order come
+                from TokenBudgetScheduler (SLO classes with aging).
+
+Both emit the tokens of plain greedy decode.  A window of slots x L rows
+keys the registry's m32/m64/big buckets, which route to the packed mmt4d
+GEMM (kernels/registry.py), as do plain decode steps with more than 8 slots.
 
 Lifecycle: bounded admission queue with structured Rejected results,
 deadlines and cancel at step boundaries, a non-finite logits guard that
@@ -20,9 +38,8 @@ fault hook raises KernelFaultError demotes that registry key for the rest of
 the process and retries on the next rung.  Real CUDA errors propagate.
 
 Not in this slice (each raises NotImplementedError at construction, naming
-its ROADMAP slice): speculative decode, the token budget, the dense cache,
-temperature sampling, kv8/kv4 pools, meshes larger than one card, quantized
-weights, and more than 8 slots under the kernel backends.
+its ROADMAP slice): the dense cache, temperature sampling, kv8/kv4 pools,
+meshes larger than one card, and quantized weights.
 """
 
 from __future__ import annotations
@@ -42,9 +59,8 @@ from repro_torch.models import transformer as T
 from repro_torch.runtime import watchdog as watchdog_lib
 from repro_torch.serving import faults as faults_lib
 from repro_torch.serving import paged as paged_lib
+from repro_torch.serving import spec as spec_lib
 from repro_torch.serving.config import EngineConfig
-
-_NEXT_SLICE = "ROADMAP, next slice: mmt4d_pallas with spec decode and the token-budget mixed step"
 
 
 @dataclasses.dataclass
@@ -57,6 +73,9 @@ class Request:
     # Decode finishes the slot early when this token is emitted (the EOS
     # itself is kept in `generated`).
     eos_id: int | None = None
+    # Speculative-decode accounting: drafts offered / drafts accepted.
+    draft_proposed: int = 0
+    draft_accepted: int = 0
     # Wall-clock budget from submit() to last token, in ms of the engine's
     # (injectable) clock; checked at step boundaries.
     deadline_ms: float | None = None
@@ -64,6 +83,11 @@ class Request:
     error: str | None = None
     cancel_requested: bool = False
     submit_t: float | None = None
+    # SLO class for the token-budget scheduler ("interactive" | "standard" |
+    # "batch"; unknown values rank as "standard"); queue order ages by
+    # enqueued_step (stamped by submit()) so no class starves.
+    slo_class: str = "standard"
+    enqueued_step: int | None = None
     # Tenant for per-tenant page-quota accounting (EngineConfig.tenant_quota).
     tenant: str = "default"
 
@@ -94,12 +118,61 @@ class Rejected:
         return False
 
 
+# Lower rank = more urgent.  Unknown classes rank as "standard".
+SLO_CLASSES = {"interactive": 0, "standard": 1, "batch": 2}
+
+
+class TokenBudgetScheduler:
+    """Admission / budget-split / preemption policy of the token-budget
+    mixed step (the JAX package's, unchanged).
+
+    Admission order: SLO class rank (interactive < standard < batch) with
+    starvation-free aging: every `aging_steps` steps queued promote a
+    request one class.  Ties break FIFO (enqueued_step, then submission).
+    Budget split per step: decode rows first (1 token each, the zero-stall
+    floor), then spec drafts (spec.draft_budget), and chunked prefill takes
+    the rest, never less than 1 token per prefill row.  Preemption: the max
+    (class rank, admission ticket) is evicted; aging protects queue order
+    only."""
+
+    def __init__(self, budget: int, *, aging_steps: int = 64):
+        if budget < 1:
+            raise ValueError(f"token_budget must be >= 1, got {budget}")
+        self.budget = int(budget)
+        self.aging_steps = max(1, int(aging_steps))
+
+    def rank(self, req: Request) -> int:
+        return SLO_CLASSES.get(req.slo_class, SLO_CLASSES["standard"])
+
+    def queue_key(self, req: Request, now_step: int) -> tuple[int, int]:
+        """Sort key for queued requests (lower = admitted first)."""
+        enq = req.enqueued_step if req.enqueued_step is not None else now_step
+        waited = max(0, now_step - enq)
+        return (self.rank(req) - waited // self.aging_steps, enq)
+
+    def victim_key(self, req: Request, ticket: int) -> tuple[int, int]:
+        """Sort key for preemption victims (the MAX is evicted)."""
+        return (self.rank(req), int(ticket))
+
+    def split_chunks(self, decode_cost: int, remaining: dict[int, int],
+                     order: list[int]) -> dict[int, int]:
+        """Chunk sizes for this step's prefill rows: `remaining[s]` prompt
+        tokens are left on row s, `order` is priority order, decode rows
+        (drafts included) already spent `decode_cost`.  Every row gets at
+        least 1 token; the leftover goes to the highest-priority rows first."""
+        spare = max(self.budget - int(decode_cost), len(order))
+        chunks = {s: 1 for s in order}
+        spare -= len(order)
+        for s in order:
+            add = min(remaining[s] - 1, spare)
+            if add > 0:
+                chunks[s] += add
+                spare -= add
+        return chunks
+
+
 def _check_supported(config: EngineConfig, enc: EncodingConfig) -> None:
     todo = []
-    if config.spec_decode:
-        todo.append(f"spec_decode ({_NEXT_SLICE})")
-    if config.token_budget is not None:
-        todo.append(f"token_budget ({_NEXT_SLICE})")
     if config.cache_mode != "paged" or config.decode_mode != "vectorized":
         todo.append("the dense cache / grouped decode (ROADMAP: dense cache with "
                     "dense_decode_attention)")
@@ -111,10 +184,6 @@ def _check_supported(config: EngineConfig, enc: EncodingConfig) -> None:
         todo.append("mesh_shape > 1 (ROADMAP: tensor parallelism)")
     if enc.weight_quant != "none":
         todo.append(f"weight_quant={enc.weight_quant} (ROADMAP: quantized weights and KV)")
-    decode = registry_lib.select(quant="none", phase=Phase.DECODE, m=config.slots,
-                                 target=enc.target, requested=enc.resolved_backend())
-    if decode.backend == "pallas":
-        todo.append(f"slots={config.slots} > 8 under backend={enc.backend} ({_NEXT_SLICE})")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -124,8 +193,9 @@ class Engine:
 
     Engine(params, cfg, enc, config=EngineConfig(...), device="cuda"); the
     legacy keyword form Engine(params, cfg, enc, slots=4, ...) folds into
-    EngineConfig(**kwargs) as in the JAX package.  `clock` (seconds) drives
-    deadlines and the watchdog; `fault_hooks` is an object with
+    EngineConfig(**kwargs) as in the JAX package.  `drafter(context, k)`
+    replaces the prompt-lookup drafter of spec decode; `clock` (seconds)
+    drives deadlines and the watchdog; `fault_hooks` is an object with
     on_step_begin, pre_dispatch and corrupt_slots (and optionally
     held_pages), the JAX package's injection points; `stream_cb(req, token)`
     sees every committed token.
@@ -139,6 +209,7 @@ class Engine:
         config: EngineConfig | None = None,
         *,
         device: torch.device | str = "cuda",
+        drafter: Callable | None = None,
         clock: Callable[[], float] | None = None,
         fault_hooks=None,
         stream_cb: Callable[[Request, int], None] | None = None,
@@ -173,9 +244,41 @@ class Engine:
         }
         self.step_count = 0
         # Dispatches run per kind ("prefill" counts batched and suffix
-        # prefills): each runs every layer once, so kernel launches on the
-        # main path are these counts times layers times projections.
+        # prefills; "decode", "verify", "mixed"): each runs every layer once,
+        # so kernel launches are these counts times layers times projections.
         self.dispatches: collections.Counter[str] = collections.Counter()
+
+        self.draft_k = int(config.draft_k)
+        self.spec_decode = bool(config.spec_decode)
+        self.drafter = drafter if drafter is not None else spec_lib.propose
+        self.token_budget = config.token_budget
+        self.scheduler = (
+            TokenBudgetScheduler(self.token_budget, aging_steps=config.slo_aging_steps)
+            if self.token_budget is not None else None
+        )
+        self._window_m = self.slots    # M (slots x L) of the imminent verify/mixed dispatch
+        self._window_blocks = 0        # table width the mixed window needs
+        if self.scheduler is not None:
+            self.continuous = {
+                "token_budget": self.token_budget,
+                "mixed_steps": 0,
+                "decode_tokens": 0,        # decode-row window tokens dispatched
+                "prefill_tokens": 0,       # prompt chunk tokens dispatched
+                "decode_stall_steps": 0,   # steps where live decode rows emitted 0
+                "chunked_admissions": 0,
+                "completed_prefills": 0,
+            }
+        if self.spec_decode:
+            self.spec_stats = {
+                "steps": 0,          # engine steps served by a verify window
+                "slot_steps": 0,     # per-slot verify participations
+                "proposed": 0,       # draft tokens offered to verify
+                "accepted": 0,       # draft tokens matching the greedy target
+                "committed": 0,      # tokens emitted by spec steps (incl. bonus)
+                "pool_deferred": 0,  # spec steps skipped: draft pages won't fit
+            }
+            self.slot_proposed = np.zeros(self.slots, np.int64)
+            self.slot_accepted = np.zeros(self.slots, np.int64)
 
         self.block_size = config.block_size
         self.num_blocks = -(-self.max_seq // self.block_size)
@@ -197,6 +300,9 @@ class Engine:
         )
         self.slot_pages: list[list[int]] = [[] for _ in range(self.slots)]
         self._tenant_reserved: dict[str, int] = {}
+        # Admissions that deferred on an unwritten shared prefix and later
+        # re-planned into real shares (token-budget admission).
+        self.deferred_hits = 0
         self.slot_ticket = np.zeros(self.slots, np.int64)
         self._ticket = 0
         self._tables_dirty = True
@@ -204,6 +310,9 @@ class Engine:
         self.peak_active = 0
         self.slot_req: list[Request | None] = [None] * self.slots
         self.slot_pos = np.zeros(self.slots, np.int32)
+        # Prompt tokens already in the slot's cache: len(prompt) once prefill
+        # ran; less only mid-chunked-prefill under the token budget.
+        self.slot_prefill_done = np.zeros(self.slots, np.int64)
         self.queue: collections.deque[Request] = collections.deque()
         self.finished: list[Request] = []
 
@@ -221,6 +330,7 @@ class Engine:
         """Queue `req`, or refuse it: queue full, or a request that could
         never fit the cache, the pool or its tenant's quota."""
         req.submit_t = self.clock()
+        req.enqueued_step = self.step_count
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             return self._reject(
                 req, "queue_full",
@@ -292,6 +402,15 @@ class Engine:
                            phase=Phase.DECODE, caches=self.caches, pos=pos)[:, -1]
         return torch.argmax(logits, dim=-1), logits
 
+    def _window(self, tokens: torch.Tensor, pos: torch.Tensor,
+                logits_idx: torch.Tensor | None = None) -> torch.Tensor:
+        """The verify / mixed dispatch: one decode-phase forward over the
+        (B, L) window, row b's tokens at pos[b] .. pos[b]+L-1 (masked-causal
+        inside the window, all L K/V pairs written).  Logits (B, L or K, V)."""
+        return T.forward(self.params, tokens, cfg=self.cfg, enc=self.enc,
+                         phase=Phase.DECODE, caches=self.caches, pos=pos,
+                         logits_idx=logits_idx)
+
     def _attn_s(self, phase: Phase) -> int:
         """The logical KV length the next dispatch of `phase` attends."""
         if phase is Phase.PREFILL:
@@ -303,7 +422,10 @@ class Engine:
         pre_dispatch faults match and what a quarantine demotes)."""
         phase = Phase.PREFILL if kind == "prefill" else Phase.DECODE
         target = self.enc.target.name
-        m = self.slots * self.max_seq if kind == "prefill" else self.slots
+        # A verify or mixed window's M is slots x L, set per step: wide
+        # windows land in the m32/m64/big buckets (the packed mmt4d GEMM).
+        m = {"prefill": self.slots * self.max_seq, "decode": self.slots,
+             "verify": self._window_m, "mixed": self._window_m}[kind]
         return (
             registry_lib.attn_dispatch_key(phase, self._attn_s(phase), target),
             registry_lib.dispatch_key("none", phase, m, target),
@@ -409,7 +531,7 @@ class Engine:
                 logits[torch.as_tensor(list(forced), device=logits.device)] = float("nan")
         if not self.logits_guard:
             return frozenset()
-        ok = torch.isfinite(logits).all(dim=-1).cpu().numpy()
+        ok = torch.isfinite(logits).reshape(logits.shape[0], -1).all(dim=-1).cpu().numpy()
         bad = frozenset(s for s in active if not ok[s])
         self.lifecycle["guard_trips"] += len(bad)
         return bad
@@ -480,6 +602,7 @@ class Engine:
             self.slot_req[s] = r
             r.status = "running"
             self.slot_pos[s] = len(r.prompt)
+            self.slot_prefill_done[s] = len(r.prompt)
             self.slot_pages[s] = list(plan.pages)
             self.alloc.claim_owner(plan.pages, s)
             self.alloc.mark_written(plan.pages)
@@ -545,12 +668,16 @@ class Engine:
         self._scatter_prefill(tmp, [(None, req, plan)])
 
     def _live_table_width(self) -> int:
-        """Block-table width the next decode dispatch needs: the most pages
-        any active slot holds, bucketed to a power of two (tables of <= 8
-        blocks keep their full width)."""
+        """Block-table width the next decode-phase dispatch needs: the most
+        pages any active slot holds, bucketed to a power of two (tables of
+        <= 8 blocks keep their full width).  The mixed step widens it to
+        cover its whole window, pads included (_window_blocks, 0 outside
+        mixed steps): a pad past the width would clamp onto the row's last
+        real page and corrupt committed history, while inside the width it
+        lands on scratch or a masked future offset of a private page."""
         if self.num_blocks <= 8:
             return self.num_blocks
-        live = 1
+        live = max(1, self._window_blocks)
         for s in range(self.slots):
             if self.slot_req[s] is not None:
                 live = max(live, len(self.slot_pages[s]))
@@ -571,6 +698,7 @@ class Engine:
         front; greedy replay emits the same tokens."""
         req = self.slot_req[s]
         req.generated.clear()
+        req.draft_proposed = req.draft_accepted = 0  # replay re-accounts
         req.status = "queued"
         self._release_quota(req)
         self.alloc.free_pages(self.slot_pages[s], owner=s, tenant=req.tenant)
@@ -578,24 +706,42 @@ class Engine:
         self.block_table[s, :] = paged_lib.SCRATCH_PAGE
         self.slot_req[s] = None
         self.slot_pos[s] = 0
+        self.slot_prefill_done[s] = 0  # replay re-runs (chunked) prefill
         self.queue.appendleft(req)
         self._tables_dirty = True
         self.preemptions += 1
 
-    def _ensure_decode_pages(self) -> None:
-        """Each active slot must own the page its next token writes into;
-        when the pool is dry, the latest-admitted slot is preempted until a
-        page frees (possibly the requesting slot itself)."""
-        active = [s for s in range(self.slots) if self.slot_req[s] is not None]
-        for s in sorted(active, key=lambda s: self.slot_ticket[s]):
+    def _victim_key(self, v: int):
+        """Preemption priority: the max over live slots is evicted.  The
+        phase-split engine takes the latest admission ticket; under the token
+        budget the SLO class outranks the ticket."""
+        if self.scheduler is not None:
+            return self.scheduler.victim_key(self.slot_req[v], self.slot_ticket[v])
+        return self.slot_ticket[v]
+
+    def _ensure_decode_pages(self, extra: int = 0) -> None:
+        """Each active slot must own the page its next token writes into,
+        and with `extra` > 0 (a verify window) the pages of the `extra`
+        draft positions after it."""
+        self._ensure_pages({
+            s: max(int(self.slot_pos[s]) - 1, 0) + extra
+            for s in range(self.slots) if self.slot_req[s] is not None
+        })
+
+    def _ensure_pages(self, ends: dict[int, int]) -> None:
+        """Grow each slot's pages to cover its last write position `ends[s]`
+        (absolute), in admission order; when the pool is dry, preempt the
+        lowest-priority slot (_victim_key) until a page frees, possibly the
+        requesting slot itself."""
+        for s in sorted(ends, key=lambda s: self.slot_ticket[s]):
             if self.slot_req[s] is None:
                 continue  # preempted while serving an earlier slot
-            need = max(int(self.slot_pos[s]) - 1, 0) // self.block_size + 1
+            need = ends[s] // self.block_size + 1
             while self.slot_req[s] is not None and len(self.slot_pages[s]) < need:
                 page = self.alloc.alloc(owner=s, tenant=self.slot_req[s].tenant)
                 if page is None:
                     live = [v for v in range(self.slots) if self.slot_req[v] is not None]
-                    self._preempt(max(live, key=lambda v: self.slot_ticket[v]))
+                    self._preempt(max(live, key=self._victim_key))
                     continue
                 self.slot_pages[s].append(page)
                 self.block_table[s, len(self.slot_pages[s]) - 1] = page
@@ -637,10 +783,21 @@ class Engine:
                              if astats["lookup_blocks"] else 0.0),
                 "evictions": astats["evictions"],
                 "cached_pages": astats["cached_pages"],
+                "deferred_hits": self.deferred_hits,
             },
         }
         if self.config.downgrades:
             out["config_downgrades"] = list(self.config.downgrades)
+        if self.spec_decode:
+            st = dict(self.spec_stats)
+            st["acceptance_rate"] = st["accepted"] / max(st["proposed"], 1)
+            st["mean_accepted_len"] = st["committed"] / max(st["slot_steps"], 1)
+            st["per_slot_proposed"] = self.slot_proposed.tolist()
+            st["per_slot_accepted"] = self.slot_accepted.tolist()
+            out["spec"] = st
+            out["draft_k"] = self.draft_k
+        if self.scheduler is not None:
+            out["continuous"] = dict(self.continuous)
         if self.tenant_quota is not None:
             out["prefix_cache"]["tenant_quota"] = self.tenant_quota
             out["prefix_cache"]["tenant_usage"] = self.alloc.tenant_usage()
@@ -678,6 +835,7 @@ class Engine:
             self.lifecycle[status] = self.lifecycle.get(status, 0) + 1
         self.slot_req[s] = None
         self.slot_pos[s] = 0  # freed rows decode (discarded) at pos 0
+        self.slot_prefill_done[s] = 0
         self._release_quota(req)
         self.alloc.free_pages(self.slot_pages[s], owner=s, tenant=req.tenant)
         self.slot_pages[s] = []
@@ -726,12 +884,347 @@ class Engine:
             last[s, 0] = req.generated[-1] if req.generated else int(req.prompt[-1])
         return last
 
+    # ---- token-budget admission (no prefill dispatch) ------------------------------
+
+    def _admit_budget(self) -> None:
+        """Admission under the token budget: no prefill dispatch here, an
+        admitted prompt streams into the cache through the mixed step's chunk
+        rows (slot_prefill_done tracks progress).  Candidates go in SLO
+        priority order; pool pressure stops admission at the first one that
+        does not fit.  Leading prefix-shared pages are reused verbatim only
+        once written: a row prefilling from inside an unwritten shared block
+        would spray its window-pad writes over the owner's history, so the
+        plan is cut at the first unwritten page (or the admission defers to
+        let the writer's chunks land)."""
+        free = [s for s in range(self.slots) if self.slot_req[s] is None]
+        if not free or not self.queue:
+            return
+        candidates = sorted(self.queue,
+                            key=lambda r: self.scheduler.queue_key(r, self.step_count))
+        for req in candidates:
+            if not free:
+                break
+            if req.max_new_tokens <= 0:
+                self.queue.remove(req)
+                self._finish_degenerate(req)
+                continue
+            if req.cancel_requested or self._past_deadline(req):
+                self.queue.remove(req)
+                self._admission_reap(req)
+                continue
+            if self._quota_blocked(req):
+                continue  # other tenants' work keeps flowing past a capped tenant
+            nblocks, shared = self.alloc.plan_prompt(req.prompt)
+            lead = 0
+            while lead in shared and self.alloc.is_written(shared[lead]):
+                lead += 1
+            if lead < len(shared) and self._defer_for_writer(req, lead):
+                continue
+            if getattr(req, "_defer_lead", None) is not None:
+                # Admitted after deferring: blocks the wait turned into shares.
+                self.deferred_hits += max(0, lead - req._defer_lead)
+                req._defer_lead = None
+            shared = {j: p for j, p in shared.items() if j < lead}
+            if not self.alloc.plan_fits(nblocks, shared):
+                break  # pool pressure: the head candidate waits
+            plan = self.alloc.commit_prompt(req.prompt, nblocks, shared, tenant=req.tenant)
+            if plan is None:
+                raise paged_lib.AllocatorInvariantError(
+                    "commit_prompt failed after plan_fits admitted the plan"
+                )
+            s = free.pop(0)
+            self.slot_pages[s] = list(plan.pages)
+            self.alloc.claim_owner(plan.pages, s)
+            self.block_table[s, :] = paged_lib.SCRATCH_PAGE
+            self.block_table[s, : len(plan.pages)] = plan.pages
+            self.slot_ticket[s] = self._ticket
+            self._ticket += 1
+            self._tables_dirty = True
+            self._reserve_quota(req)
+            self.queue.remove(req)
+            self.slot_req[s] = req
+            req.status = "running"
+            self.slot_prefill_done[s] = lead * self.block_size
+            self.slot_pos[s] = lead * self.block_size
+            self.continuous["chunked_admissions"] += 1
+
+    # A candidate declining unwritten prefix shares re-checks the tree for at
+    # most this many admission opportunities before recomputing the prefix
+    # privately.
+    _DEFER_CAP = 4
+
+    def _defer_for_writer(self, req: Request, lead: int) -> bool:
+        """Whether to hold `req` out of this admission round because part of
+        its tree-matched prefix is still unwritten; records the written lead
+        so the eventual admission can count the blocks the wait recovered."""
+        count = getattr(req, "_defer_count", 0)
+        if count >= self._DEFER_CAP:
+            return False
+        req._defer_count = count + 1
+        req._defer_lead = lead
+        return True
+
+    # ---- speculative decode (prompt-lookup drafts + one verify dispatch) -----------
+
+    def _plan_drafts(self, active: list[int], k_max: int | None = None):
+        """(L, {slot: draft}) for this step's verify window, or None for the
+        plain one-token path (no headroom, or nothing to propose).  `k_max`
+        caps drafts below draft_k (the mixed step's budget share).  One shared
+        L: every row's last window write lands at pos-1 + L-1, which must stay
+        inside max_seq even for pad rows."""
+        k = self.draft_k if k_max is None else min(self.draft_k, int(k_max))
+        head = min(self.max_seq - int(self.slot_pos[s]) + 1 for s in active)
+        L = min(1 + k, head)
+        if L <= 1:
+            return None
+        drafts: dict[int, np.ndarray] = {}
+        any_draft = False
+        for s in active:
+            req = self.slot_req[s]
+            # A commit is at most accepted drafts + 1 bonus token: never draft
+            # past the request's remaining budget.
+            kk = min(L - 1, max(req.max_new_tokens - len(req.generated) - 1, 0))
+            d = spec_lib._EMPTY
+            if kk > 0:
+                ctx = np.concatenate([np.asarray(req.prompt, np.int32),
+                                      np.asarray(req.generated, np.int32)])
+                d = np.asarray(self.drafter(ctx, kk), np.int32).ravel()[:kk]
+            drafts[s] = d
+            any_draft = any_draft or d.size > 0
+        return (L, drafts) if any_draft else None
+
+    def _draft_pages_fit(self, active: list[int], L: int) -> bool:
+        """Every active slot's draft window (positions through pos-1 + L-1)
+        fits the free pool as it is: speculation never preempts a live
+        request for pages only unverified drafts need.  available() counts
+        evictable cached pages, so drafts may drain cold prefix cache."""
+        need = 0
+        for s in active:
+            pos = max(int(self.slot_pos[s]) - 1, 0) + L - 1
+            need += max(0, pos // self.block_size + 1 - len(self.slot_pages[s]))
+        return need <= self.alloc.available()
+
+    def _truncate_slot_pages(self, s: int) -> None:
+        """Spec rollback: return the pages only rejected drafts touched (the
+        committed history plus the next write position, slot_pos - 1, define
+        what the slot keeps).  Stale draft K/V in kept pages stays masked
+        until overwritten.  Draft pages are trailing decode growth, never
+        radix-registered prompt blocks; the assert keeps that contract."""
+        need = (int(self.slot_pos[s]) - 1) // self.block_size + 1
+        extra = self.slot_pages[s][need:]
+        if not extra:
+            return
+        assert not any(self.alloc.is_registered(p) for p in extra), (
+            "spec rollback would free radix-registered pages"
+        )
+        self.slot_pages[s] = self.slot_pages[s][:need]
+        req = self.slot_req[s]
+        self.alloc.free_pages(
+            extra, owner=s,
+            tenant=req.tenant if req is not None else paged_lib.DEFAULT_TENANT,
+        )
+        self.block_table[s, need:] = paged_lib.SCRATCH_PAGE
+        self._tables_dirty = True
+
+    def _accept(self, s: int, d: np.ndarray, tgt_row: np.ndarray, st: dict | None) -> int:
+        """Commit slot s's longest greedy-consistent draft prefix plus the
+        bonus token and account it; returns the tokens emitted.  A finish
+        inside the window (EOS among accepted drafts, max_new_tokens,
+        max_seq) truncates the commit, and only the drafts consumed count."""
+        a = 0
+        while a < d.size and int(d[a]) == int(tgt_row[a]):
+            a += 1
+        commit = [int(t) for t in d[:a]] + [int(tgt_row[a])]
+        req = self.slot_req[s]
+        got = self._commit_tokens(s, commit)
+        if st is not None:
+            if got == len(commit):
+                scored, used = int(d.size), a
+            else:
+                scored = used = min(got, a)
+            req.draft_proposed += scored
+            req.draft_accepted += used
+            self.slot_proposed[s] += scored
+            self.slot_accepted[s] += used
+            st["slot_steps"] += 1
+            st["proposed"] += scored
+            st["accepted"] += used
+            st["committed"] += got
+        if self.slot_req[s] is not None:
+            self._truncate_slot_pages(s)
+        return got
+
+    def _spec_step(self, active: list[int], L: int, drafts: dict) -> int:
+        """ONE verify dispatch scores every slot's draft window; each slot
+        commits its longest greedy-consistent prefix plus the bonus token."""
+        mat = np.zeros((self.slots, L), np.int32)
+        mat[:, :1] = self._last_tokens(active)
+        for s in active:
+            mat[s, 1: 1 + drafts[s].size] = drafts[s]
+        pos = np.maximum(self.slot_pos.astype(np.int32) - 1, 0)
+        self._window_m = self.slots * L
+        logits = self._dispatch("verify", self._window, self._tensor(mat), self._tensor(pos))
+        bad = self._guard_slots(logits, active)
+        # tgt[s, j]: the greedy token after mat[s, :j+1] -- the acceptance
+        # target of draft j and the bonus token at the cut.
+        tgt = torch.argmax(logits, dim=-1).cpu().numpy()
+        st = self.spec_stats
+        st["steps"] += 1
+        emitted = 0
+        for s in active:
+            if s in bad:
+                self._finish_slot(s, status="error",
+                                  error="non-finite logits (guard tripped, verify)")
+                continue
+            if self.slot_req[s].cancel_requested:
+                self._finish_slot(s, status="cancelled", error="cancelled mid-dispatch")
+                continue
+            emitted += self._accept(s, drafts[s], tgt[s], st)
+        return emitted
+
+    # ---- token-budget mixed step (chunked prefill beside decode) --------------------
+
+    def _mixed_step(self) -> int:
+        """ONE budget-bounded decode-phase dispatch for every active slot:
+        decode rows spend 1 token (or their verify window), prefill rows a
+        chunk of their remaining prompt.  Row r's window holds positions
+        start_r .. start_r + L - 1 (start = slot_pos - 1 for decode, the
+        prefill progress for prefill); the masked-causal window over the
+        committed history is chunked-prefill masking.  Pads write garbage K/V
+        strictly past every row's real content, L is capped so no pad reaches
+        max_seq, and the table is widened to the window (_live_table_width).
+        A prefill row's final chunk yields its first token in the same
+        dispatch, so output equals sequential prefill-then-decode."""
+        active = [s for s in range(self.slots) if self.slot_req[s] is not None]
+        if not active:
+            return 0
+        cont = self.continuous
+        decode_rows = [s for s in active
+                       if self.slot_prefill_done[s] >= len(self.slot_req[s].prompt)]
+        prefill_rows = [s for s in active if s not in decode_rows]
+        start = {s: (max(int(self.slot_pos[s]) - 1, 0) if s in decode_rows
+                     else int(self.slot_prefill_done[s])) for s in active}
+        head = min(self.max_seq - start[s] for s in active)
+
+        # Spec drafts for decode rows, capped by the budget's spare share.
+        drafts: dict[int, np.ndarray] = {}
+        if self.spec_decode and decode_rows:
+            k_cap = spec_lib.draft_budget(self.draft_k, len(decode_rows), self.token_budget)
+            plan = (self._plan_drafts(decode_rows, k_max=min(k_cap, head - 1))
+                    if k_cap > 0 and head > 1 else None)
+            if plan is not None:
+                drafts = {s: d for s, d in plan[1].items() if d.size}
+            if drafts:
+                # Never preempt a live request for pages only drafts need.
+                need = sum(max(0, (start[s] + int(drafts[s].size)) // self.block_size
+                               + 1 - len(self.slot_pages[s])) for s in drafts)
+                if need > self.alloc.available():
+                    self.spec_stats["pool_deferred"] += 1
+                    drafts = {}
+
+        # Budget split: decode rows first, prefill chunks take the rest (at
+        # least 1 token per prefill row).
+        empty = spec_lib._EMPTY
+        decode_cost = sum(1 + int(drafts.get(s, empty).size) for s in decode_rows)
+        chunks: dict[int, int] = {}
+        if prefill_rows:
+            remaining = {s: len(self.slot_req[s].prompt) - int(self.slot_prefill_done[s])
+                         for s in prefill_rows}
+            order = sorted(prefill_rows, key=lambda s: (self.scheduler.rank(self.slot_req[s]),
+                                                        int(self.slot_ticket[s])))
+            chunks = self.scheduler.split_chunks(decode_cost, remaining, order)
+            chunks = {s: min(c, head) for s, c in chunks.items()}
+
+        # Shared window width, a power of two (the head cap still rules).
+        width = 1
+        for s in decode_rows:
+            width = max(width, 1 + int(drafts.get(s, empty).size))
+        for s in prefill_rows:
+            width = max(width, chunks[s])
+        L = min(1 << (width - 1).bit_length(), head)
+
+        ends = {s: start[s] + int(drafts.get(s, empty).size) for s in decode_rows}
+        ends.update({s: start[s] + chunks[s] - 1 for s in prefill_rows})
+        self._ensure_pages(ends)
+        if any(self.slot_req[s] is None for s in active):
+            # Pool growth preempted someone: replan against the survivors.
+            return self._mixed_step()
+        self.peak_active = max(self.peak_active, len(active))
+        wb = max((start[s] + L - 1) // self.block_size + 1 for s in active)
+        if wb != self._window_blocks:
+            self._window_blocks = wb
+            self._tables_dirty = True
+        self._refresh_tables()
+
+        k_cols = 1 + self.draft_k if self.spec_decode else 1
+        mat = np.zeros((self.slots, L), np.int32)
+        pos = np.zeros(self.slots, np.int32)
+        idx = np.zeros((self.slots, k_cols), np.int64)
+        for s in decode_rows:
+            req = self.slot_req[s]
+            mat[s, 0] = req.generated[-1] if req.generated else int(req.prompt[-1])
+            d = drafts.get(s, empty)
+            mat[s, 1: 1 + d.size] = d
+            pos[s] = start[s]
+            idx[s] = np.minimum(np.arange(k_cols), L - 1)
+        for s in prefill_rows:
+            req = self.slot_req[s]
+            done, c = int(self.slot_prefill_done[s]), chunks[s]
+            mat[s, :c] = np.asarray(req.prompt[done: done + c], np.int32)
+            pos[s] = done
+            idx[s] = c - 1  # the final chunk's first-token logit; unused otherwise
+
+        self._window_m = self.slots * L
+        cont["mixed_steps"] += 1
+        cont["decode_tokens"] += decode_cost
+        cont["prefill_tokens"] += sum(chunks.values())
+        logits = self._dispatch("mixed", self._window, self._tensor(mat), self._tensor(pos),
+                                self._tensor(idx))
+        bad = self._guard_slots(logits, active)
+        # tgt[s, j]: the greedy token after mat[s, :idx[s, j]+1].
+        tgt = torch.argmax(logits, dim=-1).cpu().numpy()
+        st = self.spec_stats if (self.spec_decode and drafts) else None
+        if st is not None:
+            st["steps"] += 1
+        emitted = decode_emitted = 0
+        for s in active:
+            if self.slot_req[s] is None:
+                continue
+            if s in bad:
+                self._finish_slot(s, status="error",
+                                  error="non-finite logits (guard tripped, mixed)")
+                continue
+            req = self.slot_req[s]
+            if req.cancel_requested:
+                self._finish_slot(s, status="cancelled", error="cancelled mid-dispatch")
+                continue
+            if s in chunks:
+                # Prefill row: the chunk's K/V landed this dispatch; fully
+                # covered prompt blocks are now shareable prefix content.
+                done = int(self.slot_prefill_done[s]) + chunks[s]
+                self.slot_prefill_done[s] = done
+                self.slot_pos[s] = done
+                self.alloc.mark_written(self.slot_pages[s][: done // self.block_size])
+                if done >= len(req.prompt):
+                    cont["completed_prefills"] += 1
+                    emitted += self._commit_tokens(s, [int(tgt[s, 0])])
+                continue
+            got = self._accept(s, drafts.get(s, empty), tgt[s], st)
+            emitted += got
+            decode_emitted += got
+        if decode_rows and decode_emitted == 0 and any(
+            self.slot_req[s] is not None for s in decode_rows
+        ):
+            # A live decode row emitted nothing: the stall the budget prevents.
+            cont["decode_stall_steps"] += 1
+        return emitted
+
     # ---- the step loop -------------------------------------------------------------
 
     def step(self) -> int:
-        """One iteration: fault hooks, lifecycle sweep, admission (prefill),
-        then ONE decode dispatch for every active slot, bracketed by the
-        watchdog.  Returns the tokens emitted."""
+        """One iteration: fault hooks, lifecycle sweep, admission, then ONE
+        dispatch for every active slot (decode, verify or mixed), bracketed
+        by the watchdog.  Returns the tokens emitted."""
         self.step_count += 1
         self.watchdog.step_start()
         try:
@@ -744,15 +1237,29 @@ class Engine:
         if self.hooks is not None:
             self.hooks.on_step_begin(self)
         self._reap_lifecycle()
+        if self.scheduler is not None:
+            self._admit_budget()
+            return self._mixed_step()
         self._admit_paged()
-        if not any(r is not None for r in self.slot_req):
+        active = [s for s in range(self.slots) if self.slot_req[s] is not None]
+        if not active:
             return 0
-        self._ensure_decode_pages()
+        spec_plan = self._plan_drafts(active) if self.spec_decode else None
+        if spec_plan is not None and not self._draft_pages_fit(active, spec_plan[0]):
+            self.spec_stats["pool_deferred"] += 1
+            spec_plan = None
+        self._ensure_decode_pages(extra=(spec_plan[0] - 1) if spec_plan else 0)
+        # Decode growth may have preempted slots (requests requeued).
         active = [s for s in range(self.slots) if self.slot_req[s] is not None]
         if not active:
             return 0
         self.peak_active = max(self.peak_active, len(active))
         self._refresh_tables()
+        if spec_plan is not None:
+            L, drafts = spec_plan
+            drafts = {s: d for s, d in drafts.items() if s in active}
+            if any(d.size for d in drafts.values()):
+                return self._spec_step(active, L, drafts)
         # Inactive rows decode token 0 at pos 0 against the scratch page.
         tokens = self._tensor(self._last_tokens(active))
         pos = self._tensor(np.maximum(self.slot_pos.astype(np.int32) - 1, 0))

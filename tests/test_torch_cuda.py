@@ -19,6 +19,8 @@ from repro_torch.core.packed import EncodingConfig
 from repro_torch.kernels import attn
 from repro_torch.kernels import fused_gemv
 from repro_torch.kernels import fused_pack_mmt4d
+from repro_torch.kernels import mmt4d
+from repro_torch.kernels import mmt4d_gemv
 from repro_torch.models import transformer as T
 from repro_torch.serving import engine as engine_lib
 from repro_torch.serving.config import EngineConfig
@@ -67,6 +69,31 @@ def test_fused_pack_mmt4d_kernel(dev, dtype, m):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m1,m0", [(1, 8), (3, 8), (2, 5), (1, 128), (3, 128), (130, 8)])
+def test_mmt4d_kernel(dev, dtype, m1, m0):
+    """Packed GEMM: decode row blocks (M0 = 5, 8; 130 blocks = 1040 rows, a
+    mixed window) and prefill slabs (M0 = 128)."""
+    lhs4 = _rand(dev, dtype, m1, 3, m0, 128, seed=m1 * m0)
+    rhs4 = _rand(dev, dtype, 4, 3, 128, 128, scale=384**-0.5)
+    before = mmt4d.mmt4d.launches
+    got = mmt4d.mmt4d(lhs4, rhs4)
+    assert mmt4d.mmt4d.launches == before + 1
+    torch.testing.assert_close(got, mmt4d.mmt4d_plain(lhs4, rhs4), **_tol(dtype, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m0", [1, 4, 8])
+def test_mmt4d_gemv_kernel(dev, dtype, m0):
+    lhs4 = _rand(dev, dtype, 1, 3, m0, 128, seed=m0)
+    rhs4 = _rand(dev, dtype, 4, 3, 128, 128, scale=384**-0.5)
+    before = mmt4d_gemv.mmt4d_gemv.launches
+    got = mmt4d_gemv.mmt4d_gemv(lhs4, rhs4)
+    assert mmt4d_gemv.mmt4d_gemv.launches == before + 1
+    torch.testing.assert_close(got, mmt4d_gemv.mmt4d_gemv_plain(lhs4, rhs4),
+                               **_tol(dtype, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,sk,q_offset", [(40, 40, 0), (40, 72, 32), (7, 100, 93)])
 def test_flash_prefill_kernel(dev, dtype, sq, sk, q_offset):
     q = _rand(dev, dtype, 2, sq, 8, 64, seed=1)
@@ -78,10 +105,13 @@ def test_flash_prefill_kernel(dev, dtype, sq, sk, q_offset):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("L", [1, 3, 16, 256])
 def test_paged_decode_kernel(dev, dtype, L):
+    """G = 4: L = 16 and 256 are 64 and 1024 query rows per (row, kv head),
+    several 32-row tiles of the kernel."""
     rng = np.random.RandomState(L)
-    b, h, kv, d, bs, nb, pages = 3, 8, 2, 64, 16, 8, 30
+    b, h, kv, d, bs, pages = 3, 8, 2, 64, 16, 30
+    nb = 8 + L // bs
     q = _rand(dev, dtype, b, L, h, d, seed=4)
     k_pool = _rand(dev, dtype, pages, bs, kv, d, seed=5)
     v_pool = _rand(dev, dtype, pages, bs, kv, d, seed=6)
@@ -91,6 +121,41 @@ def test_paged_decode_kernel(dev, dtype, L):
     got = attn.paged_decode_attention(q, k_pool, v_pool, table, pos)
     want = attn.paged_decode_attention_plain(q, k_pool, v_pool, table, pos)
     torch.testing.assert_close(got, want, **_tol(dtype, False))
+
+
+def _serve(params, cfg, enc, dev, prompts, max_new, **config):
+    eng = engine_lib.Engine(params, cfg, enc, config=EngineConfig(**config), device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=max_new))
+    done = {r.uid: r.generated for r in eng.run()}
+    assert eng.stats["pages_in_use"] == 0 and not eng.stats["degraded"]
+    return done, eng
+
+
+@pytest.mark.parametrize("backend,config", [
+    ("auto", dict(spec_decode=True, draft_k=4)),
+    ("pallas", dict(spec_decode=True, draft_k=4)),
+    ("auto", dict(token_budget=16)),
+    ("auto", dict(token_budget=16, spec_decode=True, draft_k=3)),
+    ("auto", dict(slots=10)),
+])
+def test_engine_window_paths_match_plain_path(dev, backend, config):
+    """Spec decode, the token budget and 10 slots, served through the
+    kernels (the packed mmt4d GEMM for windows of more than 8 rows), emit
+    the tokens of the plain phase-split engine on the card."""
+    cfg = cfg_registry.get_reduced("llama3.2-1b")
+    params = T.model_init(cfg, EncodingConfig(), seed=0, device=dev)
+    rng = np.random.RandomState(1)
+    prompts = [np.tile(rng.randint(1, cfg.vocab_size, 4), n).astype(np.int32)
+               for n in (3, 8, 5, 2, 6, 4)]
+    config = dict(dict(slots=4, max_seq=96, block_size=8), **config)
+    want, _ = _serve(params, cfg, EncodingConfig(backend="reference", attn_backend="xla"),
+                     dev, prompts, 12, slots=config["slots"], max_seq=96, block_size=8)
+    before = mmt4d.mmt4d.launches
+    got, eng = _serve(params, cfg, EncodingConfig(backend=backend, attn_backend="auto"),
+                      dev, prompts, 12, **config)
+    assert got == want
+    assert mmt4d.mmt4d.launches > before
 
 
 def test_engine_kernels_match_plain_path(dev):

@@ -3,8 +3,9 @@ package's Engine with its Pallas kernels in interpret mode, on the reduced
 Llama-3.2-1B with converted weights: identical tokens, and identical
 preemption and prefix-cache counts, on a mixed-length trace, a shared-prefix
 trace that runs the suffix prefill, and a small-pool trace that preempts.
-Also the port's registry keys, quarantine, lifecycle and the slices it
-refuses."""
+Also the port's registry keys, quarantine, lifecycle, the speculative,
+token-budget and many-slot configurations against the JAX engine, and the
+slices it refuses."""
 
 import numpy as np
 import pytest
@@ -207,19 +208,46 @@ def test_engine_lifecycle(model):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(spec_decode=True), "spec_decode"),
-    (dict(token_budget=16), "token_budget"),
     (dict(cache_mode="dense"), "dense"),
     (dict(sample="temperature"), "temperature"),
     (dict(kv_quant="kv8"), "kv8"),
     (dict(mesh_shape=(2,)), "tensor parallelism"),
-    (dict(slots=16), "slots=16"),
 ])
 def test_engine_refuses_later_slices(model, kw, match):
-    """More than 8 decode rows under registry routing ("auto") would need
-    the packed mmt4d GEMM; an explicit "fused" serves them with the GEMM."""
     with pytest.raises(NotImplementedError, match=match):
         _engine(model, enc=EncodingConfig(backend="auto", attn_backend="auto"), **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(spec_decode=True), dict(token_budget=16),
+                                dict(slots=10), dict(slots=16)])
+def test_engine_serves_window_configs_like_jax(model, kw):
+    """Spec decode, the token budget and more than 8 slots serve under
+    registry routing ("auto": windows and decode batches of more than 8 rows
+    take the packed mmt4d GEMM) and emit the JAX engine's tokens (JAX on its
+    plain paths, as its own harnesses run it)."""
+    jcfg, jparams, cfg, params = model
+    rng = np.random.RandomState(5)
+    vocab = cfg.vocab_size
+    prompts = [np.tile(rng.randint(1, vocab, 3), n).astype(np.int32) for n in (2, 5, 3, 7)]
+    prompts += [rng.randint(1, vocab, n).astype(np.int32) for n in (9, 4, 13, 6, 11, 5, 8, 3)]
+    config = dict(dict(slots=4, max_seq=64, block_size=8), **kw)
+    jeng = jengine.Engine(jparams, jcfg, JEncodingConfig(enabled=True, backend="xla",
+                                                         attn_backend="xla"), **config)
+    eng = _engine(model, enc=EncodingConfig(backend="auto", attn_backend="auto"), **config)
+    for e, req in ((jeng, jengine.Request), (eng, engine_lib.Request)):
+        for i, p in enumerate(prompts):
+            e.submit(req(uid=i, prompt=p, max_new_tokens=6))
+    want = {r.uid: r.generated for r in jeng.run()}
+    got = {r.uid: r.generated for r in eng.run()}
+    assert got == want and all(r.status == "ok" for r in eng.finished)
+    st = eng.stats
+    assert st["pages_in_use"] == 0 and not st["degraded"]
+    if "spec" in kw:
+        assert st["spec"]["proposed"] > 0 and eng.dispatches["verify"] > 0
+    if "token_budget" in kw:
+        assert st["continuous"] == jeng.stats["continuous"]
+    if "slots" in kw:
+        assert st["peak_active"] == min(kw["slots"], len(prompts)) == jeng.stats["peak_active"]
 
 
 def test_engine_defaults_to_cuda(model):

@@ -1,10 +1,11 @@
-"""The port's four kernels (repro_torch.kernels) against the JAX package's
-Pallas kernels run in interpret mode, on the same numpy inputs.
+"""The port's kernels (repro_torch.kernels) against the JAX package's Pallas
+kernels run in interpret mode, on the same numpy inputs.
 
 On the CPU every wrapper runs its plain PyTorch version, so these tests pin
-the arithmetic each CUDA kernel must reproduce.  Tolerance: f32 inputs,
-atol = rtol = 1e-5 (only the order of the sums differs).  The kernels
-themselves are held against these plain versions on the card by
+the arithmetic each CUDA kernel must reproduce.  Tolerance: atol = rtol =
+1e-5, for f32 inputs and for bf16 ones (bf16 x bf16 products are exact in
+f32 and both sides sum in f32; only the order of the sums differs).  The
+kernels themselves are held against these plain versions on the card by
 tests/test_torch_cuda.py."""
 
 import numpy as np
@@ -17,12 +18,17 @@ from repro.core.encoding import Phase as JPhase
 from repro.kernels import attn as jattn
 from repro.kernels import fused_gemv as jgemv
 from repro.kernels import fused_pack_mmt4d as jgemm
+from repro.kernels import mmt4d as jmmt4d
+from repro.kernels import mmt4d_gemv as jmmt4d_gemv
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.convert import to_torch
 from repro_torch.core.encoding import Phase
 from repro_torch.kernels import attn
 from repro_torch.kernels import fused_gemv
 from repro_torch.kernels import fused_pack_mmt4d
+from repro_torch.kernels import mmt4d
+from repro_torch.kernels import mmt4d_gemv
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 
@@ -84,6 +90,49 @@ def test_fused_pack_mmt4d_plain_matches_pallas(m, n1, k1):
 
 
 # ---------------------------------------------------------------------------
+# Packed GEMM and packed decode GEMV
+
+
+def _packed_operands(rng, m1, m0, n1, k1, dtype):
+    """Packed lhs4 / rhs4 as numpy arrays in `dtype` ("f32" or "bf16"),
+    unit-scale outputs."""
+    lhs4 = _np(rng, m1, k1, m0, 128)
+    rhs4 = _np(rng, n1, k1, 128, 128) * (k1 * 128) ** -0.5
+    if dtype == "bf16":
+        lhs4, rhs4 = (np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in (lhs4, rhs4))
+    return lhs4, rhs4
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m1", [1, 3])
+@pytest.mark.parametrize("m0", [8, 128])
+def test_mmt4d_plain_matches_pallas(m0, m1, dtype):
+    lhs4, rhs4 = _packed_operands(np.random.RandomState(m0 + m1), m1, m0, 2, 2, dtype)
+    want = jmmt4d.mmt4d_pallas(jnp.asarray(lhs4), jnp.asarray(rhs4), blocks=(1, 1, 1),
+                               interpret=True)
+    got = mmt4d.mmt4d(to_torch(lhs4, "cpu"), to_torch(rhs4, "cpu"))
+    assert got.dtype == torch.float32 and got.shape == (m1, 2, m0, 128)
+    assert mmt4d.mmt4d.launches == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m0", [1, 4, 8])
+def test_mmt4d_gemv_plain_matches_pallas(m0, dtype):
+    lhs4, rhs4 = _packed_operands(np.random.RandomState(m0), 1, m0, 3, 2, dtype)
+    want = jmmt4d_gemv.mmt4d_gemv_pallas(jnp.asarray(lhs4), jnp.asarray(rhs4), bn1=1,
+                                         interpret=True)
+    got = mmt4d_gemv.mmt4d_gemv(to_torch(lhs4, "cpu"), to_torch(rhs4, "cpu"))
+    assert got.shape == (1, 3, m0, 128) and mmt4d_gemv.mmt4d_gemv.launches == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_mmt4d_gemv_takes_one_row_block():
+    with pytest.raises(AssertionError, match="M1=2"):
+        mmt4d_gemv.mmt4d_gemv(torch.zeros(2, 1, 8, 128), torch.zeros(1, 1, 128, 128))
+
+
+# ---------------------------------------------------------------------------
 # encoded_matmul: ragged M, K padding, every backend and phase
 
 
@@ -103,11 +152,29 @@ def test_encoded_matmul_matches_jax(backend, phase, m):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("phase,m", [("decode", 4), ("decode", 20), ("prefill", 130)])
+def test_encoded_matmul_pallas_matches_jax(phase, m):
+    """backend="pallas": the packed GEMV for one decode row block (M=4), the
+    packed GEMM for more decode rows (M=20: three 8-row blocks) and prefill."""
+    rng = np.random.RandomState(m)
+    n, k = 300, 200
+    x, w_t = _np(rng, m, k), _np(rng, n, k) * k**-0.5  # unit-scale outputs
+    rhs4 = np.asarray(jops.pack_rhs(jnp.asarray(w_t)))
+    want = jops.encoded_matmul(jnp.asarray(x), jnp.asarray(rhs4), n=n, phase=JPhase(phase),
+                               backend="pallas", interpret=True)
+    got = ops.encoded_matmul(_t(x), _t(rhs4), n=n, phase=Phase(phase), backend="pallas")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_encoded_matmul_pallas_backend_is_the_next_slice():
-    x = torch.zeros(40, 128)
-    with pytest.raises(NotImplementedError, match="mmt4d"):
-        ops.encoded_matmul(x, torch.zeros(1, 1, 128, 128), n=128, phase=Phase.DECODE,
-                           backend="pallas")
+    """The packed path serves: 40 decode rows route to the packed GEMM and
+    agree with the oracle path."""
+    rng = np.random.RandomState(40)
+    x, w_t = _t(_np(rng, 40, 128)), _t(_np(rng, 128, 128))
+    rhs4 = ops.pack_rhs(w_t)
+    got = ops.encoded_matmul(x, rhs4, n=128, phase=Phase.DECODE, backend="pallas")
+    want = ops.encoded_matmul(x, rhs4, n=128, phase=Phase.DECODE, backend="xla")
+    torch.testing.assert_close(got, want, **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +209,7 @@ def test_flash_prefill_rows_without_keys_are_zero():
 
 
 def _paged_case(rng, L, b=3, h=4, kv=1, d=16, bs=4, nb=6, pages=14):
+    nb = max(nb, -(-(L + 9) // bs))  # room for the window of every row
     q = _np(rng, b, L, h, d)
     k_pool = _np(rng, pages, bs, kv, d)
     v_pool = _np(rng, pages, bs, kv, d)
@@ -151,8 +219,10 @@ def _paged_case(rng, L, b=3, h=4, kv=1, d=16, bs=4, nb=6, pages=14):
     return q, k_pool, v_pool, table, pos
 
 
-@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("L", [1, 3, 16, 64])
 def test_paged_decode_plain_matches_pallas(L):
+    """G = 4, so L = 16 and 64 make 64 and 256 query rows per (row, kv head):
+    past the 32 rows one block of the CUDA kernel holds."""
     q, k_pool, v_pool, table, pos = _paged_case(np.random.RandomState(L), L)
     want = jattn.paged_decode_attention(
         jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool), jnp.asarray(table),

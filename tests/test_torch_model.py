@@ -95,6 +95,42 @@ def test_paged_decode_per_row_positions_matches_jax(model):
                                    **TOL)
 
 
+def test_window_forward_logits_idx_matches_jax(model):
+    """A mixed-step window: every row writes L positions from its own pos
+    and keeps the logits of its logits_idx positions only (gathered before
+    the final norm and head).  Logits and pool writes match."""
+    jcfg, jparams, cfg, params = model
+    rng = np.random.RandomState(4)
+    b, L, bs, nb, pages = 3, 4, 4, 6, 19
+    kv_shape = (cfg.num_layers, pages, bs, cfg.num_kv_heads, cfg.head_dim)
+    k_pool = (0.5 * rng.randn(*kv_shape)).astype(np.float32)
+    v_pool = (0.5 * rng.randn(*kv_shape)).astype(np.float32)
+    table = rng.permutation(np.arange(1, pages))[: b * nb].reshape(b, nb).astype(np.int32)
+    pos = np.array([5, 9, 14], np.int32)
+    toks = rng.randint(1, cfg.vocab_size, (b, L)).astype(np.int32)
+    idx = np.array([[0, 3], [1, 2], [3, 3]], np.int32)
+
+    jcaches = {"groups": ({"k": jnp.asarray(k_pool), "v": jnp.asarray(v_pool),
+                           "table": jnp.asarray(np.broadcast_to(table, (cfg.num_layers, b, nb)))},)}
+    want, jnew, _ = JT.forward(jparams, {"tokens": jnp.asarray(toks)}, cfg=jcfg, enc=JENC,
+                               phase=JPhase.DECODE, caches=jcaches, pos=jnp.asarray(pos),
+                               logits_idx=jnp.asarray(idx))
+    caches = T.cache_init(cfg, b, nb * bs, cache_mode="paged", block_size=bs,
+                          num_pages=pages, device="cpu")
+    for i, layer in enumerate(caches["layers"]):
+        layer["k"].copy_(torch.from_numpy(k_pool[i]))
+        layer["v"].copy_(torch.from_numpy(v_pool[i]))
+        layer["table"] = torch.from_numpy(table)
+    got = T.forward(params, torch.from_numpy(toks), cfg=cfg, enc=ENC, phase=Phase.DECODE,
+                    caches=caches, pos=torch.from_numpy(pos), logits_idx=torch.from_numpy(idx))
+    assert got.shape == (b, 2, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for i, layer in enumerate(caches["layers"]):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(layer[name].numpy(),
+                                       np.asarray(jnew["groups"][0][name][i]), **TOL)
+
+
 @pytest.mark.parametrize("backend,attn_backend", [("reference", "xla"), ("xla", "xla"),
                                                   ("fused", "auto"), ("auto", "pallas")])
 def test_backends_agree_on_prefill(model, backend, attn_backend):
