@@ -8,20 +8,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. build   every csrc/*.cu kernel with nvcc for sm_90a (one process per
              source, all started together) and print the card's name and
              power limit;
-  2. kernels each of the six kernels against its plain PyTorch version at
+  2. kernels each of the ten kernels against its plain PyTorch version at
              the full-width Llama-3.2-1B shapes the serving runs give it
              (the packed mmt4d GEMM at verify/mixed/many-slot decode rows
              and prefill slabs, the packed GEMV at 1-8 rows, paged decode
              at windows of 1 to 256), in bf16 and f32, with its time, the
              plain version's time, a library yardstick timed only
              (torch.matmul on the unpacked weight, SDPA), and the roofline
-             bound computed from the shapes;
+             bound computed from the shapes; then the four quantized-weight
+             kernels (w8a8: fused_gemv_q8, mmt4d_q8, equal to their plain
+             versions bit for bit; w4a8 at group 16 and 32: fused_gemv_q4,
+             mmt4d_q4, within 3e-5 of the largest output) at GEMV rows 1, 4,
+             8 and GEMM rows 16, 20, 256 (M0 = 8) and 2048 (M0 = 128), the
+             yardstick torch._int_mm plus the scale epilogue for int8 (rows
+             padded to 32 where it needs more than 16) and none for int4
+             (bf16 torch.matmul on the dequantized weight is timed as an
+             aside);
   3. forward a depth-2, full-width f32 model served through the kernels and
              through the plain backends on the card: identical tokens, for
              the phase-split engine and for speculative decode (registry
              routing and backend "pallas"), the token budget (with and
              without spec decode) and 12 slots, each against the plain
-             phase-split engine;
+             phase-split engine; then the same model with int8 and with
+             int4 weights, phase-split and spec decode, through the
+             quantized kernels and through their plain ("xla") versions;
   4. serve   the full-depth, full-width bf16 Llama-3.2-1B (random weights from
              --seed): 8 requests, half sharing a 256-token prefix so the second
              wave runs the suffix prefill;
@@ -30,12 +40,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
              token budget of 256 admitting a 900-token prompt beside 3
              decoding requests (zero decode stalls), 16 slots over 32
              requests, and backend "pallas" (packed GEMV decode, packed GEMM
-             prefill).
+             prefill);
+  6. quant   the same model with w8a8 and with w4a8 weights (quantized on the
+             card): phase 4's 8 requests and phase 5's speculative decode,
+             with tokens/s, step p50/p99 by kind, peak memory and the weight
+             bytes a decode step streams.
 
-In phases 4 and 5 every kernel's launch count, set to 0 before each run and
-read after it, must equal the dispatches that resolved to it (tallied here
-from each dispatch's rows and the registry) x layers x (7 projections or 1
-attention), and every kernel must have launched in these runs.
+In phases 4, 5 and 6 every kernel's launch count, set to 0 before each run
+and read after it, must equal the dispatches that resolved to it (tallied
+here from each dispatch's rows, weight format and the registry) x layers x
+(7 projections or 1 attention), and every kernel must have launched in
+these runs.
 
 The third line from the end is the kernel table as JSON, the next the card's
 name and power limit, and the last {"ok": true, "device": {...}}.  Details go
@@ -47,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -64,6 +80,10 @@ REPLACES = {
     "paged_decode_attention": "src/repro/kernels/attn.py:163",
     "mmt4d": "src/repro/kernels/mmt4d.py:61",
     "mmt4d_gemv": "src/repro/kernels/mmt4d_gemv.py:42",
+    "fused_gemv_q8": "src/repro/kernels/fused_gemv.py:112",
+    "mmt4d_q8": "src/repro/kernels/mmt4d_q8.py:62",
+    "fused_gemv_q4": "src/repro/kernels/mmt4d_q4.py:71",
+    "mmt4d_q4": "src/repro/kernels/mmt4d_q4.py:146",
 }
 SOURCES = {
     "fused_gemv": "src/repro_torch/csrc/fused_gemv.cu",
@@ -72,6 +92,10 @@ SOURCES = {
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode.cu",
     "mmt4d": "src/repro_torch/csrc/mmt4d.cu",
     "mmt4d_gemv": "src/repro_torch/csrc/mmt4d_gemv.cu",
+    "fused_gemv_q8": "src/repro_torch/csrc/fused_gemv_q8.cu",
+    "mmt4d_q8": "src/repro_torch/csrc/mmt4d_q8.cu",
+    "fused_gemv_q4": "src/repro_torch/csrc/mmt4d_q4.cu",
+    "mmt4d_q4": "src/repro_torch/csrc/mmt4d_q4.cu",
 }
 # The shape whose numbers stand for each kernel in the JSON line: the one the
 # serving runs (phases 4 and 5) give it most often, in bf16.
@@ -82,6 +106,17 @@ HEADLINE = {
     "paged_decode_attention": "bf16 B=4 L=1",
     "mmt4d": "bf16 M=20 K=2048 N=8192",
     "mmt4d_gemv": "bf16 M=4 K=2048 N=8192",
+    "fused_gemv_q8": "w8a8 M=4 K=2048 N=8192",
+    "mmt4d_q8": "w8a8 M=20 K=2048 N=8192",
+    "fused_gemv_q4": "w4a8 g16 M=4 K=2048 N=8192",
+    "mmt4d_q4": "w4a8 g16 M=20 K=2048 N=8192",
+}
+# The projection kernel each matmul backend resolves to, per weight format
+# (registry quant name): (at decode with at most GEMV_MAX_ROWS rows, else).
+MATMUL_KERNELS = {
+    "none": {"fused": ("fused_gemv", "fused_pack_mmt4d"), "pallas": ("mmt4d_gemv", "mmt4d")},
+    "w8a8": {"fused": ("fused_gemv_q8", "mmt4d_q8"), "pallas": ("mmt4d_q8", "mmt4d_q8")},
+    "w4a8": {"fused": ("fused_gemv_q4", "mmt4d_q4"), "pallas": ("mmt4d_q4", "mmt4d_q4")},
 }
 
 
@@ -117,11 +152,29 @@ class Timer:
 
 def bound(target, *, bytes_moved: float, flops: float, dtype_name: str) -> tuple[float, str]:
     """Least time (ms) the card could take: max(bytes / memory rate, operations
-    / peak rate for the inputs' type: bf16 tensor cores, or f32 CUDA cores)."""
-    peak = target.peak_flops_bf16 if dtype_name == "bf16" else target.peak_flops_f32
+    / peak rate for the inputs' type: bf16 or int8 tensor cores, or f32 CUDA
+    cores)."""
+    peak = {"bf16": target.peak_flops_bf16, "int8": target.peak_ops_int8}.get(
+        dtype_name, target.peak_flops_f32)
     t_bytes = bytes_moved / target.hbm_bytes_per_s
     t_ops = flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def add_row(results: dict, target, name: str, key: str, *, err, tol, ms, plain_ms, library_ms,
+            bytes_moved, flops, dname, **extra) -> None:
+    """Record one kernel shape's numbers (bound computed here) and fail if
+    the kernel's error against its plain version exceeds `tol`."""
+    b_ms, b_by = bound(target, bytes_moved=bytes_moved, flops=flops, dtype_name=dname)
+    row = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=b_ms, bound_by=b_by, **extra)
+    results.setdefault(name, {})[key] = row
+    lib = "-" if library_ms is None else f"{library_ms:.4f}"
+    aside = "".join(f" {k}={v:.4f}" for k, v in extra.items() if isinstance(v, float))
+    log(f"[kernel] {name:24s} {key:38s} err={err:.3e} (tol {tol:.1e}) ms={ms:.4f} "
+        f"plain={plain_ms:.4f} library={lib}{aside} bound={b_ms:.4f} ({b_by})")
+    if not err <= tol:
+        raise AssertionError(f"{name} {key}: max abs error {err} exceeds {tol}")
 
 
 def check_kernels(torch, dev, target, timer, results: dict) -> None:
@@ -137,15 +190,8 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
     def rnd(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device=dev)
 
-    def record(name, key, *, err, tol, ms, plain_ms, library_ms, bytes_moved, flops, dname):
-        b_ms, b_by = bound(target, bytes_moved=bytes_moved, flops=flops, dtype_name=dname)
-        row = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=b_ms, bound_by=b_by)
-        results.setdefault(name, {})[key] = row
-        log(f"[kernel] {name:24s} {key:38s} err={err:.3e} (tol {tol:.0e}) ms={ms:.4f} "
-            f"plain={plain_ms:.4f} library={library_ms:.4f} bound={b_ms:.4f} ({b_by})")
-        if not err <= tol:
-            raise AssertionError(f"{name} {key}: max abs error {err} exceeds {tol}")
+    def record(name, key, **kw):
+        add_row(results, target, name, key, **kw)
 
     dtypes = [("bf16", torch.bfloat16), ("f32", torch.float32)]
     kn = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
@@ -274,6 +320,94 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
     torch.cuda.synchronize()
 
 
+def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
+    """Phase 2, quantized weights: the four w8a8/w4a8 kernels against their
+    plain versions at the full-width projection shapes.  Weights are drawn
+    in bf16 and quantized on the card as the model does (ops.pack_rhs_q8 /
+    pack_rhs_q4); activation rows are bf16, quantized per row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_gemv, mmt4d_q4, mmt4d_q8, ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    def check(name, key, fn, plain, *, tol_rel, library_ms, bytes_moved, flops, iters, **extra):
+        got, want = fn(), plain()
+        err = (got - want).abs().max().item()
+        add_row(results, target, name, key, err=err, tol=tol_rel * want.abs().max().item(),
+                ms=timer.ms(fn), plain_ms=timer.ms(plain, iters=iters), library_ms=library_ms,
+                bytes_moved=bytes_moved, flops=flops, dname="int8", **extra)
+
+    def int_mm_ms(xq, w_q, s_a, s_w):
+        """torch._int_mm (int8 x int8 -> int32) plus the scale epilogue: the
+        library call of the w8a8 function; it needs more than 16 rows, so
+        fewer are padded to 32."""
+        m = xq.shape[0]
+        xp = F.pad(xq, (0, 0, 0, 32 - m)) if m <= 16 else xq
+        w_kn = w_q.t()  # (K, N), column-major
+        return timer.ms(lambda: (torch._int_mm(xp, w_kn)[:m].float() * s_a[:, None]) * s_w)
+
+    groups = (16, 32)
+    kn = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+    for k, n in kn:
+        w_t = rnd(n, k, scale=k**-0.5)
+        rhs4_q, s_w = ops.pack_rhs_q8(w_t)
+        w_q = ref.unpack(rhs4_q, (n, k)).contiguous()
+        s_w_flat = s_w.reshape(-1)[:n]
+        q4 = {g: ops.pack_rhs_q4(w_t, group=g) for g in groups}
+        # The aside for int4: bf16 matmul on the dequantized weight (N, K).
+        w_deq = {g: ref.unpack(ref.dequant_rhs4_q4(*q4[g], g), (n, k)).to(torch.bfloat16)
+                 for g in groups}
+        del w_t
+        for m in (1, 4, 8):
+            x = rnd(m, k)
+            xq, s_a = ref.quantize_rows(x)
+            sa1 = s_a[:, None]
+            check("fused_gemv_q8", f"w8a8 M={m} K={k} N={n}",
+                  lambda: fused_gemv.fused_gemv_q8(xq, rhs4_q, sa1, s_w),
+                  lambda: fused_gemv.fused_gemv_q8_plain(xq, rhs4_q, sa1, s_w),
+                  tol_rel=0.0, library_ms=int_mm_ms(xq, w_q, s_a, s_w_flat),
+                  bytes_moved=m * k + n * k + m * 4 + n * 4 + m * n * 4, flops=2 * m * n * k,
+                  iters=10, library_rows=32)
+            for g in groups:
+                rhs4_p, s_w4 = q4[g]
+                check("fused_gemv_q4", f"w4a8 g{g} M={m} K={k} N={n}",
+                      lambda: mmt4d_q4.fused_gemv_q4(xq, rhs4_p, sa1, s_w4, g),
+                      lambda: mmt4d_q4.fused_gemv_q4_plain(xq, rhs4_p, sa1, s_w4, g),
+                      tol_rel=3e-5, library_ms=None,
+                      bytes_moved=m * k + n * k // 2 + n * (k // g) * 2 + m * 4 + m * n * 4,
+                      flops=2 * m * n * k, iters=10,
+                      bf16_dequant_matmul_ms=timer.ms(lambda: torch.matmul(x, w_deq[g].t())))
+        for m, m0 in ((16, 8), (20, 8), (256, 8), (2048, 128)):
+            x = rnd(m, k)
+            xq, s_a = ref.quantize_rows(x)
+            lhs4 = ref.pack(xq, (m0, 128))
+            rows = lhs4.shape[0] * m0  # pad rows included, as the kernels read them
+            sa2 = F.pad(s_a, (0, rows - m)).reshape(-1, m0)
+            iters = 3 if m == 2048 else 10
+            check("mmt4d_q8", f"w8a8 M={m} K={k} N={n}",
+                  lambda: mmt4d_q8.mmt4d_q8(lhs4, rhs4_q, sa2, s_w),
+                  lambda: mmt4d_q8.mmt4d_q8_plain(lhs4, rhs4_q, sa2, s_w),
+                  tol_rel=0.0, library_ms=int_mm_ms(xq, w_q, s_a, s_w_flat),
+                  bytes_moved=rows * k + n * k + rows * 4 + n * 4 + rows * n * 4,
+                  flops=2 * rows * n * k, iters=iters, library_rows=32 if m <= 16 else m)
+            for g in groups:
+                rhs4_p, s_w4 = q4[g]
+                check("mmt4d_q4", f"w4a8 g{g} M={m} K={k} N={n}",
+                      lambda: mmt4d_q4.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, g),
+                      lambda: mmt4d_q4.mmt4d_q4_plain(lhs4, rhs4_p, sa2, s_w4, g),
+                      tol_rel=3e-5, library_ms=None,
+                      bytes_moved=rows * k + n * k // 2 + n * (k // g) * 2 + rows * 4
+                      + rows * n * 4,
+                      flops=2 * rows * n * k, iters=iters,
+                      bf16_dequant_matmul_ms=timer.ms(lambda: torch.matmul(x, w_deq[g].t())))
+        del rhs4_q, w_q, q4, w_deq
+    torch.cuda.synchronize()
+
+
 def forward_check(torch, dev, seed: int) -> dict:
     """Phase 3: depth-2, full-width f32 model; one batched prefill and 8
     decode steps through the kernels and through the plain backends; then
@@ -355,9 +489,69 @@ def forward_check(torch, dev, seed: int) -> dict:
     return outs
 
 
+def quant_forward_check(torch, dev, seed: int) -> dict:
+    """Phase 3, quantized weights: the depth-2, full-width f32 model with
+    int8 and with int4 weights, phase-split (backend "fused") and spec
+    decode (registry routing), each against the plain quantized projections
+    (backend "xla") in the same configuration.  Both runs take the attention
+    kernels: the activation quantizer turns an f32 difference of one ulp into
+    a whole int8 step, so the comparison isolates the quantized projection
+    kernels, which equal their plain versions bit for bit."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+
+    cfg = dataclasses.replace(cfg_registry.get_config("llama3.2-1b"), num_layers=2,
+                              dtype="float32")
+    rng = np.random.RandomState(seed + 2)
+    prompts = [np.tile(rng.randint(1, cfg.vocab_size, 16), 12)[:n].astype(np.int32)
+               for n in (48, 80, 112, 144)]
+    prompts += [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (20, 64, 150, 200)]
+    kernels = kernel_fns()
+    outs = {}
+    for wq in ("int8", "int4"):
+        params = T.model_init(cfg, EncodingConfig(weight_quant=wq), seed=seed, device=dev)
+        for label, backend, config in (("phase-split", "fused", dict(slots=4)),
+                                       ("spec", "auto", dict(slots=4, spec_decode=True,
+                                                             draft_k=4))):
+            got = {}
+            for be in ("xla", backend):
+                before = {name: k.launches for name, k in kernels.items()}
+                eng = engine_lib.Engine(
+                    params, cfg, EncodingConfig(backend=be, attn_backend="auto", weight_quant=wq),
+                    device=dev, config=EngineConfig(max_seq=512, block_size=16, **config))
+                for i, p in enumerate(prompts):
+                    eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=8))
+                got[be] = {r.uid: r.generated for r in eng.run()}
+                st = eng.stats
+                if st["pages_in_use"] or st["degraded"]:
+                    raise AssertionError(f"{wq} {label} {be}: pages {st['pages_in_use']} "
+                                         f"degraded {st['degraded']}")
+                ran = {name for name, k in kernels.items() if k.launches > before[name]}
+            if got["xla"] != got[backend]:
+                raise AssertionError(f"{wq} {label}: kernel tokens differ from the plain "
+                                     f"quantized path: {got[backend]} vs {got['xla']}")
+            quant_ran = sorted(ran & {"fused_gemv_q8", "mmt4d_q8", "fused_gemv_q4", "mmt4d_q4"})
+            if not quant_ran:
+                raise AssertionError(f"{wq} {label}: no quantized kernel launched")
+            extra = (f" spec proposed={st['spec']['proposed']} accepted={st['spec']['accepted']}"
+                     if "spec" in st else "")
+            log(f"[forward] depth-2 f32 {wq} {label}: kernel tokens == plain tokens, "
+                f"dispatches {st['dispatches']}, kernels {quant_ran}{extra}")
+            outs[f"{wq} {label}"] = got[backend]
+        del params
+    torch.cuda.empty_cache()
+    return outs
+
+
 def kernel_fns() -> dict:
-    """The six kernel wrappers by name; each counts its launches."""
-    from repro_torch.kernels import attn, fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv
+    """The ten kernel wrappers by name; each counts its launches."""
+    from repro_torch.kernels import (attn, fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv,
+                                     mmt4d_q4, mmt4d_q8)
 
     return {
         "fused_gemv": fused_gemv.fused_gemv,
@@ -366,6 +560,10 @@ def kernel_fns() -> dict:
         "paged_decode_attention": attn.paged_decode_attention,
         "mmt4d": mmt4d.mmt4d,
         "mmt4d_gemv": mmt4d_gemv.mmt4d_gemv,
+        "fused_gemv_q8": fused_gemv.fused_gemv_q8,
+        "mmt4d_q8": mmt4d_q8.mmt4d_q8,
+        "fused_gemv_q4": mmt4d_q4.fused_gemv_q4,
+        "mmt4d_q4": mmt4d_q4.mmt4d_q4,
     }
 
 
@@ -375,9 +573,10 @@ class DispatchTally:
     Wraps the instance's _dispatch and step (nothing in the engine changes):
     before each dispatch, the rows it feeds the model (the token tensor's
     size: batch x padded length at prefill, slots at decode, slots x L for a
-    verify or mixed window) and the registry decide which kernel its 7
-    projections and its attention resolve to, as kernels/ops.py and
-    models/layers.py route them; each adds layers launches per projection.
+    verify or mixed window), the weight format and the registry decide which
+    kernel its 7 projections and its attention resolve to, as kernels/ops.py
+    and models/layers.py route them; each adds layers launches per
+    projection.
     Each step's watchdog duration is kept under the kinds it dispatched
     (verify and mixed windows with their width L)."""
 
@@ -385,6 +584,7 @@ class DispatchTally:
         import collections
 
         from repro_torch.core.encoding import GEMV_MAX_ROWS, Phase
+        from repro_torch.core.packed import QUANT_KEYS
         from repro_torch.kernels import registry
 
         self.want = collections.Counter()
@@ -393,14 +593,16 @@ class DispatchTally:
         self.step_ms: dict[str, list[float]] = collections.defaultdict(list)
         kinds: list[str] = []
         dispatch, step = eng._dispatch, eng.step
+        quant = QUANT_KEYS[eng.enc.weight_quant]
+        requested = eng.enc.resolved_backend() if quant == "none" else eng.enc.quant_backend()
 
         def routed(kind: str, rows: int) -> tuple[str | None, str | None]:
             phase = Phase.PREFILL if kind == "prefill" else Phase.DECODE
             small = phase is Phase.DECODE and rows <= GEMV_MAX_ROWS
-            mm = registry.select(quant="none", phase=phase, m=rows, target=eng.enc.target,
-                                 requested=eng.enc.resolved_backend()).backend
-            mm_kernel = {"fused": "fused_gemv" if small else "fused_pack_mmt4d",
-                         "pallas": "mmt4d_gemv" if small else "mmt4d"}.get(mm)
+            mm = registry.select(quant=quant, phase=phase, m=rows, target=eng.enc.target,
+                                 requested=requested).backend
+            pair = MATMUL_KERNELS[quant].get(mm)  # None: a plain backend, no kernel
+            mm_kernel = pair and pair[0 if small else 1]
             at = registry.select_attn(phase=phase, s=eng._attn_s(phase), target=eng.enc.target,
                                       requested=eng.enc.attn_backend).backend
             at_kernel = None
@@ -439,6 +641,101 @@ class DispatchTally:
                 for k, v in sorted(self.step_ms.items())}
 
 
+def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
+                tag: str) -> tuple[object, dict]:
+    """Serve one run at full depth: an engine of `config`, every launch count
+    set to 0 just before `drive(eng)` and read just after, each equal to its
+    dispatch tally; every request must finish ok with all its tokens and no
+    page may leak or key be quarantined."""
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+
+    kernels = kernel_fns()
+    eng = engine_lib.Engine(params, cfg, enc, device=dev,
+                            config=EngineConfig(max_seq=1024, block_size=16, **config))
+    tally = DispatchTally(eng, cfg.num_layers)
+    for k in kernels.values():
+        k.launches = 0
+    gc.collect()  # earlier runs' engines sit in reference cycles (DispatchTally's wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_gib = torch.cuda.memory_allocated(dev) / 2**30
+    t0 = time.perf_counter()
+    done = drive(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = {name: tally.want[name] for name in kernels}
+    st = eng.stats
+    bad = [(r.uid, r.status, len(r.generated)) for r in done
+           if r.status != "ok" or len(r.generated) != r.max_new_tokens]
+    if bad:
+        raise AssertionError(f"{label}: requests not all ok with their tokens: {bad}")
+    eng.audit()
+    if st["pages_in_use"] or st["degraded"]:
+        raise AssertionError(f"{label}: pages {st['pages_in_use']} degraded {st['degraded']}")
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != tallied {want}")
+    tokens = sum(len(r.generated) for r in done)
+    out = {"requests": len(done), "tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
+           "steps": st["steps"], "dispatches": st["dispatches"], "launches": launches,
+           "mmt4d_by_kind": {k: n for (k, name), n in tally.by_kind.items() if name == "mmt4d"},
+           "max_rows": dict(tally.max_rows), "step_ms": tally.step_summary(),
+           "watchdog": st["watchdog"], "preemptions": st["preemptions"],
+           "start_gib": start_gib, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "prefix_hit_tokens": st["prefix_cache"]["hit_tokens"]}
+    for key in ("spec", "continuous"):
+        if key in st:
+            out[key] = {k: v for k, v in st[key].items() if not k.startswith("per_slot")}
+    steps = "; ".join(f"{k} x{v['steps']} p50 {v['p50_ms']:.3f} p99 {v['p99_ms']:.3f} ms"
+                      for k, v in out["step_ms"].items())
+    log(f"[{tag}] {label}: {len(done)} requests, {tokens} tokens in {wall:.3f}s "
+        f"({tokens / wall:.1f} tok/s incl. prefill); dispatches {st['dispatches']}; "
+        f"max rows {out['max_rows']}; memory {start_gib:.2f} GiB at the start, peak "
+        f"{out['peak_gib']:.2f} GiB; steps: {steps}")
+    log(f"[{tag}] {label}: launches {launches} == tallied; mmt4d by kind "
+        f"{out['mmt4d_by_kind']}")
+    return eng, out
+
+
+def submit_all(prompts, max_new):
+    """A drive: submit every prompt (each must be admitted), then run."""
+    from repro_torch.serving import engine as engine_lib
+
+    def drive(eng):
+        for i, p in enumerate(prompts):
+            if not eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=max_new)):
+                raise AssertionError(f"request {i} rejected")
+        return eng.run()
+    return drive
+
+
+def tiled_prompts(rng, vocab: int) -> list:
+    """8 prompts, each a 16-token pattern tiled to 128-384 tokens, so the
+    prompt-lookup drafter proposes every step."""
+    import numpy as np
+
+    return [np.tile(rng.randint(1, vocab, 16), 24)[: int(n)].astype(np.int32)
+            for n in rng.choice([128, 192, 256, 320, 384], 8)]
+
+
+def shared_prefix_prompts(rng, vocab: int) -> list:
+    """Phase 4's 8 prompts of 100-500 tokens; requests 0, 4, 5 and 6 share a
+    256-token prefix (wave 1 writes it, wave 2 reuses it)."""
+    import numpy as np
+
+    prefix = rng.randint(1, vocab, 256).astype(np.int32)
+    lengths = rng.randint(100, 501, 8)
+    prompts = []
+    for i in range(8):
+        if i in (0, 4, 5, 6):
+            tail = rng.randint(1, vocab, max(1, int(lengths[i]) - 256))
+            prompts.append(np.concatenate([prefix, tail]).astype(np.int32))
+        else:
+            prompts.append(rng.randint(1, vocab, int(lengths[i])).astype(np.int32))
+    return prompts
+
+
 def serve_windows(torch, dev, seed: int) -> dict:
     """Phase 5: full width and depth, bf16, through the paths of more than 8
     rows and the packed kernels.  Each run starts every launch count at 0
@@ -449,72 +746,22 @@ def serve_windows(torch, dev, seed: int) -> dict:
     from repro_torch.core.packed import EncodingConfig
     from repro_torch.models import transformer as T
     from repro_torch.serving import engine as engine_lib
-    from repro_torch.serving.config import EngineConfig
 
     cfg = cfg_registry.get_config("llama3.2-1b")
     auto = EncodingConfig(backend="auto", attn_backend="auto")
     params = T.model_init(cfg, auto, seed=seed, device=dev)
     rng = np.random.RandomState(seed + 1)
     vocab = cfg.vocab_size
-    kernels = kernel_fns()
     runs = {}
 
     def run(label, enc, config, drive):
-        eng = engine_lib.Engine(params, cfg, enc, device=dev,
-                                config=EngineConfig(max_seq=1024, block_size=16, **config))
-        tally = DispatchTally(eng, cfg.num_layers)
-        for k in kernels.values():
-            k.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = drive(eng)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in kernels.items()}
-        want = {name: tally.want[name] for name in kernels}
-        st = eng.stats
-        bad = [(r.uid, r.status, len(r.generated)) for r in done
-               if r.status != "ok" or len(r.generated) != r.max_new_tokens]
-        if bad:
-            raise AssertionError(f"{label}: requests not all ok with their tokens: {bad}")
-        eng.audit()
-        if st["pages_in_use"] or st["degraded"]:
-            raise AssertionError(f"{label}: pages {st['pages_in_use']} degraded {st['degraded']}")
-        if launches != want:
-            raise AssertionError(f"{label}: launch counts {launches} != tallied {want}")
-        tokens = sum(len(r.generated) for r in done)
-        out = {"requests": len(done), "tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
-               "steps": st["steps"], "dispatches": st["dispatches"], "launches": launches,
-               "mmt4d_by_kind": {k: n for (k, name), n in tally.by_kind.items()
-                                 if name == "mmt4d"},
-               "max_rows": dict(tally.max_rows), "step_ms": tally.step_summary(),
-               "watchdog": st["watchdog"], "preemptions": st["preemptions"]}
-        for key in ("spec", "continuous"):
-            if key in st:
-                out[key] = {k: v for k, v in st[key].items() if not k.startswith("per_slot")}
-        runs[label] = out
-        steps = "; ".join(f"{k} x{v['steps']} p50 {v['p50_ms']:.3f} p99 {v['p99_ms']:.3f} ms"
-                          for k, v in out["step_ms"].items())
-        log(f"[windows] {label}: {len(done)} requests, {tokens} tokens in {wall:.3f}s "
-            f"({tokens / wall:.1f} tok/s incl. prefill); dispatches {st['dispatches']}; "
-            f"max rows {out['max_rows']}; steps: {steps}")
-        log(f"[windows] {label}: launches {launches} == tallied; mmt4d by kind "
-            f"{out['mmt4d_by_kind']}")
-        return eng, out
+        eng, runs[label] = counted_run(torch, dev, params, cfg, enc, config, drive, label,
+                                       "windows")
+        return eng, runs[label]
 
-    def submit_all(prompts, max_new):
-        def drive(eng):
-            for i, p in enumerate(prompts):
-                if not eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=max_new)):
-                    raise AssertionError(f"request {i} rejected")
-            return eng.run()
-        return drive
-
-    # (a) Speculative decode: 8 prompts, each a 16-token pattern tiled to
-    # 128-384 tokens, so the prompt-lookup drafter proposes every step.
-    tiled = [np.tile(rng.randint(1, vocab, 16), 24)[: int(n)].astype(np.int32)
-             for n in rng.choice([128, 192, 256, 320, 384], 8)]
-    _, out = run("spec", auto, dict(slots=4, spec_decode=True, draft_k=4), submit_all(tiled, 32))
+    # (a) Speculative decode on tiled prompts.
+    _, out = run("spec", auto, dict(slots=4, spec_decode=True, draft_k=4),
+                 submit_all(tiled_prompts(rng, vocab), 32))
     if not (out["dispatches"].get("verify", 0) > 0 and out["spec"]["proposed"] > 0):
         raise AssertionError(f"spec: no verify dispatch: {out['dispatches']} {out['spec']}")
     log(f"[windows] spec: acceptance {out['spec']['acceptance_rate']:.3f}, "
@@ -583,16 +830,8 @@ def serve(torch, dev, seed: int) -> dict:
     eng = engine_lib.Engine(params, cfg, enc,
                             config=EngineConfig(slots=4, max_seq=1024, block_size=16),
                             device=dev)
-    rng = np.random.RandomState(seed)
-    prefix = rng.randint(1, cfg.vocab_size, 256).astype(np.int32)
-    shared = {0, 4, 5, 6}  # wave 1 writes the prefix; wave 2 reuses it
-    lengths = rng.randint(100, 501, 8)
-    for i in range(8):
-        if i in shared:
-            tail = rng.randint(1, cfg.vocab_size, max(1, int(lengths[i]) - 256))
-            prompt = np.concatenate([prefix, tail]).astype(np.int32)
-        else:
-            prompt = rng.randint(1, cfg.vocab_size, int(lengths[i])).astype(np.int32)
+    prompts = shared_prefix_prompts(np.random.RandomState(seed), cfg.vocab_size)
+    for i, prompt in enumerate(prompts):
         if not eng.submit(engine_lib.Request(uid=i, prompt=prompt, max_new_tokens=32)):
             raise AssertionError(f"request {i} rejected")
 
@@ -633,6 +872,60 @@ def serve(torch, dev, seed: int) -> dict:
     return {"launches": launches, "dispatches": disp, "tokens": tokens, "wall_s": wall,
             "tok_s": tokens / wall, "step_p50_ms": wd["p50_ms"], "step_p99_ms": wd["p99_ms"],
             "hit_tokens": st["prefix_cache"]["hit_tokens"], "steps": st["steps"]}
+
+
+def serve_quantized(torch, dev, seed: int) -> dict:
+    """Phase 6: full width and depth, bf16 activations, with w8a8 and with
+    w4a8 weights quantized on the card: phase 4's 8 shared-prefix requests
+    (backend "fused") and phase 5's speculative decode on tiled prompts
+    (registry routing), each run's launches equal to its tally."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core import targets
+    from repro_torch.core.packed import QUANT_KEYS, EncodingConfig
+    from repro_torch.models import transformer as T
+
+    cfg = cfg_registry.get_config("llama3.2-1b")
+    vocab = cfg.vocab_size
+    runs = {}
+    for wq in ("int8", "int4"):
+        quant = QUANT_KEYS[wq]
+        fused = EncodingConfig(backend="fused", attn_backend="auto", weight_quant=wq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = T.model_init(cfg, fused, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        stream = T.decode_weight_stream_bytes(cfg, fused)
+        floor_ms = 1e3 * sum(stream.values()) / targets.H100.hbm_bytes_per_s
+        log(f"[quant] {quant}: init + quantize on the card {init_s:.1f}s; a decode step "
+            f"streams {stream['projections'] / 1e9:.4f} GB of projections + "
+            f"{stream['head'] / 1e9:.4f} GB of head (floor {floor_ms:.3f} ms at the "
+            f"data-sheet rate)")
+        prompts = shared_prefix_prompts(np.random.RandomState(seed), vocab)
+        _, out = counted_run(torch, dev, params, cfg, fused, dict(slots=4),
+                             submit_all(prompts, 32), f"{quant} phase4", "quant")
+        if out["prefix_hit_tokens"] <= 0:
+            raise AssertionError(f"{quant} phase4: no prefix-cache hit")
+        runs[f"{quant} phase4"] = dict(out, init_s=init_s, stream_bytes=stream,
+                                       stream_floor_ms=floor_ms)
+        auto = EncodingConfig(backend="auto", attn_backend="auto", weight_quant=wq)
+        _, out = counted_run(torch, dev, params, cfg, auto,
+                             dict(slots=4, spec_decode=True, draft_k=4),
+                             submit_all(tiled_prompts(np.random.RandomState(seed + 1), vocab), 32),
+                             f"{quant} spec", "quant")
+        if not (out["dispatches"].get("verify", 0) > 0 and out["spec"]["proposed"] > 0):
+            raise AssertionError(f"{quant} spec: no verify dispatch: {out['dispatches']}")
+        log(f"[quant] {quant} spec: acceptance {out['spec']['acceptance_rate']:.3f}, "
+            f"mean committed per slot step {out['spec']['mean_accepted_len']:.3f}")
+        runs[f"{quant} spec"] = dict(out, stream_bytes=stream, stream_floor_ms=floor_ms)
+        del params
+        torch.cuda.empty_cache()
+    for name in ("fused_gemv_q8", "mmt4d_q8", "fused_gemv_q4", "mmt4d_q4"):
+        if not sum(r["launches"][name] for r in runs.values()):
+            raise AssertionError(f"phase 6: {name} never launched")
+    return runs
 
 
 def main() -> int:
@@ -678,13 +971,17 @@ def main() -> int:
     timer = Timer(torch, dev)
     t0 = time.perf_counter()
     check_kernels(torch, dev, targets.H100, timer, results)
+    check_quant_kernels(torch, dev, targets.H100, timer, results)
     log(f"[kernel] checks done in {time.perf_counter() - t0:.1f}s")
     del timer
     torch.cuda.empty_cache()
     forward_check(torch, dev, args.seed)
+    quant_forward_check(torch, dev, args.seed)
     served = serve(torch, dev, args.seed)
     windows = serve_windows(torch, dev, args.seed)
-    launches = {name: served["launches"][name] + sum(r["launches"][name] for r in windows.values())
+    quant = serve_quantized(torch, dev, args.seed)
+    launches = {name: served["launches"][name]
+                + sum(r["launches"][name] for r in (*windows.values(), *quant.values()))
                 for name in REPLACES}
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
@@ -704,7 +1001,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kind": kind, "build_s": build_s, "kernels": results,
-                   "serve": served, "windows": windows, "table": table}, f, indent=1)
+                   "serve": served, "windows": windows, "quant": quant, "table": table},
+                  f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,7 +8,10 @@ repetition of `block_pattern`); the port keeps a list of per-layer dicts,
 so every stacked leaf is split along that axis.  bfloat16 arrays move as
 raw 16-bit words (`torch.from_numpy` has no bfloat16): the ml_dtypes array
 is viewed as uint16, handed to torch, and viewed back as torch.bfloat16, so
-every bit survives.
+every bit survives.  Quantized projections (`enc.weight_quant` "int8" or
+"int4") carry their leaves as they are: w_q (int8), w_scale (f32), w_q4
+(uint8 nibbles) and w_scale4 (bf16), bit for bit, so the port serves the
+JAX package's quantized weights, not a requantization of its own.
 """
 
 from __future__ import annotations
@@ -33,17 +36,27 @@ def _tree(node, fn):
     return fn(node)
 
 
+# The weight leaf of a projection in each weight format.
+_WEIGHT_KEY = {"none": "w_packed", "int8": "w_q", "int4": "w_q4"}
+
+
+def _keys(node) -> set:
+    if not isinstance(node, dict):
+        return set()
+    return set(node).union(*(_keys(v) for v in node.values()))
+
+
 def params_from_jax(np_params: dict, cfg: ModelConfig, enc: EncodingConfig,
                     device: torch.device | str) -> dict:
     """Port params from the JAX pytree (leaves as numpy arrays)."""
-    if enc.weight_quant != "none":
-        raise NotImplementedError(
-            "quantized weights wait for the quantized-serving slice (ROADMAP)"
-        )
     pattern = tuple(cfg.block_pattern)
     if pattern != ("attn",) or "tail" in np_params:
         raise NotImplementedError(f"block pattern {pattern} waits for its family's slice")
     (group,) = np_params["groups"]  # one block per pattern position
+    want = _WEIGHT_KEY[enc.weight_quant] if enc.enabled else "w_t"
+    if want not in _keys(group):
+        raise ValueError(f"the JAX params hold no {want!r} leaves: they were made for "
+                         f"another weight format than weight_quant={enc.weight_quant!r}")
     n_layers = cfg.num_layers
     layers = [_tree(group, lambda a, i=i: to_torch(a[i], device)) for i in range(n_layers)]
     out = {

@@ -77,3 +77,19 @@ def padded_dim(dim: int, tile: int) -> int:
 
 def packed_shape(rows: int, cols: int, t0: int, t1: int) -> tuple[int, int, int, int]:
     return (math.ceil(rows / t0), math.ceil(cols / t1), t0, t1)
+
+
+def quant_weight_stream_bytes(n: int, k: int, *, quant: str = "none", weight_itemsize: int = 2,
+                              group: int = 16) -> int:
+    """Bytes one decode step streams for a W (n, k) projection, per weight
+    format (the weight is read once per step):
+      none : n*k*weight_itemsize                  (bf16: 2 bytes/weight)
+      w8a8 : n*k + n*4                            (int8 + per-channel f32)
+      w4a8 : n*k/2 + n*ceil(k/group)*2            (nibbles + bf16 group scales)"""
+    if quant == "none":
+        return n * k * weight_itemsize
+    if quant == "w8a8":
+        return n * k + n * 4
+    if quant == "w4a8":
+        return n * (k // 2) + n * math.ceil(k / group) * 2
+    raise ValueError(f"unknown quant mode {quant!r}")

@@ -3,6 +3,12 @@
 Weights of every dense projection are stored in the mmt4d packed layout
 (N1, K1, N0, K0), packed once at init or conversion.  `enabled=False` stores
 the plain (N, K) weight and runs the un-encoded reference contraction.
+
+Serving weight quantization (`weight_quant`): "int8" stores w_q (packed
+int8) and w_scale (per output channel, f32) and runs w8a8; "int4" stores
+w_q4 (nibble-packed int4) and w_scale4 (bf16, one per `quant_group` K
+elements) and runs w4a8.  Both quantize on the device the weight is made
+on, and route by `quant_backend` (kernels/ops.py).
 """
 
 from __future__ import annotations
@@ -16,10 +22,8 @@ from repro_torch.core import targets as targets_lib
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 
-_QUANT_TODO = (
-    "quantized weights (w8a8/w4a8) wait for the quantized-serving slice "
-    "(ROADMAP, modules to port: quantized serving)"
-)
+# The weight formats and the registry's quant name of each.
+QUANT_KEYS = {"none": "none", "int8": "w8a8", "int4": "w4a8"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,10 +35,22 @@ class EncodingConfig:
     # (registry policy).
     attn_backend: str = "xla"
     target: targets_lib.TargetSpec = targets_lib.H100
-    weight_quant: str = "none"  # only "none" runs in the port so far
+    weight_quant: str = "none"  # none | int8 (w8a8) | int4 (w4a8)
+    quant_group: int = 16       # K elements per int4 scale (weight_quant="int4")
+
+    def __post_init__(self):
+        if self.weight_quant not in QUANT_KEYS:
+            raise ValueError(f"weight_quant must be one of {tuple(QUANT_KEYS)}, "
+                             f"got {self.weight_quant!r}")
 
     def resolved_backend(self) -> str:
         return self.backend if self.enabled else "reference"
+
+    def quant_backend(self) -> str:
+        """The backend the quantized projections request: the kernels'
+        backends and "auto" pass through; "reference" and "xla" take the
+        plain oracle ("xla")."""
+        return self.backend if self.backend in ("pallas", "fused", "auto") else "xla"
 
 
 DEFAULT_ENCODING = EncodingConfig()
@@ -51,14 +67,22 @@ def linear_init(
     device: torch.device | str = "cpu",
     scale: float | None = None,
 ) -> dict:
-    """Init y = x @ W^T + b with W ~ N(0, scale^2), stored packed when
-    encoding is on.  `gen` is a torch.Generator on `device`."""
-    if enc.weight_quant != "none":
-        raise NotImplementedError(_QUANT_TODO)
+    """Init y = x @ W^T + b with W ~ N(0, scale^2), stored packed (and
+    quantized, per `enc.weight_quant`) when encoding is on.  `gen` is a
+    torch.Generator on `device`."""
     scale = scale if scale is not None else in_dim**-0.5
     w_t = scale * torch.randn((out_dim, in_dim), generator=gen, device=device)
     w_t = w_t.to(dtype)
-    params = {"w_packed": ops.pack_rhs(w_t)} if enc.enabled else {"w_t": w_t}
+    if not enc.enabled:
+        params = {"w_t": w_t}
+    elif enc.weight_quant == "int4":
+        w_q4, s_w4 = ops.pack_rhs_q4(w_t, group=enc.quant_group)
+        params = {"w_q4": w_q4, "w_scale4": s_w4}
+    elif enc.weight_quant == "int8":
+        w_q, s_w = ops.pack_rhs_q8(w_t)
+        params = {"w_q": w_q, "w_scale": s_w}
+    else:
+        params = {"w_packed": ops.pack_rhs(w_t)}
     if use_bias:
         params["b"] = torch.zeros((out_dim,), dtype=dtype, device=device)
     return params
@@ -74,9 +98,17 @@ def linear_apply(
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     out_dtype = out_dtype or x.dtype
-    if "w_q" in params or "w_q4" in params:
-        raise NotImplementedError(_QUANT_TODO)
-    if "w_packed" in params:
+    if "w_q4" in params:
+        y = ops.encoded_matmul_q4(
+            x, params["w_q4"], params["w_scale4"], n=n, phase=phase, group=enc.quant_group,
+            backend=enc.quant_backend(), target=enc.target, out_dtype=out_dtype,
+        )
+    elif "w_q" in params:
+        y = ops.encoded_matmul_q8(
+            x, params["w_q"], params["w_scale"], n=n, phase=phase,
+            backend=enc.quant_backend(), target=enc.target, out_dtype=out_dtype,
+        )
+    elif "w_packed" in params:
         y = ops.encoded_matmul(
             x, params["w_packed"], n=n, phase=phase,
             backend=enc.resolved_backend(), target=enc.target, out_dtype=out_dtype,

@@ -17,6 +17,7 @@ class TargetSpec:
     name: str
     peak_flops_bf16: float       # tensor cores, dense
     peak_flops_f32: float        # CUDA cores, outside the tensor cores
+    peak_ops_int8: float         # tensor cores, dense int8 (int32 accumulate)
     hbm_bytes_per_s: float
     smem_bytes_per_block: int    # dynamic shared memory one block may use
     sm_count: int
@@ -26,6 +27,7 @@ H100 = TargetSpec(
     name="h100",
     peak_flops_bf16=989e12,
     peak_flops_f32=67e12,
+    peak_ops_int8=1979e12,
     hbm_bytes_per_s=3.35e12,
     smem_bytes_per_block=232_448,
     sm_count=132,

@@ -8,6 +8,10 @@ the kernel (counterpart of repro/kernels/fused_gemv.py: fused_gemv_pallas).
 CUDA source: csrc/fused_gemv.cu (what bounds it and how it is laid out is
 noted there).  `fused_gemv` launches the kernel for CUDA tensors and takes
 the plain version `fused_gemv_plain` only for tensors on the CPU.
+
+`fused_gemv_q8` is the w8a8 decode GEMV (counterpart of
+fused_gemv_q8_pallas): int8 rows x the packed int8 weight, int32 sum, then
+(acc * s_a[m]) * s_w[n] in f32.  CUDA source: csrc/fused_gemv_q8.cu.
 """
 
 from __future__ import annotations
@@ -72,3 +76,73 @@ def fused_gemv(lhs: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
 
 
 fused_gemv.launches = 0
+
+
+# ---- w8a8 ------------------------------------------------------------------------
+
+
+def check_q8_operands(lhs_q: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Tensor,
+                      s_w: torch.Tensor) -> None:
+    """Contract of the w8a8 GEMV: int8 rows (M, K), int8 packed weight,
+    s_a (M, 1) f32, s_w (N1, N0) f32, all on one device."""
+    if lhs_q.dim() != 2 or rhs4_q.dim() != 4:
+        raise ValueError(f"want lhs_q (M, K) and rhs4_q (N1, K1, N0, K0), got "
+                         f"{tuple(lhs_q.shape)} and {tuple(rhs4_q.shape)}")
+    n1, k1, n0, k0 = rhs4_q.shape
+    m = lhs_q.shape[0]
+    if lhs_q.shape[1] != k1 * k0:
+        raise ValueError(f"lhs_q K {lhs_q.shape[1]} != packed K {k1 * k0}")
+    if lhs_q.dtype != torch.int8 or rhs4_q.dtype != torch.int8:
+        raise TypeError(f"w8a8 operands are int8, got {lhs_q.dtype} and {rhs4_q.dtype}")
+    if tuple(s_a.shape) != (m, 1) or tuple(s_w.shape) != (n1, n0):
+        raise ValueError(f"want s_a ({m}, 1) and s_w ({n1}, {n0}), got "
+                         f"{tuple(s_a.shape)} and {tuple(s_w.shape)}")
+    if s_a.dtype != torch.float32 or s_w.dtype != torch.float32:
+        raise TypeError(f"scales are float32, got {s_a.dtype} and {s_w.dtype}")
+    if len({t.device for t in (lhs_q, rhs4_q, s_a, s_w)}) != 1:
+        raise ValueError("w8a8 operands lie on different devices")
+
+
+def fused_gemv_q8_plain(lhs_q: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Tensor,
+                        s_w: torch.Tensor) -> torch.Tensor:
+    """What the kernel computes, in plain PyTorch: the exact integer sum
+    (ref.int_contract), then (acc * s_a) * s_w."""
+    n1, k1, n0, k0 = rhs4_q.shape
+    acc = ref.int_contract(lhs_q, ref.unpack(rhs4_q, (n1 * n0, k1 * k0)), "mk,nk->mn")
+    return acc * s_a * s_w.reshape(1, n1 * n0)
+
+
+@functools.cache
+def _kernel_q8():
+    return build.entry(
+        "fused_gemv_q8", "fused_gemv_q8",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    )
+
+
+def fused_gemv_q8(lhs_q: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Tensor,
+                  s_w: torch.Tensor) -> torch.Tensor:
+    """int8 rows (M, K) x packed int8 rhs4_q -> (M, N1*N0) f32 with the
+    s_a (M, 1) x s_w (N1, N0) epilogue.  Plain version on the CPU; on a CUDA
+    tensor the kernel runs or this raises."""
+    check_q8_operands(lhs_q, rhs4_q, s_a, s_w)
+    if lhs_q.device.type == "cpu":
+        return fused_gemv_q8_plain(lhs_q, rhs4_q, s_a, s_w)
+    if lhs_q.device.type != "cuda":
+        raise RuntimeError(f"fused_gemv_q8 runs on cuda (or cpu: plain), not {lhs_q.device}")
+    n1, k1, n0, k0 = rhs4_q.shape
+    m = lhs_q.shape[0]
+    if not 1 <= m <= GEMV_MAX_ROWS or (n0, k0) != (128, 128):
+        raise ValueError(f"fused_gemv_q8 takes 1..{GEMV_MAX_ROWS} rows and 128x128 "
+                         f"pack tiles, got M={m}, tile=({n0}, {k0})")
+    lhs_q, rhs4_q = build.aligned(lhs_q), build.aligned(rhs4_q)
+    s_a, s_w = s_a.contiguous(), s_w.contiguous()
+    out = torch.empty((m, n1 * n0), dtype=torch.float32, device=lhs_q.device)
+    err = _kernel_q8()(lhs_q.data_ptr(), rhs4_q.data_ptr(), s_a.data_ptr(), s_w.data_ptr(),
+                       out.data_ptr(), m, n1, k1, build.stream_ptr(lhs_q.device))
+    build.check(err, "fused_gemv_q8", "fused_gemv_q8 launch")
+    fused_gemv_q8.launches += 1
+    return out
+
+
+fused_gemv_q8.launches = 0

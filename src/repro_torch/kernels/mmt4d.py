@@ -41,7 +41,7 @@ def check_packed(lhs4: torch.Tensor, rhs4: torch.Tensor, m0_ok) -> None:
                          f"M0, got M0={m0}, N0={n0}, K0={k0}")
 
 
-def _gemm_m0(m0: int) -> bool:
+def gemm_m0(m0: int) -> bool:
     return 1 <= m0 <= GEMV_MAX_ROWS or m0 == PACK_TILE
 
 
@@ -60,7 +60,7 @@ def mmt4d(lhs4: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
         return mmt4d_plain(lhs4, rhs4)
     if lhs4.device.type != "cuda":
         raise RuntimeError(f"mmt4d runs on cuda (or cpu: plain), not {lhs4.device}")
-    check_packed(lhs4, rhs4, _gemm_m0)
+    check_packed(lhs4, rhs4, gemm_m0)
     m1, k1, m0, _ = lhs4.shape
     n1, _, n0, _ = rhs4.shape
     lhs4, rhs4 = build.aligned(lhs4), build.aligned(rhs4)

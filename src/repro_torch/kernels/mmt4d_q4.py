@@ -1,0 +1,165 @@
+"""w4a8 group-quantized projections (counterpart of repro/kernels/mmt4d_q4.py:
+fused_gemv_q4_pallas and mmt4d_q4_pallas).
+
+Weights are stored in the packed layout with two's-complement nibbles two
+per byte along K0 (byte j of a tile row holds elements 2j low, 2j+1 high)
+and one bf16 scale per `group` consecutive K elements:
+
+    rhs4_p (N1, K1, N0, K0/2) uint8      s_w4 (N1, K1, N0, K0/group) bf16
+
+(what the JAX package's code ships: bf16 scales, group ref.Q4_GROUP = 16 by
+default and passed by the caller; the kernels take group 16 and 32).
+
+    fused_gemv_q4 : decode -- int8 rows lhs_q (M, K), s_a (M, 1) f32
+                    -> (M, N1*N0) f32, M <= GEMV_MAX_ROWS, rows never padded
+    mmt4d_q4      : packed int8 rows lhs4_q (M1, K1, M0, K0), s_a (M1, M0)
+                    -> (M1, N1, M0, N0) f32; M0 in 1..8 or 128
+
+Both compute (sum_k a_q * w_q * s_group) * s_a, the sum exact in float64
+and rounded to f32 once, so kernel and plain version agree bit for bit and
+differ from the JAX kernels' f32 sums only by their rounding.  CUDA source:
+csrc/mmt4d_q4.cu (what bounds it and how it is laid out is noted there).
+The wrappers launch the kernels for CUDA tensors and take the plain versions
+(`fused_gemv_q4_plain`, `mmt4d_q4_plain` = ref.mmt4d_q4) only for tensors
+on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.encoding import GEMV_MAX_ROWS, PACK_TILE
+from repro_torch.kernels import build
+from repro_torch.kernels import mmt4d as mmt4d_lib
+from repro_torch.kernels import ref
+from repro_torch.kernels.mmt4d_q8 import check_packed_scales
+
+KERNEL_GROUPS = (16, 32)
+
+mmt4d_q4_plain = ref.mmt4d_q4
+
+
+def _check_weight(rhs4_p: torch.Tensor, group: int) -> None:
+    if rhs4_p.dim() != 4 or rhs4_p.dtype != torch.uint8:
+        raise ValueError(f"want nibble-packed rhs4_p (N1, K1, N0, K0/2) uint8, got "
+                         f"{tuple(rhs4_p.shape)} {rhs4_p.dtype}")
+    k0 = 2 * rhs4_p.shape[3]
+    if k0 % group:
+        raise ValueError(f"group {group} does not tile K0 = {k0}")
+
+
+def _check_kernel(rhs4_p: torch.Tensor, group: int, name: str) -> None:
+    """What the CUDA kernels take beyond the plain versions' contract."""
+    _, _, n0, k0p = rhs4_p.shape
+    if (n0, 2 * k0p) != (PACK_TILE, PACK_TILE) or group not in KERNEL_GROUPS:
+        raise ValueError(f"{name} takes {PACK_TILE}x{PACK_TILE} pack tiles and groups "
+                         f"{KERNEL_GROUPS}, got tile ({n0}, {2 * k0p}), group {group}")
+
+
+def _on_card(t: torch.Tensor, name: str) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on cuda (or cpu: plain), not {t.device}")
+    return True
+
+
+def fused_gemv_q4_plain(lhs_q: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
+                        s_w4: torch.Tensor, group: int = ref.Q4_GROUP) -> torch.Tensor:
+    """What the GEMV kernel computes, in plain PyTorch: rows x the
+    dequantized weight, summed exactly in float64 and rounded to f32 once
+    (as ref.mmt4d_q4), then * s_a."""
+    n1, k1, n0, k0p = rhs4_p.shape
+    w = ref.dequant_rhs4_q4(rhs4_p, s_w4, group, dtype=torch.float64)
+    w = ref.unpack(w, (n1 * n0, k1 * 2 * k0p))
+    return (lhs_q.double() @ w.t()).float() * s_a
+
+
+@functools.cache
+def _gemv_kernel():
+    return build.entry(
+        "mmt4d_q4", "fused_gemv_q4",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    )
+
+
+def fused_gemv_q4(lhs_q: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
+                  s_w4: torch.Tensor, group: int = ref.Q4_GROUP) -> torch.Tensor:
+    """int8 rows (M, K) x the nibble-packed weight -> (M, N1*N0) f32.  Plain
+    version on the CPU; on a CUDA tensor the kernel runs or this raises."""
+    _check_weight(rhs4_p, group)
+    n1, k1, n0, k0p = rhs4_p.shape
+    m, k = lhs_q.shape
+    if k != k1 * 2 * k0p or lhs_q.dtype != torch.int8:
+        raise ValueError(f"want int8 lhs_q (M, {k1 * 2 * k0p}), got {tuple(lhs_q.shape)} "
+                         f"{lhs_q.dtype}")
+    if tuple(s_a.shape) != (m, 1) or s_a.dtype != torch.float32:
+        raise ValueError(f"want s_a ({m}, 1) float32, got {tuple(s_a.shape)} {s_a.dtype}")
+    if tuple(s_w4.shape) != (n1, k1, n0, 2 * k0p // group):
+        raise ValueError(f"s_w4 {tuple(s_w4.shape)} does not match rhs4_p "
+                         f"{tuple(rhs4_p.shape)} at group {group}")
+    if len({t.device for t in (lhs_q, rhs4_p, s_a, s_w4)}) != 1:
+        raise ValueError("w4a8 operands lie on different devices")
+    if not _on_card(lhs_q, "fused_gemv_q4"):
+        return fused_gemv_q4_plain(lhs_q, rhs4_p, s_a, s_w4, group)
+    _check_kernel(rhs4_p, group, "fused_gemv_q4")
+    if not 1 <= m <= GEMV_MAX_ROWS or s_w4.dtype != torch.bfloat16:
+        raise ValueError(f"fused_gemv_q4 takes 1..{GEMV_MAX_ROWS} rows and bf16 scales, "
+                         f"got M={m}, {s_w4.dtype}")
+    lhs_q, rhs4_p = build.aligned(lhs_q), build.aligned(rhs4_p)
+    s_a, s_w4 = s_a.contiguous(), s_w4.contiguous()
+    out = torch.empty((m, n1 * n0), dtype=torch.float32, device=lhs_q.device)
+    err = _gemv_kernel()(lhs_q.data_ptr(), rhs4_p.data_ptr(), s_a.data_ptr(), s_w4.data_ptr(),
+                         out.data_ptr(), m, n1, k1, group, build.stream_ptr(lhs_q.device))
+    build.check(err, "mmt4d_q4", "fused_gemv_q4 launch")
+    fused_gemv_q4.launches += 1
+    return out
+
+
+fused_gemv_q4.launches = 0
+
+
+@functools.cache
+def _gemm_kernel():
+    return build.entry(
+        "mmt4d_q4", "mmt4d_q4",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    )
+
+
+def mmt4d_q4(lhs4_q: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
+             s_w4: torch.Tensor, group: int = ref.Q4_GROUP) -> torch.Tensor:
+    """Packed int8 lhs4_q x the nibble-packed weight -> packed (M1, N1, M0,
+    N0) f32.  Plain version on the CPU; on a CUDA tensor the kernel runs or
+    this raises."""
+    _check_weight(rhs4_p, group)
+    if lhs4_q.dim() != 4:
+        raise ValueError(f"want lhs4_q (M1, K1, M0, K0), got {tuple(lhs4_q.shape)}")
+    m1, k1, m0, k0 = lhs4_q.shape
+    n1, k1r, n0, k0p = rhs4_p.shape
+    if (k1, k0) != (k1r, 2 * k0p):
+        raise ValueError(f"K tiles differ: lhs4_q {tuple(lhs4_q.shape)}, rhs4_p "
+                         f"{tuple(rhs4_p.shape)}")
+    check_packed_scales(lhs4_q, rhs4_p, s_a, s_w4, s_w_shape=(n1, k1, n0, k0 // group),
+                        s_w_dtype=s_w4.dtype)
+    if not _on_card(lhs4_q, "mmt4d_q4"):
+        return mmt4d_q4_plain(lhs4_q, rhs4_p, s_a, s_w4, group)
+    _check_kernel(rhs4_p, group, "mmt4d_q4")
+    if not mmt4d_lib.gemm_m0(m0) or s_w4.dtype != torch.bfloat16:
+        raise ValueError(f"mmt4d_q4 takes M0 in 1..{GEMV_MAX_ROWS} or {PACK_TILE} and bf16 "
+                         f"scales, got M0={m0}, {s_w4.dtype}")
+    lhs4_q, rhs4_p = build.aligned(lhs4_q), build.aligned(rhs4_p)
+    s_a, s_w4 = s_a.contiguous(), s_w4.contiguous()
+    out4 = torch.empty((m1, n1, m0, n0), dtype=torch.float32, device=lhs4_q.device)
+    err = _gemm_kernel()(lhs4_q.data_ptr(), rhs4_p.data_ptr(), s_a.data_ptr(), s_w4.data_ptr(),
+                         out4.data_ptr(), m1, m0, n1, k1, group,
+                         build.stream_ptr(lhs4_q.device))
+    build.check(err, "mmt4d_q4", "mmt4d_q4 launch")
+    mmt4d_q4.launches += 1
+    return out4
+
+
+mmt4d_q4.launches = 0

@@ -1,0 +1,78 @@
+"""w8a8 packed-layout GEMM (counterpart of repro/kernels/mmt4d_q8.py:
+mmt4d_q8_pallas).
+
+    lhs4_q : (M1, K1, M0, K0) int8   packed activation rows: M0 in 1..8 at
+                                     decode, 128 at prefill
+    rhs4_q : (N1, K1, N0, K0) int8   packed weight, N0 = K0 = 128
+    s_a    : (M1, M0) f32            per-row activation scales
+    s_w    : (N1, N0) f32            per-output-channel weight scales
+    out4   : (M1, N1, M0, N0) f32    (float(int32 sum) * s_a) * s_w, packed
+
+CUDA source: csrc/mmt4d_q8.cu (what bounds it and how it is laid out is
+noted there).  `mmt4d_q8` launches the kernel for CUDA tensors and takes the
+plain version `mmt4d_q8_plain` (= ref.mmt4d_q8) only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import mmt4d as mmt4d_lib
+from repro_torch.kernels import ref
+
+mmt4d_q8_plain = ref.mmt4d_q8
+
+
+def check_packed_scales(lhs4: torch.Tensor, rhs4: torch.Tensor, s_a: torch.Tensor,
+                        s_w: torch.Tensor, *, s_w_shape: tuple[int, ...],
+                        s_w_dtype: torch.dtype) -> None:
+    """Scale contract shared by the quantized packed GEMMs: s_a (M1, M0) f32,
+    s_w of `s_w_shape` and `s_w_dtype`, all on the operands' device."""
+    m1, _, m0, _ = lhs4.shape
+    if tuple(s_a.shape) != (m1, m0) or s_a.dtype != torch.float32:
+        raise ValueError(f"want s_a ({m1}, {m0}) float32, got {tuple(s_a.shape)} {s_a.dtype}")
+    if tuple(s_w.shape) != s_w_shape or s_w.dtype != s_w_dtype:
+        raise ValueError(f"want weight scales {s_w_shape} {s_w_dtype}, got "
+                         f"{tuple(s_w.shape)} {s_w.dtype}")
+    if lhs4.dtype != torch.int8:
+        raise TypeError(f"quantized GEMM rows are int8, got {lhs4.dtype}")
+    if len({t.device for t in (lhs4, rhs4, s_a, s_w)}) != 1:
+        raise ValueError("quantized GEMM operands lie on different devices")
+
+
+@functools.cache
+def _kernel():
+    return build.entry(
+        "mmt4d_q8", "mmt4d_q8",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    )
+
+
+def mmt4d_q8(lhs4_q: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Tensor,
+             s_w: torch.Tensor) -> torch.Tensor:
+    """Packed int8 lhs4_q x packed int8 rhs4_q -> packed (M1, N1, M0, N0)
+    f32 with the scale epilogue.  Plain version on the CPU; on a CUDA tensor
+    the kernel runs or this raises."""
+    n1, _, n0, _ = rhs4_q.shape
+    check_packed_scales(lhs4_q, rhs4_q, s_a, s_w, s_w_shape=(n1, n0), s_w_dtype=torch.float32)
+    if lhs4_q.device.type == "cpu":
+        return mmt4d_q8_plain(lhs4_q, rhs4_q, s_a, s_w)
+    if lhs4_q.device.type != "cuda":
+        raise RuntimeError(f"mmt4d_q8 runs on cuda (or cpu: plain), not {lhs4_q.device}")
+    mmt4d_lib.check_packed(lhs4_q, rhs4_q, mmt4d_lib.gemm_m0)
+    m1, k1, m0, _ = lhs4_q.shape
+    lhs4_q, rhs4_q = build.aligned(lhs4_q), build.aligned(rhs4_q)
+    s_a, s_w = s_a.contiguous(), s_w.contiguous()
+    out4 = torch.empty((m1, n1, m0, n0), dtype=torch.float32, device=lhs4_q.device)
+    err = _kernel()(lhs4_q.data_ptr(), rhs4_q.data_ptr(), s_a.data_ptr(), s_w.data_ptr(),
+                    out4.data_ptr(), m1, m0, n1, k1, build.stream_ptr(lhs4_q.device))
+    build.check(err, "mmt4d_q8", "mmt4d_q8 launch")
+    mmt4d_q8.launches += 1
+    return out4
+
+
+mmt4d_q8.launches = 0

@@ -21,6 +21,15 @@ VMEM plan: the kernel streams the weight from device memory and stages at
 most a K-chunk of the <= 8 rows in shared memory, so any K fits, and rows
 are never padded to a sublane or slab multiple.  M0 for the packed path is
 encoding.select_tile_sizes's rule.
+
+Quantized weights (`encoded_matmul_q8` for w8a8, `encoded_matmul_q4` for
+w4a8) quantize the activation rows per row to int8 in plain PyTorch (after
+padding K to the packed weight's), then route by the same rule: "fused" at
+decode with at most GEMV_MAX_ROWS rows takes the int8 or int4 GEMV
+(csrc/fused_gemv_q8.cu, csrc/mmt4d_q4.cu) on the plain rows; "pallas", and
+"fused" otherwise, pack the rows and take the packed q8 or q4 GEMM
+(csrc/mmt4d_q8.cu, csrc/mmt4d_q4.cu); "xla" takes the plain oracle
+(ref.mmt4d_q8 / ref.mmt4d_q4), the registry's fallback for these quants.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ from repro_torch.kernels import fused_gemv as fused_gemv_lib
 from repro_torch.kernels import fused_pack_mmt4d as fused_lib
 from repro_torch.kernels import mmt4d as mmt4d_lib
 from repro_torch.kernels import mmt4d_gemv as gemv_lib
+from repro_torch.kernels import mmt4d_q4 as q4_lib
+from repro_torch.kernels import mmt4d_q8 as q8_lib
 from repro_torch.kernels import ref
 from repro_torch.kernels import registry
 
@@ -94,5 +105,109 @@ def encoded_matmul(
             out4 = gemv_lib.mmt4d_gemv(lhs4, rhs4)
         else:
             out4 = mmt4d_lib.mmt4d(lhs4, rhs4)
+        out2d = ref.unpack(out4, (m, n1 * n0))
+    return out2d[:, :n].to(out_dtype).reshape(*lead, n)
+
+
+# ---- quantized weights (w8a8, w4a8) ---------------------------------------------
+
+
+def pack_rhs_q8(w_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize a transposed weight (N, K) per output channel (MSE clip
+    search) and pack it.  Returns (rhs4_q (N1, K1, N0, K0) int8, s_w (N1, N0)
+    f32, zero past N).  One-time cost, on w_t's device."""
+    q, s = ref.quantize_rows_mse(w_t)
+    rhs4 = pack_rhs(q)
+    n1, _, n0, _ = rhs4.shape
+    s_pad = torch.zeros(n1 * n0, dtype=torch.float32, device=w_t.device)
+    s_pad[: s.shape[0]] = s
+    return rhs4, s_pad.reshape(n1, n0)
+
+
+def pack_rhs_q4(w_t: torch.Tensor, *, group: int = ref.Q4_GROUP
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Group-quantize (per row and `group` K elements, MSE clip search) and
+    pack a transposed weight (N, K).  Returns (rhs4_p (N1, K1, N0, K0/2)
+    uint8 nibbles, s_w4 (N1, K1, N0, K0/group) bf16 scales); pad rows and
+    columns carry zero nibbles and zero scales."""
+    if encoding.PACK_TILE % group:
+        raise ValueError(f"group {group} must divide the K0 tile {encoding.PACK_TILE}")
+    q, s = ref.quantize_rows_q4_grouped(w_t, group=group)
+    t = encoding.PACK_TILE
+    rhs4 = ref.pack(q, (t, t))
+    s_w4 = ref.pack(s, (t, t // group)).to(torch.bfloat16)
+    return ref.pack_nibbles(rhs4), s_w4
+
+
+def _quantized_rows(x: torch.Tensor, k_packed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (..., K) -> int8 rows (M, k_packed) and their scales (M,): K is
+    zero-padded to the packed weight's before the per-row quantizer."""
+    k = x.shape[-1]
+    if k > k_packed:
+        raise ValueError(f"x K {k} exceeds packed K {k_packed}")
+    x2d = x.reshape(-1, k)
+    if k != k_packed:
+        x2d = F.pad(x2d, (0, k_packed - k))
+    return ref.quantize_rows(x2d)
+
+
+def _packed_rows(xq: torch.Tensor, s_a: torch.Tensor, phase: Phase,
+                 k0: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack int8 rows at select_tile_sizes's M0; pad rows get scale 0."""
+    m = xq.shape[0]
+    m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
+    lhs4 = ref.pack(xq, (m0, k0))
+    m1 = lhs4.shape[0]
+    return lhs4, F.pad(s_a, (0, m1 * m0 - m)).reshape(m1, m0)
+
+
+def encoded_matmul_q8(x: torch.Tensor, rhs4_q: torch.Tensor, s_w: torch.Tensor, *, n: int,
+                      phase: Phase, backend: str = "xla",
+                      target: targets_lib.TargetSpec = targets_lib.H100,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """w8a8: x (..., K) @ W^T with W the packed int8 rhs4_q and its scales
+    s_w (N1, N0).  Returns (..., n) in `out_dtype` (default x.dtype)."""
+    out_dtype = out_dtype or x.dtype
+    n1, k1, n0, k0 = rhs4_q.shape
+    lead = x.shape[:-1]
+    xq, s_a = _quantized_rows(x, k1 * k0)
+    m = xq.shape[0]
+    backend = registry.select(quant="w8a8", phase=phase, m=m, target=target,
+                              requested=backend).backend
+    if backend == "fused" and phase is Phase.DECODE and m <= encoding.GEMV_MAX_ROWS:
+        out2d = fused_gemv_lib.fused_gemv_q8(xq, rhs4_q, s_a[:, None], s_w)
+    else:
+        lhs4, sa2 = _packed_rows(xq, s_a, phase, k0)
+        if backend == "xla":
+            out4 = ref.mmt4d_q8(lhs4, rhs4_q, sa2, s_w)
+        else:  # "pallas", and "fused" outside the GEMV's rows
+            out4 = q8_lib.mmt4d_q8(lhs4, rhs4_q, sa2, s_w)
+        out2d = ref.unpack(out4, (m, n1 * n0))
+    return out2d[:, :n].to(out_dtype).reshape(*lead, n)
+
+
+def encoded_matmul_q4(x: torch.Tensor, rhs4_p: torch.Tensor, s_w4: torch.Tensor, *, n: int,
+                      phase: Phase, group: int = ref.Q4_GROUP, backend: str = "xla",
+                      target: targets_lib.TargetSpec = targets_lib.H100,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """w4a8: x (..., K) @ W^T with W the nibble-packed int4 rhs4_p and its
+    group scales s_w4 (N1, K1, N0, K0/group).  Returns (..., n) in
+    `out_dtype` (default x.dtype)."""
+    out_dtype = out_dtype or x.dtype
+    n1, k1, n0, k0p = rhs4_p.shape
+    k0 = 2 * k0p
+    lead = x.shape[:-1]
+    xq, s_a = _quantized_rows(x, k1 * k0)
+    m = xq.shape[0]
+    backend = registry.select(quant="w4a8", phase=phase, m=m, target=target,
+                              requested=backend).backend
+    if backend == "fused" and phase is Phase.DECODE and m <= encoding.GEMV_MAX_ROWS:
+        out2d = q4_lib.fused_gemv_q4(xq, rhs4_p, s_a[:, None], s_w4, group)
+    else:
+        lhs4, sa2 = _packed_rows(xq, s_a, phase, k0)
+        if backend == "xla":
+            out4 = ref.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group)
+        else:  # "pallas", and "fused" outside the GEMV's rows
+            out4 = q4_lib.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group)
         out2d = ref.unpack(out4, (m, n1 * n0))
     return out2d[:, :n].to(out_dtype).reshape(*lead, n)

@@ -9,7 +9,10 @@ size of the same family; --device cpu runs the kernels' plain versions.
 dispatch per step; --token-budget N runs every step as one mixed
 chunked-prefill + decode dispatch of at most N tokens, with --slo-class
 naming the requests' class; --backend pallas routes every projection
-through the packed mmt4d kernels.
+through the packed mmt4d kernels.  --quant w8a8 | w4a8 serves int8 weights
+(per output channel) or int4 weights (one bf16 scale per --quant-group K
+elements, 16 by default, 32 the llama.cpp Q4_0 block) through the quantized
+kernels; the run prints the weight bytes each decode step streams.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.core.packed import EncodingConfig
+from repro_torch.core.packed import QUANT_KEYS, EncodingConfig
 from repro_torch.kernels import build
 from repro_torch.models import transformer as T
 from repro_torch.serving import engine as engine_lib
@@ -57,11 +60,17 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     ap.add_argument("--slo-class", dest="slo_class", default="standard",
                     choices=["interactive", "standard", "batch"],
                     help="SLO class of the requests (token-budget admission order)")
+    ap.add_argument("--quant", default="none", choices=sorted(QUANT_KEYS.values()),
+                    help="weight format: w8a8 = int8 per output channel, w4a8 = group int4")
+    ap.add_argument("--quant-group", dest="quant_group", type=int, default=16,
+                    help="w4a8 K elements per scale (16 default; 32 = llama.cpp Q4_0)")
     args = ap.parse_args(argv)
 
     config = EngineConfig.from_args(args)
     cfg = registry.get_reduced(args.arch) if args.reduced else registry.get_config(args.arch)
-    enc = EncodingConfig(enabled=True, backend=args.backend, attn_backend=args.attn_backend)
+    weight_quant = {v: k for k, v in QUANT_KEYS.items()}[args.quant]
+    enc = EncodingConfig(enabled=True, backend=args.backend, attn_backend=args.attn_backend,
+                         weight_quant=weight_quant, quant_group=args.quant_group)
     params = T.model_init(cfg, enc, seed=args.seed, device=args.device)
     eng = engine_lib.Engine(params, cfg, enc, config=config, device=args.device)
     if eng.device.type == "cuda":
@@ -85,6 +94,10 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     print(f"[serve] attn_backend={stats['attn_backend'][0]} "
           f"dispatches={stats['dispatches']} degraded={len(stats['degraded'][0])} "
           f"step p50={stats['watchdog']['p50_ms']:.2f}ms p99={stats['watchdog']['p99_ms']:.2f}ms")
+    wb = T.decode_weight_stream_bytes(cfg, enc)
+    print(f"[serve] weights streamed per decode step ({args.quant}): projections "
+          f"{wb['projections'] / 1e6:.1f} MB + head {wb['head'] / 1e6:.1f} MB = "
+          f"{sum(wb.values()) / 1e6:.1f} MB")
     pc = stats["prefix_cache"]
     print(f"[serve] paged: peak_active={stats['peak_active']} pages={stats['pages_total']} "
           f"peak_in_use={stats['peak_in_use']} preemptions={stats['preemptions']} "

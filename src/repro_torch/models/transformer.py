@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import encoding
 from repro_torch.core import packed
 from repro_torch.core.encoding import Phase
 from repro_torch.models import blocks
@@ -83,6 +84,27 @@ def cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, cache_mode: str = 
                                     table=first["table"])
             for _ in range(cfg.num_layers - 1)]
     return {"layers": [first] + rest}
+
+
+def decode_weight_stream_bytes(cfg: ModelConfig, enc: packed.EncodingConfig) -> dict[str, int]:
+    """Weight bytes one decode step reads from device memory: every layer's
+    projections in `enc`'s weight format (encoding.quant_weight_stream_bytes)
+    and the head (the tied embedding in the activation dtype)."""
+    _check_family(cfg)
+    quant = packed.QUANT_KEYS[enc.weight_quant] if enc.enabled else "none"
+    itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
+    d, f = cfg.d_model, cfg.d_ff
+    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    shapes = [(hd, d), (kvd, d), (kvd, d), (d, hd)]
+    shapes += [(f, d), (f, d), (d, f)] if cfg.mlp_kind == "swiglu" else [(f, d), (d, f)]
+
+    def stream(n, k):
+        return encoding.quant_weight_stream_bytes(n, k, quant=quant, weight_itemsize=itemsize,
+                                                  group=enc.quant_group)
+
+    v = cfg.vocab_size
+    head = (v + (-v) % 256) * d * itemsize if cfg.tie_embeddings else stream(v, d)
+    return {"projections": cfg.num_layers * sum(stream(n, k) for n, k in shapes), "head": head}
 
 
 def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,

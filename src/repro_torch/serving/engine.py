@@ -37,9 +37,12 @@ finishes only the offending slot, and kernel quarantine: a dispatch whose
 fault hook raises KernelFaultError demotes that registry key for the rest of
 the process and retries on the next rung.  Real CUDA errors propagate.
 
+Quantized weights (EncodingConfig weight_quant "int8" or "int4") serve
+through every step kind; their dispatches key the registry as w8a8 / w4a8.
+
 Not in this slice (each raises NotImplementedError at construction, naming
-its ROADMAP slice): the dense cache, temperature sampling, kv8/kv4 pools,
-meshes larger than one card, and quantized weights.
+its ROADMAP slice): the dense cache, temperature sampling, kv8/kv4 pools
+and meshes larger than one card.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.encoding import Phase
-from repro_torch.core.packed import EncodingConfig
+from repro_torch.core.packed import QUANT_KEYS, EncodingConfig
 from repro_torch.kernels import registry as registry_lib
 from repro_torch.models import transformer as T
 from repro_torch.runtime import watchdog as watchdog_lib
@@ -179,11 +182,9 @@ def _check_supported(config: EngineConfig, enc: EncodingConfig) -> None:
     if config.sample != "greedy":
         todo.append("temperature sampling (ROADMAP: dense cache slice)")
     if config.kv_quant != "bf16":
-        todo.append(f"kv_quant={config.kv_quant} (ROADMAP: quantized weights and KV)")
+        todo.append(f"kv_quant={config.kv_quant} (ROADMAP: quantized KV)")
     if config.mesh_devices > 1:
         todo.append("mesh_shape > 1 (ROADMAP: tensor parallelism)")
-    if enc.weight_quant != "none":
-        todo.append(f"weight_quant={enc.weight_quant} (ROADMAP: quantized weights and KV)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -428,12 +429,14 @@ class Engine:
              "verify": self._window_m, "mixed": self._window_m}[kind]
         return (
             registry_lib.attn_dispatch_key(phase, self._attn_s(phase), target),
-            registry_lib.dispatch_key("none", phase, m, target),
+            registry_lib.dispatch_key(QUANT_KEYS[self.enc.weight_quant], phase, m, target),
         )
 
     def _requested_for(self, key: str) -> str | None:
         if key.startswith(registry_lib.ATTN_OP + "|"):
             return self.enc.attn_backend
+        if self.enc.weight_quant != "none":
+            return self.enc.quant_backend()
         return self.enc.resolved_backend()
 
     def _quarantine_kernel(self, key: str, reason: str) -> dict:

@@ -8,7 +8,11 @@ on a machine with the GPU:
 
 Tolerances: the GEMV and GEMM accumulate f32 products of the same inputs in
 both versions (1e-4); attention outputs are rounded to the input dtype, so
-bf16 allows about one bf16 ulp (2e-2)."""
+bf16 allows about one bf16 ulp (2e-2).  The int8 (w8a8) kernels sum integers
+exactly and apply the same f32 epilogue: equal bit for bit.  The int4 (w4a8)
+kernels sum exact terms in float64, as their plain versions do, and round
+once: held to 3e-5 of the largest output, the bar of chip_smoke.py (they
+agree bit for bit where a row's group scales span less than 2**21)."""
 
 import numpy as np
 import pytest
@@ -21,6 +25,8 @@ from repro_torch.kernels import fused_gemv
 from repro_torch.kernels import fused_pack_mmt4d
 from repro_torch.kernels import mmt4d
 from repro_torch.kernels import mmt4d_gemv
+from repro_torch.kernels import mmt4d_q4
+from repro_torch.kernels import mmt4d_q8
 from repro_torch.models import transformer as T
 from repro_torch.serving import engine as engine_lib
 from repro_torch.serving.config import EngineConfig
@@ -174,3 +180,102 @@ def test_engine_kernels_match_plain_path(dev):
             eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=6))
         outs.append({r.uid: r.generated for r in eng.run()})
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# Quantized weights (w8a8, w4a8)
+
+
+def _int8(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+def _scales(dev, *shape, seed=0, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (0.5 + torch.rand(shape, generator=g, device=dev)).mul_(1e-2).to(dtype)
+
+
+def _nibbles(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+
+
+def _q4_close(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=3e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("m", [1, 5, 8])
+@pytest.mark.parametrize("n1,k1", [(4, 3), (2, 64)])
+def test_fused_gemv_q8_kernel(dev, m, n1, k1):
+    """k1 = 64 (K = 8192) stages the rows in two K chunks."""
+    lhs, rhs4 = _int8(dev, m, k1 * 128, seed=m), _int8(dev, n1, k1, 128, 128, seed=1)
+    s_a, s_w = _scales(dev, m, 1, seed=2), _scales(dev, n1, 128, seed=3)
+    before = fused_gemv.fused_gemv_q8.launches
+    got = fused_gemv.fused_gemv_q8(lhs, rhs4, s_a, s_w)
+    assert fused_gemv.fused_gemv_q8.launches == before + 1
+    assert torch.equal(got, fused_gemv.fused_gemv_q8_plain(lhs, rhs4, s_a, s_w))
+
+
+@pytest.mark.parametrize("m1,m0", [(1, 8), (3, 8), (2, 5), (1, 128), (3, 128), (130, 8)])
+def test_mmt4d_q8_kernel(dev, m1, m0):
+    lhs4, rhs4 = _int8(dev, m1, 3, m0, 128, seed=m1 * m0), _int8(dev, 4, 3, 128, 128, seed=1)
+    s_a, s_w = _scales(dev, m1, m0, seed=2), _scales(dev, 4, 128, seed=3)
+    before = mmt4d_q8.mmt4d_q8.launches
+    got = mmt4d_q8.mmt4d_q8(lhs4, rhs4, s_a, s_w)
+    assert mmt4d_q8.mmt4d_q8.launches == before + 1
+    assert torch.equal(got, mmt4d_q8.mmt4d_q8_plain(lhs4, rhs4, s_a, s_w))
+
+
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("m", [1, 5, 8])
+@pytest.mark.parametrize("n1,k1", [(4, 3), (2, 64)])
+def test_fused_gemv_q4_kernel(dev, m, group, n1, k1):
+    lhs, rhs4 = _int8(dev, m, k1 * 128, seed=m), _nibbles(dev, n1, k1, 128, 64, seed=1)
+    s_a = _scales(dev, m, 1, seed=2)
+    s_w4 = _scales(dev, n1, k1, 128, 128 // group, seed=3, dtype=torch.bfloat16)
+    before = mmt4d_q4.fused_gemv_q4.launches
+    got = mmt4d_q4.fused_gemv_q4(lhs, rhs4, s_a, s_w4, group)
+    assert mmt4d_q4.fused_gemv_q4.launches == before + 1
+    _q4_close(got, mmt4d_q4.fused_gemv_q4_plain(lhs, rhs4, s_a, s_w4, group))
+
+
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("m1,m0", [(1, 8), (3, 8), (2, 5), (1, 128), (3, 128), (130, 8)])
+def test_mmt4d_q4_kernel(dev, m1, m0, group):
+    lhs4, rhs4 = _int8(dev, m1, 3, m0, 128, seed=m1 * m0), _nibbles(dev, 4, 3, 128, 64, seed=1)
+    s_a = _scales(dev, m1, m0, seed=2)
+    s_w4 = _scales(dev, 4, 3, 128, 128 // group, seed=3, dtype=torch.bfloat16)
+    before = mmt4d_q4.mmt4d_q4.launches
+    got = mmt4d_q4.mmt4d_q4(lhs4, rhs4, s_a, s_w4, group)
+    assert mmt4d_q4.mmt4d_q4.launches == before + 1
+    _q4_close(got, mmt4d_q4.mmt4d_q4_plain(lhs4, rhs4, s_a, s_w4, group))
+
+
+@pytest.mark.parametrize("wq", ["int8", "int4"])
+@pytest.mark.parametrize("config", [dict(), dict(spec_decode=True, draft_k=4),
+                                    dict(token_budget=16), dict(slots=10)])
+def test_quantized_engine_kernels_match_plain_path(dev, wq, config):
+    """The reduced f32 model with int8 or int4 weights, served through the
+    quantized kernels (registry routing), emits the tokens of the plain
+    ("xla") quantized projections on the card.  Both runs take the attention
+    kernels and the same configuration: the activation quantizer turns f32
+    differences of one ulp into whole int8 steps, so only the quantized
+    projections, which equal their plain versions bit for bit, differ."""
+    cfg = cfg_registry.get_reduced("llama3.2-1b")
+    params = T.model_init(cfg, EncodingConfig(weight_quant=wq), seed=0, device=dev)
+    rng = np.random.RandomState(2)
+    prompts = [np.tile(rng.randint(1, cfg.vocab_size, 4), n).astype(np.int32)
+               for n in (3, 8, 5, 2, 6, 4)]
+    prompts += [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (5, 17, 30, 9)]
+    config = dict(dict(slots=4, max_seq=96, block_size=8), **config)
+    want, _ = _serve(params, cfg, EncodingConfig(backend="xla", attn_backend="auto",
+                                                 weight_quant=wq), dev, prompts, 8, **config)
+    kernels = ((fused_gemv.fused_gemv_q8, mmt4d_q8.mmt4d_q8) if wq == "int8"
+               else (mmt4d_q4.fused_gemv_q4, mmt4d_q4.mmt4d_q4))
+    before = [k.launches for k in kernels]
+    got, _ = _serve(params, cfg, EncodingConfig(backend="auto", attn_backend="auto",
+                                                weight_quant=wq), dev, prompts, 8, **config)
+    assert got == want
+    gemv_ran, gemm_ran = (k.launches > b for k, b in zip(kernels, before))
+    assert gemm_ran and (gemv_ran or config.get("slots", 4) > 8)  # > 8 slots: no GEMV rows

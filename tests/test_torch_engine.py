@@ -23,6 +23,7 @@ from repro_torch.core import targets
 from repro_torch.core.encoding import Phase
 from repro_torch.core.packed import EncodingConfig
 from repro_torch.kernels import registry
+from repro_torch.models import transformer as T
 from repro_torch.serving import engine as engine_lib
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.faults import KernelFaultError
@@ -123,8 +124,8 @@ def test_registry_h100_attn_keys(phase, s):
 
 def test_registry_unknown_target_falls_back():
     other = targets.TargetSpec(
-        name="other", peak_flops_bf16=1.0, peak_flops_f32=1.0, hbm_bytes_per_s=1.0,
-        smem_bytes_per_block=1, sm_count=1)
+        name="other", peak_flops_bf16=1.0, peak_flops_f32=1.0, peak_ops_int8=1.0,
+        hbm_bytes_per_s=1.0, smem_bytes_per_block=1, sm_count=1)
     assert registry.select(quant="none", phase=Phase.DECODE, m=1, target=other,
                            requested="auto").source == "fallback"
     assert registry.select_attn(phase=Phase.DECODE, s=64, target=other,
@@ -182,6 +183,29 @@ def test_engine_quarantine_keeps_tokens(model):
     assert outs[0] == outs[1]
     (entry,) = eng.stats["degraded"]
     assert entry["key"] == "none|decode|m8|h100" and entry["to"] == "reference"
+
+
+def test_engine_w8a8_quarantine_keeps_tokens(model):
+    """Quantized dispatches key the registry by their quant: a pre_dispatch
+    fault on the int8 decode key quarantines "w8a8|decode|m8|h100" (down to
+    the plain "xla" oracle) and the tokens stay those of the fault-free run."""
+    cfg = model[2]
+    enc = EncodingConfig(backend="fused", attn_backend="pallas", weight_quant="int8")
+    params = T.model_init(cfg, enc, seed=0, device="cpu")
+    prompts = _mixed(np.random.RandomState(3), cfg.vocab_size)[:3]
+    outs = []
+    for hooks in (None, _FailDecodeMatmul()):
+        registry.clear_quarantine()
+        eng = engine_lib.Engine(params, cfg, enc, device="cpu", fault_hooks=hooks,
+                                config=EngineConfig(slots=4, max_seq=64, block_size=8))
+        for i, p in enumerate(prompts):
+            eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=4))
+        outs.append({r.uid: r.generated for r in eng.run()})
+    assert outs[0] == outs[1]
+    (entry,) = eng.stats["degraded"]
+    assert entry["key"] == "w8a8|decode|m8|h100" and entry["to"] == "xla"
+    assert registry.select(quant="w8a8", phase=Phase.DECODE, m=4,
+                           requested="fused").backend == "xla"
 
 
 def test_engine_lifecycle(model):

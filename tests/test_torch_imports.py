@@ -36,6 +36,7 @@ def test_port_imports_no_jax_and_no_repro():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
     for mod in ("repro_torch.serving.engine", "repro_torch.kernels.attn",
+                "repro_torch.kernels.mmt4d_q8", "repro_torch.kernels.mmt4d_q4",
                 "repro_torch.launch.serve", "repro_torch.convert"):
         assert mod in got["modules"]
 
