@@ -8,8 +8,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. build   every csrc/*.cu kernel with nvcc for sm_90a (one process per
              source, all started together) and print the card's name and
              power limit;
-  2. kernels each of the ten kernels against its plain PyTorch version at
-             the full-width Llama-3.2-1B shapes the serving runs give it
+  2. kernels each of the eleven kernels against its plain PyTorch version
+             at the full-width Llama-3.2-1B shapes the serving runs give it
              (the packed mmt4d GEMM at verify/mixed/many-slot decode rows
              and prefill slabs, the packed GEMV at 1-8 rows, paged decode
              at windows of 1 to 256), in bf16 and f32, with its time, the
@@ -23,7 +23,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
              yardstick torch._int_mm plus the scale epilogue for int8 (rows
              padded to 32 where it needs more than 16) and none for int4
              (bf16 torch.matmul on the dequantized weight is timed as an
-             aside);
+             aside); then the decode kernels on every KV layout: paged
+             decode on kv8 and kv4 pools (L = 1, 16, 256), dense decode on
+             bf16, f32, kv8 and kv4 caches (S_c = 1024, L = 1 and 16) and on
+             a wrapped 256-slot ring, SDPA on the dequantized view as the
+             yardstick, and the paged kernel through an identity table
+             against the dense kernel, bit for bit;
   3. forward a depth-2, full-width f32 model served through the kernels and
              through the plain backends on the card: identical tokens, for
              the phase-split engine and for speculative decode (registry
@@ -32,6 +37,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
              phase-split engine; then the same model with int8 and with
              int4 weights, phase-split and spec decode, through the
              quantized kernels and through their plain ("xla") versions;
+             then kv8 pools (phase-split, spec, budget) against the same
+             engines on the plain attention, the dense cache (vectorized,
+             grouped, spec, budget) against the plain phase-split engine,
+             and kv4 pools on the card against the same engine on the CPU;
   4. serve   the full-depth, full-width bf16 Llama-3.2-1B (random weights from
              --seed): 8 requests, half sharing a 256-token prefix so the second
              wave runs the suffix prefill;
@@ -44,13 +53,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
   6. quant   the same model with w8a8 and with w4a8 weights (quantized on the
              card): phase 4's 8 requests and phase 5's speculative decode,
              with tokens/s, step p50/p99 by kind, peak memory and the weight
-             bytes a decode step streams.
+             bytes a decode step streams;
+  7. kv      the same bf16 model on kv8 and kv4 pools (phase 4's trace, and
+             kv8 speculative decode on phase 5's tiled prompts) and on the
+             dense cache (phase 4's trace, vectorized and grouped decode),
+             with tokens/s, step p50/p99 by kind, prefix write-skip hits,
+             pool bytes per cached token and peak memory.
 
-In phases 4, 5 and 6 every kernel's launch count, set to 0 before each run
-and read after it, must equal the dispatches that resolved to it (tallied
-here from each dispatch's rows, weight format and the registry) x layers x
-(7 projections or 1 attention), and every kernel must have launched in
-these runs.
+In phases 4 to 7 every kernel's launch count (per KV layout for the decode
+kernels), set to 0 before each run and read after it, must equal the
+dispatches that resolved to it (tallied here from each dispatch's rows,
+weight format, cache and KV layout, and the registry) x layers x (7
+projections or 1 attention), and every kernel of the table must have
+launched in these runs.
 
 The third line from the end is the kernel table as JSON, the next the card's
 name and power limit, and the last {"ok": true, "device": {...}}.  Details go
@@ -72,7 +87,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-# file:line of the Pallas kernel each CUDA kernel replaces.
+# file:line of the Pallas kernel each CUDA kernel replaces; the decode
+# kernels have a row per KV layout the serving paths run (the dense cache is
+# bf16 there, as in the JAX engine).
 REPLACES = {
     "fused_gemv": "src/repro/kernels/fused_gemv.py:56",
     "fused_pack_mmt4d": "src/repro/kernels/fused_pack_mmt4d.py:59",
@@ -84,6 +101,9 @@ REPLACES = {
     "mmt4d_q8": "src/repro/kernels/mmt4d_q8.py:62",
     "fused_gemv_q4": "src/repro/kernels/mmt4d_q4.py:71",
     "mmt4d_q4": "src/repro/kernels/mmt4d_q4.py:146",
+    "paged_decode_attention_kv8": "src/repro/kernels/attn.py:163",
+    "paged_decode_attention_kv4": "src/repro/kernels/attn.py:163",
+    "dense_decode_attention": "src/repro/kernels/attn.py:321",
 }
 SOURCES = {
     "fused_gemv": "src/repro_torch/csrc/fused_gemv.cu",
@@ -96,7 +116,18 @@ SOURCES = {
     "mmt4d_q8": "src/repro_torch/csrc/mmt4d_q8.cu",
     "fused_gemv_q4": "src/repro_torch/csrc/mmt4d_q4.cu",
     "mmt4d_q4": "src/repro_torch/csrc/mmt4d_q4.cu",
+    "paged_decode_attention_kv8": "src/repro_torch/csrc/paged_decode.cu",
+    "paged_decode_attention_kv4": "src/repro_torch/csrc/paged_decode.cu",
+    "dense_decode_attention": "src/repro_torch/csrc/dense_decode.cu",
 }
+# Table name -> (decode kernel, KV layout) of the per-layout launch counts.
+LAYOUT_ROWS = {
+    "paged_decode_attention": ("paged", "bf16"),
+    "paged_decode_attention_kv8": ("paged", "kv8"),
+    "paged_decode_attention_kv4": ("paged", "kv4"),
+    "dense_decode_attention": ("dense", "bf16"),
+}
+LAYOUT_NAMES = {v: k for k, v in LAYOUT_ROWS.items()}
 # The shape whose numbers stand for each kernel in the JSON line: the one the
 # serving runs (phases 4 and 5) give it most often, in bf16.
 HEADLINE = {
@@ -110,6 +141,9 @@ HEADLINE = {
     "mmt4d_q8": "w8a8 M=20 K=2048 N=8192",
     "fused_gemv_q4": "w4a8 g16 M=4 K=2048 N=8192",
     "mmt4d_q4": "w4a8 g16 M=20 K=2048 N=8192",
+    "paged_decode_attention_kv8": "kv8 bf16 B=4 L=1",
+    "paged_decode_attention_kv4": "kv4 bf16 B=4 L=1",
+    "dense_decode_attention": "bf16 B=4 S_c=1024 L=1",
 }
 # The projection kernel each matmul backend resolves to, per weight format
 # (registry quant name): (at decode with at most GEMV_MAX_ROWS rows, else).
@@ -408,6 +442,160 @@ def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
     torch.cuda.synchronize()
 
 
+def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
+    """Phase 2, the decode kernels on every KV layout at the full-width
+    shapes (B = 4, H = 32, KV = 8, D = 64, pos {37, 300, 511, 900}): paged
+    decode on kv8 and kv4 pools, dense decode on bf16, f32, kv8 and kv4
+    caches and on a wrapped ring, each against its plain version, with SDPA
+    on the dequantized view as the yardstick; then the paged kernel through
+    an identity table against the dense kernel, bit for bit."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.core import encoding
+    from repro_torch.kernels import attn
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, h, kvh, d, bs, pages = 4, 32, 8, 64, 16, 257
+    g = h // kvh
+    pos_list = [37, 300, 511, 900]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    dtypes = [("bf16", torch.bfloat16), ("f32", torch.float32)]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def kv_data(kv, dt, *shape):
+        """(data, scales) of K or V rows in layout `kv` (scales None for bf16)."""
+        x = rnd(*shape)
+        return (x.to(dt), None) if kv == "bf16" else encoding.kv_layout(kv).quantize(x)
+
+    def dequant(kv, x, sc):
+        return x if kv == "bf16" else encoding.kv_layout(kv).dequantize(x, sc)
+
+    def row_bytes(kv, itemsize):
+        """Bytes one cached (token, kv head) row of K or V costs to read."""
+        if kv == "bf16":
+            return d * itemsize
+        return encoding.kv_layout(kv).storage_head_dim(d) + encoding.KV_SCALE_ITEMSIZE
+
+    def sdpa(q, k_view, v_view, mask):
+        """SDPA on (B, S, KV, D) views expanded to the query heads."""
+        qt = q.transpose(1, 2)
+        kt, vt = (t.to(q.dtype).repeat_interleave(g, dim=2).transpose(1, 2)
+                  for t in (k_view, v_view))
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    def check(name, key, fn, plain, library, *, dname, bytes_moved, flops):
+        got, want = fn(), plain()
+        add_row(results, target, name, key, err=(got.float() - want.float()).abs().max().item(),
+                tol=2e-2 if dname == "bf16" else 1e-4, ms=timer.ms(fn),
+                plain_ms=timer.ms(plain), library_ms=timer.ms(library),
+                bytes_moved=bytes_moved, flops=flops, dname=dname)
+
+    rng = np.random.RandomState(1)
+    full_table = torch.from_numpy(
+        np.stack([rng.permutation(pages - 1)[:80] + 1 for _ in range(b)]).astype(np.int32)
+    ).to(dev)
+    for kv in ("kv8", "kv4"):
+        k_pool, k_sc = kv_data(kv, None, pages, bs, kvh, d)
+        v_pool, v_sc = kv_data(kv, None, pages, bs, kvh, d)
+        kw = dict(k_scale=k_sc, v_scale=v_sc, kv_quant=kv)
+        for dname, dt in dtypes:
+            s = 2 if dname == "bf16" else 4
+            for L in (1, 16, 256):
+                nb = max(64, -(-(max(pos_list) + L) // bs))
+                table = full_table[:, :nb].contiguous()
+                q = rnd(b, L, h, d).to(dt)
+                live = max(pos_list) + L
+                k_view, v_view = (dequant(kv, attn.paged_gather(x, table)[:, :live],
+                                          attn.paged_gather(sc, table)[:, :live])
+                                  for x, sc in ((k_pool, k_sc), (v_pool, v_sc)))
+                qpos = pos[:, None].long() + torch.arange(L, device=dev)
+                mask = (torch.arange(live, device=dev) <= qpos[..., None])[:, None]
+                keys = sum(p + L for p in pos_list)  # distinct cached keys the rows read
+                pairs = sum(p + j + 1 for p in pos_list for j in range(L))
+                check(f"paged_decode_attention_{kv}", f"{kv} {dname} B={b} L={L}",
+                      lambda: attn.paged_decode_attention(q, k_pool, v_pool, table, pos, **kw),
+                      lambda: attn.paged_decode_attention_plain(q, k_pool, v_pool, table, pos,
+                                                                **kw),
+                      sdpa(q, k_view, v_view, mask), dname=dname,
+                      bytes_moved=2 * b * L * h * d * s + 2 * keys * kvh * row_bytes(kv, s)
+                      + b * nb * 4 + b * 4, flops=4 * h * d * pairs)
+
+    s_c = 1024
+    for kv in ("bf16", "kv8", "kv4"):
+        for dname, dt in dtypes:
+            s = 2 if dname == "bf16" else 4
+            k, k_sc = kv_data(kv, dt, b, s_c, kvh, d)
+            v, v_sc = kv_data(kv, dt, b, s_c, kvh, d)
+            kw = dict(k_scale=k_sc, v_scale=v_sc, kv_quant=kv)
+            name = "dense_decode_attention" + ("" if kv == "bf16" else f"_{kv}")
+            for L in (1, 16):
+                q = rnd(b, L, h, d).to(dt)
+                live = max(pos_list) + L
+                k_view, v_view = (dequant(kv, x[:, :live], None if sc is None else sc[:, :live])
+                                  for x, sc in ((k, k_sc), (v, v_sc)))
+                qpos = pos[:, None].long() + torch.arange(L, device=dev)
+                mask = (torch.arange(live, device=dev) <= qpos[..., None])[:, None]
+                keys = sum(p + L for p in pos_list)
+                pairs = sum(p + j + 1 for p in pos_list for j in range(L))
+                prefix = "" if kv == "bf16" else f"{kv} "
+                check(name, f"{prefix}{dname} B={b} S_c={s_c} L={L}",
+                      lambda: attn.dense_decode_attention(q, k, v, pos, **kw),
+                      lambda: attn.dense_decode_attention_plain(q, k, v, pos, **kw),
+                      sdpa(q, k_view, v_view, mask), dname=dname,
+                      bytes_moved=2 * b * L * h * d * s + 2 * keys * kvh * row_bytes(kv, s)
+                      + b * 4, flops=4 * h * d * pairs)
+            del k, v, k_sc, v_sc
+
+    # A ring cache as the engine sizes one (S_c = window = 256): row 37 is in
+    # its first window, the other three have wrapped.
+    window = ring = 256
+    slot = torch.arange(ring, device=dev)
+    qpos = pos.long()[:, None]
+    valid = torch.where(qpos < window, slot <= qpos,
+                        torch.remainder(qpos - slot, ring) < torch.clamp(qpos + 1, max=window))
+    keys = int(valid.sum().item())
+    for dname, dt in dtypes:
+        s = 2 if dname == "bf16" else 4
+        k, v = rnd(b, ring, kvh, d).to(dt), rnd(b, ring, kvh, d).to(dt)
+        q = rnd(b, 1, h, d).to(dt)
+        check("dense_decode_attention", f"{dname} B={b} S_c={ring} window={window} L=1",
+              lambda: attn.dense_decode_attention(q, k, v, pos, window=window),
+              lambda: attn.dense_decode_attention_plain(q, k, v, pos, window=window),
+              sdpa(q, k, v, valid[:, None, None, :]), dname=dname,
+              bytes_moved=2 * b * h * d * s + 2 * keys * kvh * d * s + b * 4,
+              flops=4 * h * d * keys)
+
+    identity = {}
+    nb = s_c // bs
+    table = torch.arange(b * nb, dtype=torch.int32, device=dev).reshape(b, nb)
+    for kv, dname, dt in (("bf16", "bf16", torch.bfloat16), ("bf16", "f32", torch.float32),
+                          ("kv8", "bf16", torch.bfloat16), ("kv4", "bf16", torch.bfloat16)):
+        k, k_sc = kv_data(kv, dt, b, s_c, kvh, d)
+        v, v_sc = kv_data(kv, dt, b, s_c, kvh, d)
+
+        def pages_of(x):
+            return None if x is None else x.reshape(b * nb, bs, *x.shape[2:])
+
+        for L in (1, 16):
+            q = rnd(b, L, h, d).to(dt)
+            dense = attn.dense_decode_attention(q, k, v, pos, k_scale=k_sc, v_scale=v_sc,
+                                                kv_quant=kv)
+            paged = attn.paged_decode_attention(q, pages_of(k), pages_of(v), table, pos,
+                                                k_scale=pages_of(k_sc), v_scale=pages_of(v_sc),
+                                                kv_quant=kv)
+            same = bool(torch.equal(paged, dense))
+            identity[f"{kv} {dname} L={L}"] = same
+            log(f"[kernel] identity-table paged == dense, {kv} {dname} L={L}: bit for bit {same}")
+            if not same:
+                raise AssertionError(f"identity-table paged != dense ({kv} {dname} L={L}): max "
+                                     f"diff {(paged.float() - dense.float()).abs().max().item()}")
+    torch.cuda.synchronize()
+    return identity
+
+
 def forward_check(torch, dev, seed: int) -> dict:
     """Phase 3: depth-2, full-width f32 model; one batched prefill and 8
     decode steps through the kernels and through the plain backends; then
@@ -548,16 +736,140 @@ def quant_forward_check(torch, dev, seed: int) -> dict:
     return outs
 
 
+def kv_forward_check(torch, dev, seed: int) -> dict:
+    """Phase 3, KV layouts and the dense cache: the depth-2, full-width f32
+    model.  kv8 pools through the paged kernel against the same engine on
+    the plain attention (same projection kernels, so the quantized codes are
+    the same and only the attention's order of sums differs), phase-split,
+    spec decode and budget 64; the dense cache through the dense kernel
+    (vectorized, grouped, spec, budget) against the plain phase-split engine;
+    kv4 pools on the card against the same engine on the CPU (the plain
+    attention would downgrade kv4 to kv8)."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.kernels import attn
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+
+    cfg = dataclasses.replace(cfg_registry.get_config("llama3.2-1b"), num_layers=2,
+                              dtype="float32")
+    params = T.model_init(cfg, EncodingConfig(), seed=seed, device=dev)
+    rng = np.random.RandomState(seed + 3)
+    prompts = [np.tile(rng.randint(1, cfg.vocab_size, 16), 12)[:n].astype(np.int32)
+               for n in (48, 80, 112, 144)]
+    prompts += [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (20, 64, 150, 200)]
+
+    def serve_tokens(label, prm, enc, config, device=dev, max_new=8, reqs=prompts):
+        eng = engine_lib.Engine(prm, cfg, enc, device=device,
+                                config=EngineConfig(max_seq=512, block_size=16, **config))
+        for i, p in enumerate(reqs):
+            eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=max_new))
+        got = {r.uid: r.generated for r in eng.run()}
+        st = eng.stats
+        if st.get("pages_in_use", 0) or st["degraded"] or len(got) != len(reqs):
+            raise AssertionError(f"{label}: pages {st.get('pages_in_use')} degraded "
+                                 f"{st['degraded']} finished {len(got)}")
+        if config.get("token_budget") and st["continuous"]["decode_stall_steps"]:
+            raise AssertionError(f"{label}: decode stalls {st['continuous']}")
+        return got, st
+
+    outs = {}
+    paged = attn.paged_decode_attention.launches_by_kv
+    dense = attn.dense_decode_attention.launches_by_kv
+    for label, backend, config in (
+            ("phase-split", "fused", dict(slots=4)),
+            ("spec", "auto", dict(slots=4, spec_decode=True, draft_k=4)),
+            ("budget", "auto", dict(slots=4, token_budget=64))):
+        config = dict(config, kv_quant="kv8")
+        want, _ = serve_tokens(f"kv8 {label} plain", params,
+                               EncodingConfig(backend=backend, attn_backend="xla"), config)
+        before = paged["kv8"]
+        got, st = serve_tokens(f"kv8 {label}", params,
+                               EncodingConfig(backend=backend, attn_backend="auto"), config)
+        if got != want or paged["kv8"] == before or st["kv_quant"] != "kv8":
+            raise AssertionError(f"kv8 {label}: tokens {got} vs plain attention {want}; kv8 "
+                                 f"launches {paged['kv8'] - before}")
+        log(f"[forward] depth-2 f32 kv8 {label}: kernel tokens == plain-attention tokens, "
+            f"dispatches {st['dispatches']}, kv8 launches {paged['kv8'] - before}")
+        outs[f"kv8 {label}"] = got
+
+    plain, _ = serve_tokens("plain", params, EncodingConfig(backend="reference",
+                                                            attn_backend="xla"), dict(slots=4))
+    auto = EncodingConfig(backend="auto", attn_backend="auto")
+    for label, config in (("dense", dict(slots=4, cache_mode="dense")),
+                          ("grouped", dict(slots=4, decode_mode="grouped")),
+                          ("dense spec", dict(slots=4, cache_mode="dense", spec_decode=True,
+                                              draft_k=4)),
+                          ("dense budget", dict(slots=4, cache_mode="dense", token_budget=64))):
+        before = dense["bf16"]
+        got, st = serve_tokens(label, params, auto, config)
+        if got != plain or dense["bf16"] == before or st["cache_mode"] != "dense":
+            raise AssertionError(f"{label}: tokens {got} vs plain {plain}; dense launches "
+                                 f"{dense['bf16'] - before}")
+        log(f"[forward] depth-2 f32 {label} ({st['decode_mode']}): tokens == plain, dispatches "
+            f"{st['dispatches']}, dense launches {dense['bf16'] - before}")
+        outs[label] = got
+
+    cpu_params = _to_device(params, "cpu")
+    reqs = prompts[:2] + prompts[4:6]
+    kv4 = dict(slots=4, kv_quant="kv4")
+    fused = EncodingConfig(backend="fused", attn_backend="auto")
+    t0 = time.perf_counter()
+    want, _ = serve_tokens("kv4 cpu", cpu_params, fused, kv4, device="cpu", reqs=reqs)
+    cpu_s = time.perf_counter() - t0
+    before = paged["kv4"]
+    got, st = serve_tokens("kv4", params, fused, kv4, reqs=reqs)
+    if got != want or paged["kv4"] == before or st["kv_quant"] != "kv4":
+        raise AssertionError(f"kv4: card tokens {got} vs CPU {want}")
+    log(f"[forward] depth-2 f32 kv4: card tokens == CPU tokens ({len(reqs)} requests, CPU "
+        f"{cpu_s:.1f}s), kv4 launches {paged['kv4'] - before}")
+    outs["kv4"] = got
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return outs
+
+
+def _to_device(tree, device):
+    """A copy of a parameter tree on `device`."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+class LayoutLaunches:
+    """One KV layout's launch count of a decode kernel wrapper, read and set
+    to 0 like a wrapper's own `launches`."""
+
+    def __init__(self, fn, kv: str):
+        self.fn, self.kv = fn, kv
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches_by_kv[self.kv]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches_by_kv[self.kv] = n
+
+
 def kernel_fns() -> dict:
-    """The ten kernel wrappers by name; each counts its launches."""
+    """The kernel wrappers by table name, each with its launch count (the
+    decode kernels' per KV layout)."""
     from repro_torch.kernels import (attn, fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv,
                                      mmt4d_q4, mmt4d_q8)
 
-    return {
+    decode = {"paged": attn.paged_decode_attention, "dense": attn.dense_decode_attention}
+    fns = {
         "fused_gemv": fused_gemv.fused_gemv,
         "fused_pack_mmt4d": fused_pack_mmt4d.fused_pack_mmt4d,
         "flash_prefill_attention": attn.flash_prefill_attention,
-        "paged_decode_attention": attn.paged_decode_attention,
         "mmt4d": mmt4d.mmt4d,
         "mmt4d_gemv": mmt4d_gemv.mmt4d_gemv,
         "fused_gemv_q8": fused_gemv.fused_gemv_q8,
@@ -565,6 +877,9 @@ def kernel_fns() -> dict:
         "fused_gemv_q4": mmt4d_q4.fused_gemv_q4,
         "mmt4d_q4": mmt4d_q4.mmt4d_q4,
     }
+    fns.update({name: LayoutLaunches(decode[cache], kv)
+                for name, (cache, kv) in LAYOUT_ROWS.items()})
+    return fns
 
 
 class DispatchTally:
@@ -603,12 +918,16 @@ class DispatchTally:
                                  requested=requested).backend
             pair = MATMUL_KERNELS[quant].get(mm)  # None: a plain backend, no kernel
             mm_kernel = pair and pair[0 if small else 1]
+            # As models/layers.py keys it: prefill and the dense cache as
+            # bf16, a paged decode by its pool's layout.
+            paged = phase is Phase.DECODE and eng.cache_mode == "paged"
+            kv = eng.kv_quant if paged else "bf16"
             at = registry.select_attn(phase=phase, s=eng._attn_s(phase), target=eng.enc.target,
-                                      requested=eng.enc.attn_backend).backend
+                                      requested=eng.enc.attn_backend, kv=kv).backend
             at_kernel = None
             if at == "pallas":
                 at_kernel = ("flash_prefill_attention" if phase is Phase.PREFILL
-                             else "paged_decode_attention")
+                             else LAYOUT_NAMES[("paged" if paged else "dense", kv)])
             return mm_kernel, at_kernel
 
         def counted_dispatch(kind, fn, *args):
@@ -647,6 +966,7 @@ def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
     set to 0 just before `drive(eng)` and read just after, each equal to its
     dispatch tally; every request must finish ok with all its tokens and no
     page may leak or key be quarantined."""
+    from repro_torch.core import encoding
     from repro_torch.serving import engine as engine_lib
     from repro_torch.serving.config import EngineConfig
 
@@ -672,18 +992,24 @@ def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
     if bad:
         raise AssertionError(f"{label}: requests not all ok with their tokens: {bad}")
     eng.audit()
-    if st["pages_in_use"] or st["degraded"]:
-        raise AssertionError(f"{label}: pages {st['pages_in_use']} degraded {st['degraded']}")
+    if st.get("pages_in_use", 0) or st["degraded"]:
+        raise AssertionError(f"{label}: pages {st.get('pages_in_use')} degraded {st['degraded']}")
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != tallied {want}")
     tokens = sum(len(r.generated) for r in done)
+    itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
     out = {"requests": len(done), "tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
            "steps": st["steps"], "dispatches": st["dispatches"], "launches": launches,
            "mmt4d_by_kind": {k: n for (k, name), n in tally.by_kind.items() if name == "mmt4d"},
            "max_rows": dict(tally.max_rows), "step_ms": tally.step_summary(),
-           "watchdog": st["watchdog"], "preemptions": st["preemptions"],
+           "watchdog": st["watchdog"], "preemptions": st.get("preemptions", 0),
            "start_gib": start_gib, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-           "prefix_hit_tokens": st["prefix_cache"]["hit_tokens"]}
+           "prefix_hit_tokens": st.get("prefix_cache", {}).get("hit_tokens", 0),
+           "cache_mode": st["cache_mode"], "decode_mode": st["decode_mode"],
+           "kv_quant": st["kv_quant"],
+           "kv_bytes_per_token": encoding.kv_bytes_per_token(
+               cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, itemsize=itemsize,
+               kv_quant=st["kv_quant"])}
     for key in ("spec", "continuous"):
         if key in st:
             out[key] = {k: v for k, v in st[key].items() if not k.startswith("per_slot")}
@@ -928,6 +1254,56 @@ def serve_quantized(torch, dev, seed: int) -> dict:
     return runs
 
 
+def serve_kv(torch, dev, seed: int) -> dict:
+    """Phase 7: full width and depth, bf16, on quantized pools and the dense
+    cache: phase 4's 8 shared-prefix requests on bf16 (the reference of this
+    call), kv8 and kv4 pools, and the dense cache with vectorized and grouped
+    decode; kv8 speculative decode on phase 5's tiled prompts.  Each run's
+    launches (per KV layout) equal to its tally."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.models import transformer as T
+
+    cfg = cfg_registry.get_config("llama3.2-1b")
+    vocab = cfg.vocab_size
+    fused = EncodingConfig(backend="fused", attn_backend="auto")
+    params = T.model_init(cfg, fused, seed=seed, device=dev)
+    runs = {}
+    for label, config in (("bf16 phase4", dict(slots=4)),
+                          ("kv8 phase4", dict(slots=4, kv_quant="kv8")),
+                          ("kv4 phase4", dict(slots=4, kv_quant="kv4")),
+                          ("dense phase4", dict(slots=4, cache_mode="dense")),
+                          ("grouped phase4", dict(slots=4, decode_mode="grouped"))):
+        prompts = shared_prefix_prompts(np.random.RandomState(seed), vocab)
+        _, out = counted_run(torch, dev, params, cfg, fused, config, submit_all(prompts, 32),
+                             label, "kv")
+        if out["cache_mode"] == "paged" and out["prefix_hit_tokens"] <= 0:
+            raise AssertionError(f"{label}: no prefix-cache hit")
+        log(f"[kv] {label}: {out['kv_quant']} {out['cache_mode']} {out['decode_mode']}, "
+            f"{out['kv_bytes_per_token']} pool bytes per cached token, prefix write-skip hit "
+            f"tokens {out['prefix_hit_tokens']}")
+        runs[label] = out
+    auto = EncodingConfig(backend="auto", attn_backend="auto")
+    _, out = counted_run(torch, dev, params, cfg, auto,
+                         dict(slots=4, spec_decode=True, draft_k=4, kv_quant="kv8"),
+                         submit_all(tiled_prompts(np.random.RandomState(seed + 1), vocab), 32),
+                         "kv8 spec", "kv")
+    if not (out["dispatches"].get("verify", 0) > 0 and out["spec"]["proposed"] > 0):
+        raise AssertionError(f"kv8 spec: no verify dispatch: {out['dispatches']}")
+    log(f"[kv] kv8 spec: acceptance {out['spec']['acceptance_rate']:.3f}, "
+        f"mean committed per slot step {out['spec']['mean_accepted_len']:.3f}")
+    runs["kv8 spec"] = out
+    del params
+    torch.cuda.empty_cache()
+    for name in ("paged_decode_attention_kv8", "paged_decode_attention_kv4",
+                 "dense_decode_attention"):
+        if not sum(r["launches"][name] for r in runs.values()):
+            raise AssertionError(f"phase 7: {name} never launched")
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -972,16 +1348,20 @@ def main() -> int:
     t0 = time.perf_counter()
     check_kernels(torch, dev, targets.H100, timer, results)
     check_quant_kernels(torch, dev, targets.H100, timer, results)
+    identity = check_decode_kernels(torch, dev, targets.H100, timer, results)
     log(f"[kernel] checks done in {time.perf_counter() - t0:.1f}s")
     del timer
     torch.cuda.empty_cache()
     forward_check(torch, dev, args.seed)
     quant_forward_check(torch, dev, args.seed)
+    kv_forward_check(torch, dev, args.seed)
     served = serve(torch, dev, args.seed)
     windows = serve_windows(torch, dev, args.seed)
     quant = serve_quantized(torch, dev, args.seed)
+    kv = serve_kv(torch, dev, args.seed)
     launches = {name: served["launches"][name]
-                + sum(r["launches"][name] for r in (*windows.values(), *quant.values()))
+                + sum(r["launches"][name]
+                      for r in (*windows.values(), *quant.values(), *kv.values()))
                 for name in REPLACES}
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
@@ -1001,8 +1381,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kind": kind, "build_s": build_s, "kernels": results,
-                   "serve": served, "windows": windows, "quant": quant, "table": table},
-                  f, indent=1)
+                   "identity": identity, "serve": served, "windows": windows, "quant": quant,
+                   "kv": kv, "table": table}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

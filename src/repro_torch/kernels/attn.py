@@ -1,12 +1,22 @@
-"""Attention kernels: causal GQA flash prefill and decode read straight from
-the paged KV pool (counterpart of repro/kernels/attn.py:
-flash_prefill_attention and paged_decode_attention).
+"""Attention kernels: causal GQA flash prefill, and decode read straight from
+the paged KV pool or from a dense cache (counterpart of
+repro/kernels/attn.py: flash_prefill_attention, paged_decode_attention and
+dense_decode_attention).
 
-CUDA sources: csrc/flash_prefill.cu and csrc/paged_decode.cu.  Each wrapper
-launches its kernel for CUDA tensors and takes its plain version only for
-tensors on the CPU.  Head h of a query reads kv head h // G (G = H / KV),
-i.e. head = kv*G + j, the JAX package's grouping.  Rows with no valid key
-come back 0, never NaN.
+CUDA sources: csrc/flash_prefill.cu, csrc/paged_decode.cu and
+csrc/dense_decode.cu (the two decode kernels share one body,
+csrc/decode_attn.cuh, with two addressing policies).  Each wrapper launches
+its kernel for CUDA tensors and takes its plain version only for tensors on
+the CPU.  Head h of a query reads kv head h // G (G = H / KV), i.e. head =
+kv*G + j, the JAX package's grouping.  Rows with no valid key come back 0,
+never NaN.
+
+The decode kernels take every KV layout of core/encoding.KVLayout: raw
+pools in the query's dtype ("bf16": bf16 or f32), int8 pools ("kv8") and
+packed-nibble uint8 pools ("kv4", head dim D/2), the quantized ones with
+float32 scale pages (..., KV, 1) beside them, dequantized as float(q) *
+scale.  Each keeps a launch count per layout (`launches_by_kv`) beside the
+total (`launches`).
 """
 
 from __future__ import annotations
@@ -16,7 +26,12 @@ import functools
 
 import torch
 
+from repro_torch.core import encoding
 from repro_torch.kernels import build
+
+# The decode kernels' storage codes (csrc/decode_attn.cuh): pools in the
+# query's dtype, int8, packed nibbles.
+_KV_CODES = {"bf16": 0, "kv8": 1, "kv4": 2}
 
 
 def masked_softmax(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -35,22 +50,40 @@ def _row_positions(pos, b: int, device) -> torch.Tensor:
     return p.reshape(-1).expand(b) if p.dim() == 0 else p
 
 
+def _live_keys(pos, b: int, L: int, cap: int, device) -> int:
+    """Keys 0 .. the last a full-attention window attends, as a count (at
+    most `cap`): every key past it is masked for every row."""
+    return min(cap, int(_row_positions(pos, b, device).max()) + L)
+
+
 # ---------------------------------------------------------------------------
-# Decode over a cache view / the page pool
+# Decode over a cache view, the page pool or a dense cache
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, pos) -> torch.Tensor:
+                           v_cache: torch.Tensor, pos, window: int = 0) -> torch.Tensor:
     """Decode attention over a dense (B, S_c, KV, D) view: query l of row b
     sits at pos[b] + l and attends slots <= pos[b] + l (masked-causal inside
-    an L > 1 window).  q (B, L, H, D) -> (B, L, H, D) in q's dtype."""
+    an L > 1 window).  With `window` > 0 the cache is a ring of S_c slots
+    holding the last positions (L = 1 only): rows still inside their first
+    window take the prefix mask, wrapped rows the ring age
+    (qpos - slot) mod S_c < min(qpos + 1, window), as JAX's
+    layers.attention_decode.  q (B, L, H, D) -> (B, L, H, D) in q's dtype."""
     b, L, h, d = q.shape
     s_c, kvh = k_cache.shape[1], k_cache.shape[2]
+    if L > 1 and window:
+        raise ValueError(f"an L > 1 window needs full attention (window 0), got {window}")
     g = h // kvh
     qg = q.float().reshape(b, L, kvh, g, d) * d**-0.5
     s = torch.einsum("blkgd,bskd->blkgs", qg, k_cache.float())
     qpos = _row_positions(pos, b, q.device)[:, None] + torch.arange(L, device=q.device)
-    valid = torch.arange(s_c, device=q.device) <= qpos[..., None]  # (B, L, S_c)
+    qpos = qpos[..., None]  # (B, L, 1)
+    slot = torch.arange(s_c, device=q.device)
+    if window > 0:
+        ring = torch.remainder(qpos - slot, s_c) < torch.clamp(qpos + 1, max=window)
+        valid = torch.where(qpos < window, slot <= qpos, ring)
+    else:
+        valid = slot <= qpos  # (B, L, S_c)
     p = masked_softmax(s, valid[:, :, None, None, :])
     out = torch.einsum("blkgs,bskd->blkgd", p, v_cache.float())
     return out.reshape(b, L, h, d).to(q.dtype)
@@ -63,67 +96,181 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return pool[table.long()].reshape(b, nb * pool.shape[1], *pool.shape[2:])
 
 
-def paged_decode_attention_plain(q, k_pool, v_pool, table, pos) -> torch.Tensor:
+def _dequant(kv_quant: str, k, v, k_scale, v_scale):
+    """Quantized K/V and their scales -> float32 K/V (bf16 passes through)."""
+    if kv_quant == "bf16":
+        return k, v
+    lay = encoding.kv_layout(kv_quant)
+    return lay.dequantize(k, k_scale), lay.dequantize(v, v_scale)
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, table, pos, *, k_scale=None,
+                                 v_scale=None, kv_quant: str = "bf16") -> torch.Tensor:
     """What the paged kernel computes, in plain PyTorch: gather the live
-    blocks of every row's table, then decode attention over that view."""
+    keys of every row's table (and their scale pages), dequantize, then
+    decode attention over that view."""
+    b, L = q.shape[:2]
     bs = k_pool.shape[1]
-    L = q.shape[1]
-    last = int(_row_positions(pos, q.shape[0], q.device).max()) + L - 1
-    live = min(table.shape[1], last // bs + 1)
-    return decode_attention_plain(
-        q, paged_gather(k_pool, table[:, :live]), paged_gather(v_pool, table[:, :live]), pos
-    )
+    live = _live_keys(pos, b, L, table.shape[1] * bs, q.device)
+    t = table[:, : -(-live // bs)]
+
+    def view(pool):
+        return None if pool is None else paged_gather(pool, t)[:, :live].contiguous()
+
+    k, v = _dequant(kv_quant, view(k_pool), view(v_pool), view(k_scale), view(v_scale))
+    return decode_attention_plain(q, k, v, pos)
+
+
+def dense_decode_attention_plain(q, k_cache, v_cache, pos, *, window: int = 0, k_scale=None,
+                                 v_scale=None, kv_quant: str = "bf16") -> torch.Tensor:
+    """What the dense kernel computes, in plain PyTorch: (full attention) the
+    live keys of the (B, S_c, KV, Ds) cache, or (a ring window) all S_c
+    slots, dequantized, then decode attention with the window's mask.  With
+    a page table that is the identity this equals the paged version bit for
+    bit: the same keys go through the same operations."""
+    b, L = q.shape[:2]
+    live = k_cache.shape[1]
+    if window == 0:
+        live = _live_keys(pos, b, L, live, q.device)
+
+    def view(c):
+        return None if c is None else c[:, :live].contiguous()
+
+    k, v = _dequant(kv_quant, view(k_cache), view(v_cache), view(k_scale), view(v_scale))
+    return decode_attention_plain(q, k, v, pos, window)
+
+
+def _check_decode(name, q, k, v, k_scale, v_scale, kv_quant, lead_ok) -> None:
+    """Shapes, layout and dtypes a decode wrapper takes (both devices)."""
+    lay = encoding.kv_layout(kv_quant)
+    b, L, h, d = q.shape
+    kvh, ds = k.shape[2], k.shape[3]
+    if v.shape != k.shape or not lead_ok or h % kvh or ds != lay.storage_head_dim(d):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k/v {tuple(k.shape)} / "
+                         f"{tuple(v.shape)} do not fit kv_quant={kv_quant!r}")
+    if lay.quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: kv_quant={kv_quant!r} takes scale pages exactly when "
+                         "it is quantized")
+    want = lay.storage_dtype if lay.quantized else q.dtype
+    if k.dtype != want or v.dtype != want:
+        raise ValueError(f"{name}: {kv_quant} K/V of dtype {k.dtype}/{v.dtype}, want {want}")
+    if lay.quantized:
+        sshape = (*k.shape[:3], 1)
+        if (tuple(k_scale.shape) != sshape or tuple(v_scale.shape) != sshape
+                or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+            raise ValueError(f"{name}: scales must be float32 of shape {sshape}")
+
+
+def _check_card(name: str, q: torch.Tensor, kvh: int) -> None:
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on cuda (or cpu: plain), not {q.device}")
+    b, L, h, d = q.shape
+    if d not in (16, 32, 64, 128) or h // kvh > 32 or L > 65535:
+        raise ValueError(f"{name} kernel takes D in 16/32/64/128, G <= 32 and "
+                         f"L <= 65535, got D={d}, G={h // kvh}, L={L}")
+
+
+def _scale_ptrs(k_scale, v_scale):
+    if k_scale is None:
+        return None, None
+    return build.aligned(k_scale).data_ptr(), build.aligned(v_scale).data_ptr()
 
 
 @functools.cache
 def _paged_kernel():
     return build.entry(
         "paged_decode", "paged_decode_attention",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     )
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                           table: torch.Tensor, pos, *, kv_quant: str = "bf16") -> torch.Tensor:
-    """q (B, L, H, D) against pools (P, bs, KV, D) through table (B, NB) int32
-    and pos (B,) int32 (position of q[:, 0]), any window L (the kernel tiles
-    the L*G query rows 32 at a time).  Only live pages are read.  Plain
-    version on the CPU; on a CUDA tensor the kernel runs or this raises."""
-    if kv_quant != "bf16":
-        raise NotImplementedError(
-            f"paged_decode_attention: kv_quant={kv_quant!r} waits for the "
-            "quantized-KV slice (ROADMAP, TPU kernels to port)"
-        )
+                           table: torch.Tensor, pos, *, k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None,
+                           kv_quant: str = "bf16") -> torch.Tensor:
+    """q (B, L, H, D) against pools (P, bs, KV, Ds) through table (B, NB)
+    int32 and pos (B,) int32 (position of q[:, 0]), any window L (the kernel
+    tiles the L*G query rows 32 at a time).  `kv_quant` names the pools'
+    layout; kv8/kv4 take `k_scale`/`v_scale` pages (P, bs, KV, 1) float32.
+    Only live pages are read.  Plain version on the CPU; on a CUDA tensor
+    the kernel runs or this raises."""
     b, L, h, d = q.shape
-    _, bs, kvh, dk = k_pool.shape
-    if dk != d or v_pool.shape != k_pool.shape or table.shape[0] != b or h % kvh:
-        raise ValueError(f"shapes q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
-                         f"table {tuple(table.shape)} do not fit")
+    _, bs, kvh, _ = k_pool.shape
+    _check_decode("paged_decode_attention", q, k_pool, v_pool, k_scale, v_scale, kv_quant,
+                  table.shape[0] == b)
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pool, v_pool, table, pos)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"paged_decode_attention runs on cuda (or cpu: plain), not {q.device}")
-    if d not in (16, 32, 64, 128) or h // kvh > 32:
-        raise ValueError(f"paged decode kernel takes D in 16/32/64/128 and "
-                         f"G <= 32, got D={d}, G={h // kvh}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"pool dtype {k_pool.dtype} != query dtype {q.dtype}")
+        return paged_decode_attention_plain(q, k_pool, v_pool, table, pos, k_scale=k_scale,
+                                            v_scale=v_scale, kv_quant=kv_quant)
+    _check_card("paged_decode_attention", q, kvh)
     q, k_pool, v_pool = build.aligned(q), build.aligned(k_pool), build.aligned(v_pool)
+    ks, vs = _scale_ptrs(k_scale, v_scale)
     table = table.to(torch.int32).contiguous()
     posv = _row_positions(pos, b, q.device).to(torch.int32).contiguous()
     out = torch.empty_like(q)
     err = _paged_kernel()(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs, table.data_ptr(),
         posv.data_ptr(), out.data_ptr(), b, L, h, kvh, d, bs, table.shape[1],
-        d**-0.5, build.dtype_code(q.dtype), build.stream_ptr(q.device),
+        d**-0.5, build.dtype_code(q.dtype), _KV_CODES[kv_quant], build.stream_ptr(q.device),
     )
     build.check(err, "paged_decode", "paged_decode_attention launch")
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_by_kv[kv_quant] += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_kv = dict.fromkeys(encoding.KV_QUANTS, 0)
+
+
+@functools.cache
+def _dense_kernel():
+    return build.entry(
+        "dense_decode", "dense_decode_attention",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    )
+
+
+def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           pos, *, window: int = 0, k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None,
+                           kv_quant: str = "bf16") -> torch.Tensor:
+    """q (B, L, H, D) against a dense cache (B, S_c, KV, Ds); pos scalar or
+    (B,), the position of q[:, 0].  `window` 0 is full attention over slots
+    <= pos + l (any L, masked-causal); `window` > 0 a ring cache (L = 1,
+    bf16/f32 only).  kv8/kv4 take `k_scale`/`v_scale` (B, S_c, KV, 1)
+    float32.  Plain version on the CPU; on a CUDA tensor the kernel runs or
+    this raises."""
+    b, L, h, d = q.shape
+    _, s_c, kvh, _ = k_cache.shape
+    if window < 0 or (window and (L > 1 or kv_quant != "bf16")):
+        raise ValueError(f"dense_decode_attention: window={window} takes L = 1 and "
+                         f"unquantized caches, got L={L}, kv_quant={kv_quant!r}")
+    _check_decode("dense_decode_attention", q, k_cache, v_cache, k_scale, v_scale, kv_quant,
+                  k_cache.shape[0] == b)
+    if q.device.type == "cpu":
+        return dense_decode_attention_plain(q, k_cache, v_cache, pos, window=window,
+                                            k_scale=k_scale, v_scale=v_scale,
+                                            kv_quant=kv_quant)
+    _check_card("dense_decode_attention", q, kvh)
+    q, k_cache, v_cache = build.aligned(q), build.aligned(k_cache), build.aligned(v_cache)
+    ks, vs = _scale_ptrs(k_scale, v_scale)
+    posv = _row_positions(pos, b, q.device).to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    err = _dense_kernel()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ks, vs, posv.data_ptr(),
+        out.data_ptr(), b, L, h, kvh, d, s_c, window, d**-0.5, build.dtype_code(q.dtype),
+        _KV_CODES[kv_quant], build.stream_ptr(q.device),
+    )
+    build.check(err, "dense_decode", "dense_decode_attention launch")
+    dense_decode_attention.launches += 1
+    dense_decode_attention.launches_by_kv[kv_quant] += 1
+    return out
+
+
+dense_decode_attention.launches = 0
+dense_decode_attention.launches_by_kv = dict.fromkeys(encoding.KV_QUANTS, 0)
 
 
 # ---------------------------------------------------------------------------

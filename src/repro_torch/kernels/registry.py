@@ -5,6 +5,7 @@ package's, so a key, a policy decision or a demotion reads the same in both:
 
     matmul : "{quant}|{phase}|{M-bucket}|{target}"   M-bucket m1/m8/m32/m64/big
     attn   : "attn|{phase}|{S-bucket}|{target}"      S-bucket s256/s1k/s4k/sbig
+             "attn|{phase}|{S-bucket}|{kv}|{target}" kv8/kv4 KV layouts
 
 Resolution order (both op classes):
   1. an explicit `requested` backend (tests and benchmarks pin paths);
@@ -24,7 +25,9 @@ rest of the process (`demote`), past every rung that would pick the failing
 backend again; the demotion outranks even an explicit request.  The
 serving engine records each demotion in Engine.stats["degraded"].  The
 quarantine table is process-wide by design: one bad kernel must stay out of
-every engine of the process.
+every engine of the process.  Attention keys carry the KV layout (kv8/kv4
+insert it before the target), so quarantine is tracked per layout: a kernel
+that fails on int4 pages does not quarantine the bf16 path.
 
 Backend names keep the JAX vocabulary.  For matmul: "reference" (un-encoded
 torch.matmul), "xla" (plain pack + mmt4d + unpack), "fused" (the CUDA GEMV
@@ -34,7 +37,7 @@ unpack).  For the quantized keys (w8a8, w4a8): "fused" (the int8 or int4
 CUDA GEMV at decode with at most 8 rows, the packed q8 or q4 GEMM
 otherwise), "pallas" (the packed q8 or q4 GEMM) and "xla" (their plain
 oracle, the fallback).  For attention: "xla" (plain) and "pallas" (the CUDA
-flash-prefill and paged-decode kernels).
+flash-prefill, paged-decode and dense-decode kernels).
 """
 
 from __future__ import annotations
@@ -153,8 +156,27 @@ def s_bucket(s: int) -> str:
     return "sbig"
 
 
-def attn_dispatch_key(phase: Phase, s: int, target_name: str) -> str:
-    return f"{ATTN_OP}|{phase.value}|{s_bucket(s)}|{target_name}"
+def attn_dispatch_key(phase: Phase, s: int, target_name: str, kv: str = "bf16") -> str:
+    """Attention dispatch key: the 4-segment form for bf16, the kv8/kv4
+    layout inserted before the target otherwise."""
+    if kv in (None, "bf16"):
+        return f"{ATTN_OP}|{phase.value}|{s_bucket(s)}|{target_name}"
+    if kv not in encoding.KV_QUANTS:
+        raise ValueError(f"unknown kv_quant {kv!r}; expected one of {encoding.KV_QUANTS}")
+    return f"{ATTN_OP}|{phase.value}|{s_bucket(s)}|{kv}|{target_name}"
+
+
+def split_attn_key(key: str) -> tuple[str, str, str, str]:
+    """attn key -> (phase value, S-bucket, kv layout, target name), for the
+    4-segment (bf16) and the 5-segment (kv8/kv4) form."""
+    parts = key.split("|")
+    if parts[0] != ATTN_OP:
+        raise ValueError(f"not an attn key: {key!r}")
+    if len(parts) == 4:
+        return parts[1], parts[2], "bf16", parts[3]
+    if len(parts) == 5 and parts[3] in encoding.KV_QUANTS:
+        return parts[1], parts[2], parts[3], parts[4]
+    raise ValueError(f"malformed attn key: {key!r}")
 
 
 def _attn_ladder(phase: Phase, bucket: str, target_name: str,
@@ -174,9 +196,10 @@ def _attn_ladder(phase: Phase, bucket: str, target_name: str,
 
 
 def _ladder_for_key(key: str, requested: str | None) -> list[tuple[str, str]]:
-    op, phase_val, bucket, target_name = key.split("|", 3)
-    if op == ATTN_OP:
+    if key.startswith(ATTN_OP + "|"):
+        phase_val, bucket, _kv, target_name = split_attn_key(key)
         return _attn_ladder(Phase(phase_val), bucket, target_name, requested)
+    op, phase_val, bucket, target_name = key.split("|", 3)
     return _matmul_ladder(op, Phase(phase_val), bucket, target_name, requested)
 
 
@@ -193,9 +216,10 @@ def select(*, quant: str, phase: Phase, m: int,
 
 def select_attn(*, phase: Phase, s: int,
                 target: targets_lib.TargetSpec = targets_lib.H100,
-                requested: str | None = None) -> KernelChoice:
-    """Resolve one attention dispatch; a quarantined key outranks everything."""
-    key = attn_dispatch_key(phase, s, target.name)
+                requested: str | None = None, kv: str = "bf16") -> KernelChoice:
+    """Resolve one attention dispatch; a quarantined key outranks everything.
+    `kv` is the KV layout axis: quarantine is tracked per layout's key."""
+    key = attn_dispatch_key(phase, s, target.name, kv)
     return _apply_quarantine(key, _ladder_for_key(key, requested))
 
 

@@ -9,7 +9,9 @@ decode steps under torch.profiler.  Prints the host wall time per step, the
 device busy time per step (sum of kernel durations: one stream, so kernels
 do not overlap), the idle share, kernel launches per step, and device time
 by kernel name.  Writes the table to chiprun_out/profile_decode.json.
---quant w8a8 | w4a8 (with --quant-group) profiles int8 or int4 weights.
+--quant w8a8 | w4a8 (with --quant-group) profiles int8 or int4 weights;
+--kv-quant kv8 | kv4 profiles a quantized KV pool (quantize-on-write and the
+decode kernel's int8 / nibble path).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core import encoding
 from repro_torch.core.packed import QUANT_KEYS, EncodingConfig
 from repro_torch.models import transformer as T
 from repro_torch.serving import engine as engine_lib
@@ -38,6 +41,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--out", default="chiprun_out/profile_decode.json")
     ap.add_argument("--quant", default="none", choices=sorted(QUANT_KEYS.values()))
     ap.add_argument("--quant-group", dest="quant_group", type=int, default=16)
+    ap.add_argument("--kv-quant", dest="kv_quant", default="bf16", choices=encoding.KV_QUANTS)
     args = ap.parse_args(argv)
 
     dev = T.resolve_device("cuda")
@@ -47,7 +51,8 @@ def main(argv: list[str] | None = None) -> dict:
                          quant_group=args.quant_group)
     params = T.model_init(cfg, enc, seed=args.seed, device=dev)
     eng = engine_lib.Engine(params, cfg, enc,
-                            config=EngineConfig(slots=4, max_seq=1024, block_size=16),
+                            config=EngineConfig(slots=4, max_seq=1024, block_size=16,
+                                                kv_quant=args.kv_quant),
                             device=dev)
     rng = np.random.RandomState(args.seed)
     for i in range(4):
@@ -78,6 +83,7 @@ def main(argv: list[str] | None = None) -> dict:
     out = {
         "card": torch.cuda.get_device_name(0),
         "quant": args.quant,
+        "kv_quant": args.kv_quant,
         "steps": args.steps,
         "host_ms_per_step": step_ms,
         "device_busy_ms_per_step": busy_ms,
@@ -89,7 +95,7 @@ def main(argv: list[str] | None = None) -> dict:
             key=lambda r: -r["ms_per_step"],
         ),
     }
-    print(f"[profile] {out['card']} ({args.quant}): {args.steps} decode steps, host {step_ms:.3f} ms/step, "
+    print(f"[profile] {out['card']} ({args.quant}, {args.kv_quant}): {args.steps} decode steps, host {step_ms:.3f} ms/step, "
           f"device busy {busy_ms:.3f} ms/step, idle share {out['device_idle_share']:.3f}, "
           f"{out['kernel_launches_per_step']:.0f} kernel launches/step")
     if not by_name:

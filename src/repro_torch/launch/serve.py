@@ -13,6 +13,11 @@ through the packed mmt4d kernels.  --quant w8a8 | w4a8 serves int8 weights
 (per output channel) or int4 weights (one bf16 scale per --quant-group K
 elements, 16 by default, 32 the llama.cpp Q4_0 block) through the quantized
 kernels; the run prints the weight bytes each decode step streams.
+--kv-quant kv8 | kv4 stores the paged KV pool as int8 or packed int4 with
+float32 scale pages (the run prints the pool bytes per cached token);
+--cache-mode dense serves from the dense (slots, max_seq) cache through the
+dense decode kernel, and --decode-mode grouped decodes one group of slots at
+the same position per dispatch (on the dense cache).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core import encoding
 from repro_torch.core.packed import QUANT_KEYS, EncodingConfig
 from repro_torch.kernels import build
 from repro_torch.models import transformer as T
@@ -64,6 +70,13 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
                     help="weight format: w8a8 = int8 per output channel, w4a8 = group int4")
     ap.add_argument("--quant-group", dest="quant_group", type=int, default=16,
                     help="w4a8 K elements per scale (16 default; 32 = llama.cpp Q4_0)")
+    ap.add_argument("--kv-quant", dest="kv_quant", default="bf16", choices=encoding.KV_QUANTS,
+                    help="paged KV pool layout: bf16 (activation dtype), kv8, kv4")
+    ap.add_argument("--cache-mode", dest="cache_mode", default="paged",
+                    choices=["paged", "dense"], help="KV cache: page pool or dense rows")
+    ap.add_argument("--decode-mode", dest="decode_mode", default="vectorized",
+                    choices=["vectorized", "grouped"],
+                    help="one decode dispatch per step, or one per position group")
     args = ap.parse_args(argv)
 
     config = EngineConfig.from_args(args)
@@ -94,14 +107,21 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     print(f"[serve] attn_backend={stats['attn_backend'][0]} "
           f"dispatches={stats['dispatches']} degraded={len(stats['degraded'][0])} "
           f"step p50={stats['watchdog']['p50_ms']:.2f}ms p99={stats['watchdog']['p99_ms']:.2f}ms")
+    itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
+    kv_bytes = encoding.kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
+                                           itemsize=itemsize, kv_quant=stats["kv_quant"])
+    print(f"[serve] cache={stats['cache_mode']} decode={stats['decode_mode']} "
+          f"kv={stats['kv_quant']} ({kv_bytes} bytes per cached token) "
+          f"downgrades={stats.get('config_downgrades', [])}")
     wb = T.decode_weight_stream_bytes(cfg, enc)
     print(f"[serve] weights streamed per decode step ({args.quant}): projections "
           f"{wb['projections'] / 1e6:.1f} MB + head {wb['head'] / 1e6:.1f} MB = "
           f"{sum(wb.values()) / 1e6:.1f} MB")
-    pc = stats["prefix_cache"]
-    print(f"[serve] paged: peak_active={stats['peak_active']} pages={stats['pages_total']} "
-          f"peak_in_use={stats['peak_in_use']} preemptions={stats['preemptions']} "
-          f"prefix hit_rate={pc['hit_rate']:.3f} hit_tokens={pc['hit_tokens']}")
+    if stats["cache_mode"] == "paged":
+        pc = stats["prefix_cache"]
+        print(f"[serve] paged: peak_active={stats['peak_active']} pages={stats['pages_total']} "
+              f"peak_in_use={stats['peak_in_use']} preemptions={stats['preemptions']} "
+              f"prefix hit_rate={pc['hit_rate']:.3f} hit_tokens={pc['hit_tokens']}")
     if "spec" in stats:
         sp = stats["spec"]
         print(f"[serve] spec: proposed={sp['proposed']} accepted={sp['accepted']} "

@@ -2,9 +2,10 @@
 
 Every dense projection routes through core/packed.linear_apply, so the
 paper's encoding applies to all of them.  Caches are updated in place where
-the JAX package donates buffers: the paged decode write goes straight into
-the per-layer page pool with index_put_, and prefill writes its K/V into the
-(temporary, dense) cache it was handed.
+the JAX package donates buffers: the decode write goes straight into the
+per-layer page pool (quantized on write for kv8/kv4 pools) or dense cache
+with index_put_, and prefill writes its K/V into the dense cache it was
+handed.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import encoding
 from repro_torch.core import packed
 from repro_torch.core.encoding import Phase
 from repro_torch.kernels import attn as attn_kernels
@@ -109,13 +111,21 @@ def attention_apply(
 ) -> torch.Tensor:
     """Self-attention with RoPE; updates `cache` in place.
 
-    `pos` is an int (every row starts at the same position: prefill offset)
-    or a (B,) tensor (decode: row b's x[:, 0] sits at pos[b]).  At DECODE the
-    cache is the paged pool {"k", "v": (P, bs, KV, D), "table": (B, NB)}:
-    row b writes token j into page table[b, (pos+j)//bs] at offset
-    (pos+j) % bs, then attends its live pages.  At PREFILL an int pos > 0
-    attends cache[:, :pos] before the new keys (suffix prefill over a cached
-    prefix), and the new K/V are written to cache[:, pos:pos+S]."""
+    `pos` is an int or a 0-dim tensor (every row at the same position:
+    prefill offset, or grouped decode) or a (B,) tensor (decode: row b's
+    x[:, 0] sits at pos[b]).  At DECODE an S > 1 window writes all S
+    positions, then attends masked-causally, on either cache:
+      paged {"k", "v": (P, bs, KV, Ds), "table": (B, NB) [, "k_scale",
+      "v_scale": (P, bs, KV, 1)]}: row b writes token j into page
+      table[b, (pos+j)//bs] at offset (pos+j) % bs (quantized on write for
+      kv8/kv4 pools, data and scale at the same page ids), then attends its
+      live pages;
+      dense {"k", "v": (B, S_c, KV, D)}: row b writes slot pos+j (a (B,) pos
+      clamps at the cache edge; a shared pos writes one slot column), then
+      attends slots <= pos+j.
+    At PREFILL an int pos > 0 attends cache[:, :pos] before the new keys
+    (suffix prefill over a cached prefix), and the new K/V are written to
+    cache[:, pos:pos+S]."""
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     window = cfg.sliding_window
@@ -127,52 +137,27 @@ def attention_apply(
     k = packed.linear_apply(params["wk"], x, n=kvh * hd, phase=phase, enc=enc).reshape(b, s, kvh, hd)
     v = packed.linear_apply(params["wv"], x, n=kvh * hd, phase=phase, enc=enc).reshape(b, s, kvh, hd)
     steps = torch.arange(s, device=x.device)
-    if isinstance(pos, torch.Tensor):
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    if per_row:
         positions = pos.to(x.device).long()[:, None] + steps[None, :]
     else:
+        pos = int(pos)
         positions = (pos + steps)[None, :].expand(b, s)
     q = rope_apply(q, positions, cfg.rope_theta)
     k = rope_apply(k, positions, cfg.rope_theta)
 
     if phase is Phase.DECODE:
-        if cache is None or "table" not in cache:
-            raise NotImplementedError(
-                "decode runs on the paged cache only; the dense cache and "
-                "dense_decode_attention wait for the dense-cache slice (ROADMAP)"
-            )
-        table = cache["table"]
-        bs_page = cache["k"].shape[1]
-        # An L > 1 window (spec verify, mixed step) writes all L positions
-        # before attending; positions past a row's real content are pads.
-        # Pads past the last logical block clamp to the final table entry
-        # (JAX's contract).  The engine widens the table to cover every
-        # window (Engine._live_table_width), so a pad inside the table lands
-        # on the scratch page or on a masked future offset of a private page.
-        # index_put_ writes duplicate indices in no fixed order on CUDA; the
-        # only duplicates are such pads (and idle rows on scratch), whose
-        # values are never read unmasked.
-        blk = torch.clamp(positions // bs_page, max=table.shape[1] - 1)
-        pg = torch.gather(table.long(), 1, blk)
-        off = positions % bs_page
-        cache["k"].index_put_((pg, off), k)
-        cache["v"].index_put_((pg, off), v)
-        choice = registry_lib.select_attn(
-            phase=Phase.DECODE, s=table.shape[1] * bs_page, target=enc.target,
-            requested=enc.attn_backend,
-        )
-        if choice.backend == "pallas":
-            out = attn_kernels.paged_decode_attention(
-                q, cache["k"], cache["v"], table, positions[:, 0]
-            )
+        if cache is None:
+            raise ValueError("decode needs a KV cache")
+        if "table" in cache:
+            out = _paged_decode(q, k, v, cache, positions, enc=enc)
         else:
-            out = attention_decode(
-                q, paged_gather(cache["k"], table), paged_gather(cache["v"], table),
-                positions[:, 0],
-            )
+            out = _dense_decode(q, k, v, cache, positions, None if per_row else pos, enc=enc,
+                                window=window)
     else:
         q_off = 0
         k_att, v_att = k, v
-        if isinstance(pos, int) and pos > 0 and cache is not None:
+        if pos > 0 and cache is not None:
             k_att = torch.cat([cache["k"][:, :pos], k], dim=1)
             v_att = torch.cat([cache["v"][:, :pos], v], dim=1)
             q_off = pos
@@ -198,6 +183,78 @@ def attention_apply(
     return packed.linear_apply(params["wo"], out.reshape(b, s, h * hd), n=d, phase=phase, enc=enc)
 
 
+def _paged_decode(q, k, v, cache: dict, positions: torch.Tensor, *, enc) -> torch.Tensor:
+    """Write the window's K/V into the page pool (quantized on write for a
+    kv8/kv4 pool, whose layout its dtype names), then attend the live pages.
+
+    Pads past the last logical block clamp to the final table entry (JAX's
+    contract).  The engine widens the table to cover every window
+    (Engine._live_table_width), so a pad inside the table lands on the
+    scratch page or on a masked future offset of a private page.  index_put_
+    writes duplicate indices in no fixed order on CUDA; the only duplicates
+    are such pads (and idle rows on scratch), whose values are never read
+    unmasked."""
+    table = cache["table"]
+    bs_page = cache["k"].shape[1]
+    layout = encoding.kv_layout_for_storage(cache["k"].dtype)
+    blk = torch.clamp(positions // bs_page, max=table.shape[1] - 1)
+    pg = torch.gather(table.long(), 1, blk)
+    off = positions % bs_page
+    if layout.quantized:
+        k, k_scale = layout.quantize(k)
+        v, v_scale = layout.quantize(v)
+        cache["k_scale"].index_put_((pg, off), k_scale)
+        cache["v_scale"].index_put_((pg, off), v_scale)
+    cache["k"].index_put_((pg, off), k)
+    cache["v"].index_put_((pg, off), v)
+    choice = registry_lib.select_attn(
+        phase=Phase.DECODE, s=table.shape[1] * bs_page, target=enc.target,
+        requested=enc.attn_backend, kv=layout.name,
+    )
+    if choice.backend == "pallas":
+        return attn_kernels.paged_decode_attention(
+            q, cache["k"], cache["v"], table, positions[:, 0], k_scale=cache.get("k_scale"),
+            v_scale=cache.get("v_scale"), kv_quant=layout.name,
+        )
+    k_view, v_view = paged_gather(cache["k"], table), paged_gather(cache["v"], table)
+    if layout.quantized:
+        # The plain fallback: gather the quantized view and its scale view,
+        # dequantize, then the plain decode attention.
+        k_view = layout.dequantize(k_view, paged_gather(cache["k_scale"], table))
+        v_view = layout.dequantize(v_view, paged_gather(cache["v_scale"], table))
+    return attention_decode(q, k_view, v_view, positions[:, 0])
+
+
+def _dense_decode(q, k, v, cache: dict, positions: torch.Tensor, shared_pos: int | None, *,
+                  enc, window: int) -> torch.Tensor:
+    """Write the window's K/V into the dense (B, S_c, KV, D) cache, then
+    attend it.  A (B,) pos scatters each row's own slots, clamped at the
+    cache edge (the engine caps every window so a clamped slot is only ever
+    a pad colliding with other pads); a shared pos writes one slot column,
+    its start clamped so the window fits, as JAX's dynamic_update_slice.
+    Rejected draft and pad slots stay masked until a real write lands."""
+    b, s = positions.shape
+    s_c = cache["k"].shape[1]
+    if shared_pos is None:
+        rows = torch.arange(b, device=q.device)[:, None].expand(b, s)
+        wslot = torch.clamp(positions, max=s_c - 1)
+        cache["k"].index_put_((rows, wslot), k)
+        cache["v"].index_put_((rows, wslot), v)
+        pos = positions[:, 0]
+    else:
+        start = min(shared_pos, s_c - s)
+        cache["k"][:, start:start + s] = k
+        cache["v"][:, start:start + s] = v
+        pos = shared_pos
+    choice = registry_lib.select_attn(
+        phase=Phase.DECODE, s=s_c, target=enc.target, requested=enc.attn_backend,
+    )
+    if choice.backend == "pallas" and (s == 1 or window == 0):
+        return attn_kernels.dense_decode_attention(q, cache["k"], cache["v"], pos,
+                                                   window=window)
+    return attention_decode(q, cache["k"], cache["v"], pos, window)
+
+
 def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> dict:
     shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     dt = cfg.activation_dtype
@@ -206,19 +263,31 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> di
 
 
 def attn_paged_cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, block_size: int,
-                          num_pages: int, device, table: torch.Tensor | None = None) -> dict:
+                          num_pages: int, device, kv_quant: str = "bf16",
+                          table: torch.Tensor | None = None) -> dict:
     """A page pool + the per-slot block table (page 0 is the scratch page idle
-    rows write to; tables start on it).  Layers may share one `table`."""
+    rows write to; tables start on it).  Layers may share one `table`.
+
+    `kv_quant` picks the KVLayout (core/encoding): bf16 keeps pools in the
+    activation dtype; kv8/kv4 store int8 / packed-nibble uint8 pools (head
+    dim D/2 for kv4) plus float32 `k_scale`/`v_scale` scale pages of shape
+    (P, bs, KV, 1), so one page id addresses a block's data and scales."""
     if cfg.sliding_window:
         raise ValueError("paged cache excludes sliding-window configs")
     nb = -(-max_seq // block_size)
-    shape = (num_pages, block_size, cfg.num_kv_heads, cfg.head_dim)
-    dt = cfg.activation_dtype
+    layout = encoding.kv_layout(kv_quant)
+    dt = layout.storage_dtype if layout.quantized else cfg.activation_dtype
+    shape = (num_pages, block_size, cfg.num_kv_heads, layout.storage_head_dim(cfg.head_dim))
     if table is None:
         table = torch.zeros((batch, nb), dtype=torch.int32, device=device)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "table": table}
+    out = {"k": torch.zeros(shape, dtype=dt, device=device),
+           "v": torch.zeros(shape, dtype=dt, device=device),
+           "table": table}
+    if layout.quantized:
+        sshape = layout.scale_shape((num_pages, block_size), cfg.num_kv_heads)
+        out["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+        out["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+    return out
 
 
 # ---------------------------------------------------------------------------

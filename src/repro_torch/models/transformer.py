@@ -63,25 +63,28 @@ def model_init(cfg: ModelConfig, enc: packed.EncodingConfig, *, seed: int = 0,
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, cache_mode: str = "dense",
-               block_size: int = 16, num_pages: int | None = None,
+               block_size: int = 16, num_pages: int | None = None, kv_quant: str = "bf16",
                device: torch.device | str = "cuda") -> dict:
-    """Per-layer caches.  "dense": (batch, max_seq) K/V rows (the engine's
+    """Per-layer caches.  "dense": (batch, max_seq) K/V rows in the
+    activation dtype (the dense serving cache, and the paged engine's
     temporary prefill cache).  "paged": one page pool per layer plus a block
-    table shared by all layers (page 0 is scratch)."""
+    table shared by all layers (page 0 is scratch); `kv_quant` kv8/kv4 pools
+    carry float32 scale pages (layers.attn_paged_cache_init).  Quantized
+    layouts live in the paged pool only, as in the JAX package."""
     _check_family(cfg)
     device = resolve_device(device)
     if cache_mode == "dense":
+        if kv_quant != "bf16":
+            raise ValueError(f"quantized KV layouts need the paged cache, got {kv_quant!r}")
         return {"layers": [L.attn_cache_init(cfg, batch, max_seq, device=device)
                            for _ in range(cfg.num_layers)]}
     if cache_mode != "paged":
         raise ValueError(f"cache_mode must be 'dense' or 'paged', got {cache_mode!r}")
     if num_pages is None:
         num_pages = 1 + batch * (-(-max_seq // block_size))
-    first = L.attn_paged_cache_init(cfg, batch, max_seq, block_size=block_size,
-                                    num_pages=num_pages, device=device)
-    rest = [L.attn_paged_cache_init(cfg, batch, max_seq, block_size=block_size,
-                                    num_pages=num_pages, device=device,
-                                    table=first["table"])
+    kw = dict(block_size=block_size, num_pages=num_pages, device=device, kv_quant=kv_quant)
+    first = L.attn_paged_cache_init(cfg, batch, max_seq, **kw)
+    rest = [L.attn_paged_cache_init(cfg, batch, max_seq, table=first["table"], **kw)
             for _ in range(cfg.num_layers - 1)]
     return {"layers": [first] + rest}
 

@@ -1,17 +1,31 @@
-"""Serving engine on the paged KV cache (counterpart of
-repro/serving/engine.py: Engine with the paged cache).
+"""Serving engine (counterpart of repro/serving/engine.py: Engine).
 
-Slot-based continuous batching with the paged KV cache: admission charges
-only the pages a prompt needs, a radix prefix cache shares full prompt
-blocks across requests (serving/paged.py), and a request whose leading
-blocks are all cached prefills only its suffix.  Prefill runs one
-right-padded batch into a temporary dense cache and scatters the computed
-blocks into the pool pages in place.  Decode is vectorized: one dispatch per
-step serves every slot at its own position; the first decode step of a
-request recomputes the last prompt token (its logits give the first
-generated token), exactly as in the JAX engine.  Decode growth preempts the
-lowest-priority slot when the pool is dry (its request replays; greedy
-decode makes the replay identical).
+Slot-based continuous batching, on one of two KV caches:
+
+  paged (cache_mode="paged", the default)  admission charges only the pages
+                a prompt needs, a radix prefix cache shares full prompt
+                blocks across requests (serving/paged.py), and a request
+                whose leading blocks are all cached prefills only its
+                suffix.  Prefill runs one right-padded batch into a
+                temporary dense cache and scatters the computed blocks into
+                the pool pages in place.  Decode growth preempts the
+                lowest-priority slot when the pool is dry (its request
+                replays; greedy decode makes the replay identical).  The
+                pool is bf16 (the activation dtype) or quantized
+                (kv_quant="kv8" | "kv4", core/encoding.KVLayout): pages are
+                quantized on write, with float32 scale pages at the same
+                page ids, and the decode kernel dequantizes them.
+  dense (cache_mode="dense", or decode_mode="grouped")  the worst-case
+                (slots, max_seq) reservation in the activation dtype:
+                admitted requests prefill into their own rows (one
+                right-padded batch through slot_gather / slot_merge), and no
+                page is ever allocated, shared or preempted.
+
+Decode is vectorized: one dispatch per step serves every slot at its own
+position; decode_mode="grouped" instead dispatches once per group of slots
+at the same position and merges only the group's cache rows back.  The
+first decode step of a request recomputes the last prompt token (its logits
+give the first generated token), exactly as in the JAX engine.
 
 Two step kinds ride the masked-causal decode window (an L > 1 decode-phase
 forward, models/layers.py):
@@ -27,7 +41,9 @@ forward, models/layers.py):
                 admission order, budget split and preemption order come
                 from TokenBudgetScheduler (SLO classes with aging).
 
-Both emit the tokens of plain greedy decode.  A window of slots x L rows
+Both emit the tokens of plain greedy decode, on either cache (a dense cache
+keeps rejected draft slots masked until they are overwritten; a paged slot
+returns its draft-only pages).  A window of slots x L rows
 keys the registry's m32/m64/big buckets, which route to the packed mmt4d
 GEMM (kernels/registry.py), as do plain decode steps with more than 8 slots.
 
@@ -39,10 +55,11 @@ the process and retries on the next rung.  Real CUDA errors propagate.
 
 Quantized weights (EncodingConfig weight_quant "int8" or "int4") serve
 through every step kind; their dispatches key the registry as w8a8 / w4a8.
+Attention dispatches key it with the cache width and the KV layout
+(attn|phase|S-bucket[|kv8|kv4]|target).
 
 Not in this slice (each raises NotImplementedError at construction, naming
-its ROADMAP slice): the dense cache, temperature sampling, kv8/kv4 pools
-and meshes larger than one card.
+its ROADMAP slice): temperature sampling and meshes larger than one card.
 """
 
 from __future__ import annotations
@@ -55,6 +72,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core import encoding
 from repro_torch.core.encoding import Phase
 from repro_torch.core.packed import QUANT_KEYS, EncodingConfig
 from repro_torch.kernels import registry as registry_lib
@@ -174,15 +192,38 @@ class TokenBudgetScheduler:
         return chunks
 
 
+def slot_gather(caches: dict, slots_sel: list[int]) -> dict:
+    """Batch rows `slots_sel` of every dense cache leaf, as one gather per
+    leaf (a copy)."""
+    out = []
+    for layer in caches["layers"]:
+        idx = torch.as_tensor(slots_sel, dtype=torch.long, device=layer["k"].device)
+        out.append({name: leaf[idx] for name, leaf in layer.items()})
+    return {"layers": out}
+
+
+def slot_slice(caches: dict, s: int) -> dict:
+    return slot_gather(caches, [s])
+
+
+def slot_merge(caches: dict, part: dict, slots_sel: list[int],
+               src_idx: list[int] | None = None) -> None:
+    """Write batch rows `src_idx` (default: the same as slots_sel) of `part`
+    into rows `slots_sel` of `caches`, in place: one gather and one scatter
+    per leaf."""
+    src = slots_sel if src_idx is None else src_idx
+    for full, p in zip(caches["layers"], part["layers"]):
+        dev = full["k"].device
+        dst_t = torch.as_tensor(slots_sel, dtype=torch.long, device=dev)
+        src_t = torch.as_tensor(src, dtype=torch.long, device=dev)
+        for name, leaf in full.items():
+            leaf[dst_t] = p[name][src_t]
+
+
 def _check_supported(config: EngineConfig, enc: EncodingConfig) -> None:
     todo = []
-    if config.cache_mode != "paged" or config.decode_mode != "vectorized":
-        todo.append("the dense cache / grouped decode (ROADMAP: dense cache with "
-                    "dense_decode_attention)")
     if config.sample != "greedy":
-        todo.append("temperature sampling (ROADMAP: dense cache slice)")
-    if config.kv_quant != "bf16":
-        todo.append(f"kv_quant={config.kv_quant} (ROADMAP: quantized KV)")
+        todo.append("temperature sampling (ROADMAP: temperature sampling)")
     if config.mesh_devices > 1:
         todo.append("mesh_shape > 1 (ROADMAP: tensor parallelism)")
     if todo:
@@ -190,7 +231,7 @@ def _check_supported(config: EngineConfig, enc: EncodingConfig) -> None:
 
 
 class Engine:
-    """Slot-based continuous batching on a fixed decode batch, paged cache.
+    """Slot-based continuous batching on a fixed decode batch.
 
     Engine(params, cfg, enc, config=EngineConfig(...), device="cuda"); the
     legacy keyword form Engine(params, cfg, enc, slots=4, ...) folds into
@@ -225,7 +266,19 @@ class Engine:
             )
         config = config.resolve(cfg)
         _check_supported(config, enc)
+        # kv4 packs two values a byte; only the decode kernels unpack
+        # nibbles in registers.  Under a requested plain attention the
+        # gather-and-dequantize of nibbles is not worth the capacity, so kv4
+        # rides the kv8 layout there, recorded like a resolve() downgrade.
+        if config.kv_quant == "kv4" and enc.attn_backend in ("xla", "reference"):
+            config = dataclasses.replace(
+                config, kv_quant="kv8", downgrades=config.downgrades + (
+                    f"kv_quant:kv8(attn_backend={enc.attn_backend})",))
         self.config = config
+        self.kv_quant = config.kv_quant
+        self.cache_mode = config.cache_mode
+        self.decode_mode = config.decode_mode
+        self.batch_prefill = bool(config.batch_prefill)
         self.device = T.resolve_device(device)
         self.params = params
         self.cfg, self.enc = cfg, enc
@@ -281,26 +334,38 @@ class Engine:
             self.slot_proposed = np.zeros(self.slots, np.int64)
             self.slot_accepted = np.zeros(self.slots, np.int64)
 
-        self.block_size = config.block_size
-        self.num_blocks = -(-self.max_seq // self.block_size)
-        pool_pages = config.pool_pages
-        if pool_pages is None:
-            pool_pages = 1 + self.slots * self.num_blocks  # dense worst case
-        self.prefix_cache = bool(config.prefix_cache)
-        self.tenant_quota = config.tenant_quota
-        self.alloc = paged_lib.BlockAllocator(
-            pool_pages, self.block_size, "bf16",
-            prefix_cache=self.prefix_cache, tenant_quota=self.tenant_quota,
-        )
-        self.caches = T.cache_init(
-            cfg, self.slots, self.max_seq, cache_mode="paged",
-            block_size=self.block_size, num_pages=pool_pages, device=self.device,
-        )
-        self.block_table = np.full(
-            (self.slots, self.num_blocks), paged_lib.SCRATCH_PAGE, np.int32
-        )
-        self.slot_pages: list[list[int]] = [[] for _ in range(self.slots)]
         self._tenant_reserved: dict[str, int] = {}
+        if self.cache_mode == "paged":
+            self.block_size = config.block_size
+            self.num_blocks = -(-self.max_seq // self.block_size)
+            pool_pages = config.pool_pages
+            if pool_pages is None:
+                pool_pages = 1 + self.slots * self.num_blocks  # dense worst case
+            self.prefix_cache = bool(config.prefix_cache)
+            self.tenant_quota = config.tenant_quota
+            # Suffix-only prefill gathers pool pages back as bf16 K/V: a
+            # kv8/kv4 pool would dequantize and requantize them.  Quantized
+            # pools keep the write-skip half of the prefix cache.
+            self._suffix_ok = self.kv_quant == "bf16" and not cfg.sliding_window
+            self.alloc = paged_lib.BlockAllocator(
+                pool_pages, self.block_size, self.kv_quant,
+                prefix_cache=self.prefix_cache, tenant_quota=self.tenant_quota,
+            )
+            self.caches = T.cache_init(
+                cfg, self.slots, self.max_seq, cache_mode="paged",
+                block_size=self.block_size, num_pages=pool_pages, kv_quant=self.kv_quant,
+                device=self.device,
+            )
+            self.block_table = np.full(
+                (self.slots, self.num_blocks), paged_lib.SCRATCH_PAGE, np.int32
+            )
+            self.slot_pages: list[list[int]] = [[] for _ in range(self.slots)]
+        else:
+            self.caches = T.cache_init(cfg, self.slots, self.max_seq, device=self.device)
+            # Prefix caching and page quotas belong to the paged pool; a
+            # dense engine carries the neutral values.
+            self.prefix_cache = False
+            self.tenant_quota = None
         # Admissions that deferred on an unwritten shared prefix and later
         # re-planned into real shares (token-budget admission).
         self.deferred_hits = 0
@@ -342,7 +407,7 @@ class Engine:
                 req, "unserviceable_seq",
                 f"prompt of {len(req.prompt)} tokens exceeds max_seq {self.max_seq}",
             )
-        if req.max_new_tokens > 0:
+        if self.cache_mode == "paged" and req.max_new_tokens > 0:
             worst = self._worst_pages(req)
             if worst > self.alloc.capacity:
                 return self._reject(
@@ -397,10 +462,12 @@ class Engine:
         T.forward(self.params, tokens, cfg=self.cfg, enc=self.enc, phase=Phase.PREFILL,
                   caches=caches, pos=pos, last_logits_only=True)
 
-    def _decode(self, tokens: torch.Tensor, pos: torch.Tensor):
-        """One greedy token for every slot: (next (B,) int, logits (B, V))."""
+    def _decode(self, tokens: torch.Tensor, pos: torch.Tensor | int, caches: dict):
+        """One greedy token for every row of `caches`: (next (B,) int, logits
+        (B, V)).  `pos` is (B,) (vectorized) or an int shared by every row
+        (grouped decode)."""
         logits = T.forward(self.params, tokens, cfg=self.cfg, enc=self.enc,
-                           phase=Phase.DECODE, caches=self.caches, pos=pos)[:, -1]
+                           phase=Phase.DECODE, caches=caches, pos=pos)[:, -1]
         return torch.argmax(logits, dim=-1), logits
 
     def _window(self, tokens: torch.Tensor, pos: torch.Tensor,
@@ -413,14 +480,17 @@ class Engine:
                          logits_idx=logits_idx)
 
     def _attn_s(self, phase: Phase) -> int:
-        """The logical KV length the next dispatch of `phase` attends."""
-        if phase is Phase.PREFILL:
+        """The logical KV length the next dispatch of `phase` attends: the
+        live table width of a paged cache, the cache width of a dense one."""
+        if phase is Phase.PREFILL or self.cache_mode != "paged":
             return self.max_seq
         return self._live_table_width() * self.block_size
 
     def _dispatch_keys(self, kind: str) -> tuple[str, str]:
         """Registry keys the imminent dispatch resolves through (what
-        pre_dispatch faults match and what a quarantine demotes)."""
+        pre_dispatch faults match and what a quarantine demotes): the
+        attention key with the cache width and the KV layout, and the matmul
+        key."""
         phase = Phase.PREFILL if kind == "prefill" else Phase.DECODE
         target = self.enc.target.name
         # A verify or mixed window's M is slots x L, set per step: wide
@@ -428,7 +498,7 @@ class Engine:
         m = {"prefill": self.slots * self.max_seq, "decode": self.slots,
              "verify": self._window_m, "mixed": self._window_m}[kind]
         return (
-            registry_lib.attn_dispatch_key(phase, self._attn_s(phase), target),
+            registry_lib.attn_dispatch_key(phase, self._attn_s(phase), target, self.kv_quant),
             registry_lib.dispatch_key(QUANT_KEYS[self.enc.weight_quant], phase, m, target),
         )
 
@@ -579,7 +649,7 @@ class Engine:
             self.queue.remove(req)
             self._reserve_quota(req)
             s = free.pop(0)
-            if lead == len(shared) and lead > 0 and not self.cfg.sliding_window:
+            if lead == len(shared) and lead > 0 and self._suffix_ok:
                 suffix.append((s, req, plan, lead))
             else:
                 batch.append((s, req, plan))
@@ -623,7 +693,9 @@ class Engine:
     def _scatter_prefill(self, tmp: dict, batch) -> None:
         """Write every admitted request's non-shared prompt blocks from the
         temporary dense cache into their pool pages, in place: one gather and
-        one index_put_ per layer and K/V."""
+        one index_put_ per layer and K/V.  A kv8/kv4 pool takes the gathered
+        blocks quantized, with their scales written to the scale pages at
+        the same page ids."""
         bs = self.block_size
         ri, bi, pgs = [], [], []
         for i, (_, _r, plan) in enumerate(batch):
@@ -635,16 +707,20 @@ class Engine:
         if not pgs:
             return
         ria, bia, pga = (self._tensor(np.asarray(a, np.int64)) for a in (ri, bi, pgs))
+        layout = encoding.kv_layout(self.kv_quant)
         for pool, part in zip(self.caches["layers"], tmp["layers"]):
             for name in ("k", "v"):
                 nb, lpad, kvh, hd = part[name].shape
                 blocks = part[name].reshape(nb, lpad // bs, bs, kvh, hd)[ria, bia]
+                if layout.quantized:
+                    blocks, scales = layout.quantize(blocks)
+                    pool[f"{name}_scale"].index_put_((pga,), scales)
                 pool[name].index_put_((pga,), blocks)
 
     def _gather_prefix(self, tmp: dict, pages: list[int]) -> None:
         """Copy written pool pages into the leading rows of a one-row
         temporary dense cache, in place: the cached-prefix K/V a suffix
-        prefill attends."""
+        prefill attends.  bf16 pools only (_suffix_ok)."""
         n = len(pages)
         if not n:
             return
@@ -688,8 +764,8 @@ class Engine:
 
     def _refresh_tables(self) -> None:
         """Copy the host block table (narrowed to the live width) to the
-        device table every layer's cache shares."""
-        if not self._tables_dirty:
+        device table every layer's cache shares (paged caches only)."""
+        if self.cache_mode != "paged" or not self._tables_dirty:
             return
         table = self._tensor(self.block_table[:, : self._live_table_width()])
         for layer in self.caches["layers"]:
@@ -754,40 +830,24 @@ class Engine:
 
     @property
     def stats(self) -> dict:
-        astats = self.alloc.stats
+        """The JAX engine's stats, key for key (the resolved modes, KV layout
+        and config downgrades included), plus "dispatches": the dispatch
+        count per kind."""
         out = {
-            "cache_mode": "paged",
-            "decode_mode": "vectorized",
-            "sample": "greedy",
-            "kv_quant": "bf16",
+            "cache_mode": self.cache_mode,
+            "decode_mode": self.decode_mode,
+            "sample": self.config.sample,
+            "kv_quant": self.kv_quant,
             "weight_quant": self.enc.weight_quant,
             "attn_backend": registry_lib.select_attn(
                 phase=Phase.DECODE, s=self._attn_s(Phase.DECODE),
-                target=self.enc.target, requested=self.enc.attn_backend,
+                target=self.enc.target, requested=self.enc.attn_backend, kv=self.kv_quant,
             ).backend,
             "steps": self.step_count,
             "dispatches": dict(self.dispatches),
             "watchdog": self.watchdog.summary(),
             "lifecycle": dict(self.lifecycle),
             "degraded": [dict(d) for d in self.degraded],
-            **astats,
-            "pages_total": self.alloc.capacity,
-            "pages_in_use": self.alloc.in_use(),
-            "pages_free": self.alloc.available(),
-            "preemptions": self.preemptions,
-            "peak_active": self.peak_active,
-            "block_size": self.block_size,
-            "prefix_cache": {
-                "enabled": self.prefix_cache,
-                "hit_blocks": astats["hit_blocks"],
-                "hit_tokens": astats["hit_tokens"],
-                "lookup_blocks": astats["lookup_blocks"],
-                "hit_rate": (astats["hit_blocks"] / astats["lookup_blocks"]
-                             if astats["lookup_blocks"] else 0.0),
-                "evictions": astats["evictions"],
-                "cached_pages": astats["cached_pages"],
-                "deferred_hits": self.deferred_hits,
-            },
         }
         if self.config.downgrades:
             out["config_downgrades"] = list(self.config.downgrades)
@@ -801,6 +861,29 @@ class Engine:
             out["draft_k"] = self.draft_k
         if self.scheduler is not None:
             out["continuous"] = dict(self.continuous)
+        if self.cache_mode != "paged":
+            return out
+        astats = self.alloc.stats
+        out.update(astats)
+        out.update(
+            pages_total=self.alloc.capacity,
+            pages_in_use=self.alloc.in_use(),
+            pages_free=self.alloc.available(),
+            preemptions=self.preemptions,
+            peak_active=self.peak_active,
+            block_size=self.block_size,
+        )
+        out["prefix_cache"] = {
+            "enabled": self.prefix_cache,
+            "hit_blocks": astats["hit_blocks"],
+            "hit_tokens": astats["hit_tokens"],
+            "lookup_blocks": astats["lookup_blocks"],
+            "hit_rate": (astats["hit_blocks"] / astats["lookup_blocks"]
+                         if astats["lookup_blocks"] else 0.0),
+            "evictions": astats["evictions"],
+            "cached_pages": astats["cached_pages"],
+            "deferred_hits": self.deferred_hits,
+        }
         if self.tenant_quota is not None:
             out["prefix_cache"]["tenant_quota"] = self.tenant_quota
             out["prefix_cache"]["tenant_usage"] = self.alloc.tenant_usage()
@@ -816,7 +899,9 @@ class Engine:
 
     def audit(self) -> None:
         """Assert allocator/table consistency; pages held by a fault hook
-        count as one extra table."""
+        count as one extra table.  A dense cache has nothing to audit."""
+        if self.cache_mode != "paged":
+            return
         tables = [self.slot_pages[s] for s in range(self.slots) if self.slot_req[s] is not None]
         if self.hooks is not None and hasattr(self.hooks, "held_pages"):
             held = list(self.hooks.held_pages())
@@ -839,11 +924,12 @@ class Engine:
         self.slot_req[s] = None
         self.slot_pos[s] = 0  # freed rows decode (discarded) at pos 0
         self.slot_prefill_done[s] = 0
-        self._release_quota(req)
-        self.alloc.free_pages(self.slot_pages[s], owner=s, tenant=req.tenant)
-        self.slot_pages[s] = []
-        self.block_table[s, :] = paged_lib.SCRATCH_PAGE
-        self._tables_dirty = True
+        if self.cache_mode == "paged":
+            self._release_quota(req)
+            self.alloc.free_pages(self.slot_pages[s], owner=s, tenant=req.tenant)
+            self.slot_pages[s] = []
+            self.block_table[s, :] = paged_lib.SCRATCH_PAGE
+            self._tables_dirty = True
 
     def _commit_tokens(self, s: int, toks: list[int]) -> int:
         req = self.slot_req[s]
@@ -917,38 +1003,43 @@ class Engine:
                 continue
             if self._quota_blocked(req):
                 continue  # other tenants' work keeps flowing past a capped tenant
-            nblocks, shared = self.alloc.plan_prompt(req.prompt)
-            lead = 0
-            while lead in shared and self.alloc.is_written(shared[lead]):
-                lead += 1
-            if lead < len(shared) and self._defer_for_writer(req, lead):
-                continue
-            if getattr(req, "_defer_lead", None) is not None:
-                # Admitted after deferring: blocks the wait turned into shares.
-                self.deferred_hits += max(0, lead - req._defer_lead)
-                req._defer_lead = None
-            shared = {j: p for j, p in shared.items() if j < lead}
-            if not self.alloc.plan_fits(nblocks, shared):
-                break  # pool pressure: the head candidate waits
-            plan = self.alloc.commit_prompt(req.prompt, nblocks, shared, tenant=req.tenant)
-            if plan is None:
-                raise paged_lib.AllocatorInvariantError(
-                    "commit_prompt failed after plan_fits admitted the plan"
-                )
-            s = free.pop(0)
-            self.slot_pages[s] = list(plan.pages)
-            self.alloc.claim_owner(plan.pages, s)
-            self.block_table[s, :] = paged_lib.SCRATCH_PAGE
-            self.block_table[s, : len(plan.pages)] = plan.pages
-            self.slot_ticket[s] = self._ticket
-            self._ticket += 1
-            self._tables_dirty = True
-            self._reserve_quota(req)
+            done = 0
+            if self.cache_mode == "paged":
+                nblocks, shared = self.alloc.plan_prompt(req.prompt)
+                lead = 0
+                while lead in shared and self.alloc.is_written(shared[lead]):
+                    lead += 1
+                if lead < len(shared) and self._defer_for_writer(req, lead):
+                    continue
+                if getattr(req, "_defer_lead", None) is not None:
+                    # Admitted after deferring: blocks the wait turned into shares.
+                    self.deferred_hits += max(0, lead - req._defer_lead)
+                    req._defer_lead = None
+                shared = {j: p for j, p in shared.items() if j < lead}
+                if not self.alloc.plan_fits(nblocks, shared):
+                    break  # pool pressure: the head candidate waits
+                plan = self.alloc.commit_prompt(req.prompt, nblocks, shared, tenant=req.tenant)
+                if plan is None:
+                    raise paged_lib.AllocatorInvariantError(
+                        "commit_prompt failed after plan_fits admitted the plan"
+                    )
+                s = free.pop(0)
+                self.slot_pages[s] = list(plan.pages)
+                self.alloc.claim_owner(plan.pages, s)
+                self.block_table[s, :] = paged_lib.SCRATCH_PAGE
+                self.block_table[s, : len(plan.pages)] = plan.pages
+                self.slot_ticket[s] = self._ticket
+                self._ticket += 1
+                self._tables_dirty = True
+                done = lead * self.block_size
+                self._reserve_quota(req)
+            else:
+                s = free.pop(0)
             self.queue.remove(req)
             self.slot_req[s] = req
             req.status = "running"
-            self.slot_prefill_done[s] = lead * self.block_size
-            self.slot_pos[s] = lead * self.block_size
+            self.slot_prefill_done[s] = done
+            self.slot_pos[s] = done
             self.continuous["chunked_admissions"] += 1
 
     # A candidate declining unwritten prefix shares re-checks the tree for at
@@ -1053,7 +1144,7 @@ class Engine:
             st["proposed"] += scored
             st["accepted"] += used
             st["committed"] += got
-        if self.slot_req[s] is not None:
+        if self.cache_mode == "paged" and self.slot_req[s] is not None:
             self._truncate_slot_pages(s)
         return got
 
@@ -1117,7 +1208,7 @@ class Engine:
                     if k_cap > 0 and head > 1 else None)
             if plan is not None:
                 drafts = {s: d for s, d in plan[1].items() if d.size}
-            if drafts:
+            if drafts and self.cache_mode == "paged":
                 # Never preempt a live request for pages only drafts need.
                 need = sum(max(0, (start[s] + int(drafts[s].size)) // self.block_size
                                + 1 - len(self.slot_pages[s])) for s in drafts)
@@ -1133,8 +1224,9 @@ class Engine:
         if prefill_rows:
             remaining = {s: len(self.slot_req[s].prompt) - int(self.slot_prefill_done[s])
                          for s in prefill_rows}
-            order = sorted(prefill_rows, key=lambda s: (self.scheduler.rank(self.slot_req[s]),
-                                                        int(self.slot_ticket[s])))
+            order = sorted(prefill_rows, key=lambda s: (
+                self.scheduler.rank(self.slot_req[s]),
+                int(self.slot_ticket[s]) if self.cache_mode == "paged" else s))
             chunks = self.scheduler.split_chunks(decode_cost, remaining, order)
             chunks = {s: min(c, head) for s, c in chunks.items()}
 
@@ -1146,17 +1238,18 @@ class Engine:
             width = max(width, chunks[s])
         L = min(1 << (width - 1).bit_length(), head)
 
-        ends = {s: start[s] + int(drafts.get(s, empty).size) for s in decode_rows}
-        ends.update({s: start[s] + chunks[s] - 1 for s in prefill_rows})
-        self._ensure_pages(ends)
-        if any(self.slot_req[s] is None for s in active):
-            # Pool growth preempted someone: replan against the survivors.
-            return self._mixed_step()
-        self.peak_active = max(self.peak_active, len(active))
-        wb = max((start[s] + L - 1) // self.block_size + 1 for s in active)
-        if wb != self._window_blocks:
-            self._window_blocks = wb
-            self._tables_dirty = True
+        if self.cache_mode == "paged":
+            ends = {s: start[s] + int(drafts.get(s, empty).size) for s in decode_rows}
+            ends.update({s: start[s] + chunks[s] - 1 for s in prefill_rows})
+            self._ensure_pages(ends)
+            if any(self.slot_req[s] is None for s in active):
+                # Pool growth preempted someone: replan against the survivors.
+                return self._mixed_step()
+            self.peak_active = max(self.peak_active, len(active))
+            wb = max((start[s] + L - 1) // self.block_size + 1 for s in active)
+            if wb != self._window_blocks:
+                self._window_blocks = wb
+                self._tables_dirty = True
         self._refresh_tables()
 
         k_cols = 1 + self.draft_k if self.spec_decode else 1
@@ -1207,7 +1300,8 @@ class Engine:
                 done = int(self.slot_prefill_done[s]) + chunks[s]
                 self.slot_prefill_done[s] = done
                 self.slot_pos[s] = done
-                self.alloc.mark_written(self.slot_pages[s][: done // self.block_size])
+                if self.cache_mode == "paged":
+                    self.alloc.mark_written(self.slot_pages[s][: done // self.block_size])
                 if done >= len(req.prompt):
                     cont["completed_prefills"] += 1
                     emitted += self._commit_tokens(s, [int(tgt[s, 0])])
@@ -1243,32 +1337,97 @@ class Engine:
         if self.scheduler is not None:
             self._admit_budget()
             return self._mixed_step()
-        self._admit_paged()
+        if self.cache_mode == "paged":
+            self._admit_paged()
+        else:
+            self._admit_dense()
         active = [s for s in range(self.slots) if self.slot_req[s] is not None]
         if not active:
             return 0
         spec_plan = self._plan_drafts(active) if self.spec_decode else None
-        if spec_plan is not None and not self._draft_pages_fit(active, spec_plan[0]):
-            self.spec_stats["pool_deferred"] += 1
-            spec_plan = None
-        self._ensure_decode_pages(extra=(spec_plan[0] - 1) if spec_plan else 0)
-        # Decode growth may have preempted slots (requests requeued).
-        active = [s for s in range(self.slots) if self.slot_req[s] is not None]
-        if not active:
-            return 0
-        self.peak_active = max(self.peak_active, len(active))
+        if self.cache_mode == "paged":
+            if spec_plan is not None and not self._draft_pages_fit(active, spec_plan[0]):
+                self.spec_stats["pool_deferred"] += 1
+                spec_plan = None
+            self._ensure_decode_pages(extra=(spec_plan[0] - 1) if spec_plan else 0)
+            # Decode growth may have preempted slots (requests requeued).
+            active = [s for s in range(self.slots) if self.slot_req[s] is not None]
+            if not active:
+                return 0
+            self.peak_active = max(self.peak_active, len(active))
+            if spec_plan is not None:
+                L, drafts = spec_plan
+                drafts = {s: d for s, d in drafts.items() if s in active}
+                spec_plan = (L, drafts) if any(d.size for d in drafts.values()) else None
         self._refresh_tables()
         if spec_plan is not None:
-            L, drafts = spec_plan
-            drafts = {s: d for s, d in drafts.items() if s in active}
-            if any(d.size for d in drafts.values()):
-                return self._spec_step(active, L, drafts)
-        # Inactive rows decode token 0 at pos 0 against the scratch page.
+            return self._spec_step(active, *spec_plan)
         tokens = self._tensor(self._last_tokens(active))
-        pos = self._tensor(np.maximum(self.slot_pos.astype(np.int32) - 1, 0))
-        nxt, logits = self._dispatch("decode", self._decode, tokens, pos)
-        bad = self._guard_slots(logits, active)
-        return self._commit(active, nxt.cpu().numpy(), bad)
+        if self.decode_mode == "vectorized":
+            # Inactive rows decode token 0 at pos 0 (the scratch page of a
+            # paged cache; a dense row's slot 0, rewritten by its next prefill).
+            pos = self._tensor(np.maximum(self.slot_pos.astype(np.int32) - 1, 0))
+            nxt, logits = self._dispatch("decode", self._decode, tokens, pos, self.caches)
+            bad = self._guard_slots(logits, active)
+            return self._commit(active, nxt.cpu().numpy(), bad)
+        # Grouped decode: one dispatch per group of slots at the same
+        # position, over a copy of the whole cache at that shared position;
+        # only the group's rows merge back, so other rows' histories stay.
+        groups: dict[int, list[int]] = {}
+        for s in active:
+            groups.setdefault(int(self.slot_pos[s]), []).append(s)
+        emitted = 0
+        for p, group in groups.items():
+            part = slot_gather(self.caches, list(range(self.slots)))
+            nxt, logits = self._dispatch("decode", self._decode, tokens, p - 1, part)
+            slot_merge(self.caches, part, group)
+            bad = self._guard_slots(logits, group)
+            emitted += self._commit(group, nxt.cpu().numpy(), bad)
+        return emitted
+
+    # ---- dense admission -------------------------------------------------------------
+
+    def _admit_dense(self) -> None:
+        """Admission on the dense cache, FIFO into free slots.  Several
+        admissions prefill as ONE right-padded batch (padded to a power of
+        two, at most max_seq) through their own cache rows (slot_gather /
+        slot_merge): pad tokens write only slots the decode mask never reads
+        before a real token lands there.  A lone admission (or batch_prefill
+        off) prefills its exact prompt."""
+        free = [s for s in range(self.slots) if self.slot_req[s] is None]
+        batch: list[tuple[int, Request]] = []
+        while free and self.queue:
+            req = self.queue.popleft()
+            if req.max_new_tokens <= 0:
+                self._finish_degenerate(req)
+                continue
+            if req.cancel_requested or self._past_deadline(req):
+                self._admission_reap(req)
+                continue
+            batch.append((free.pop(0), req))
+        if not batch:
+            return
+        if self.batch_prefill and len(batch) > 1:
+            slots_sel = [s for s, _ in batch]
+            maxlen = max(len(r.prompt) for _, r in batch)
+            maxlen = min(1 << (maxlen - 1).bit_length(), self.max_seq)
+            toks = np.zeros((len(batch), maxlen), np.int32)
+            for i, (_, r) in enumerate(batch):
+                toks[i, : len(r.prompt)] = r.prompt
+            part = slot_gather(self.caches, slots_sel)
+            self._dispatch("prefill", self._prefill, self._tensor(toks), part)
+            slot_merge(self.caches, part, slots_sel, list(range(len(batch))))
+        else:
+            for s, r in batch:
+                part = slot_slice(self.caches, s)
+                toks = np.asarray(r.prompt, np.int32)[None]
+                self._dispatch("prefill", self._prefill, self._tensor(toks), part)
+                slot_merge(self.caches, part, [s], [0])
+        for s, r in batch:
+            self.slot_req[s] = r
+            r.status = "running"
+            self.slot_pos[s] = len(r.prompt)
+            self.slot_prefill_done[s] = len(r.prompt)
 
     def run(self) -> list[Request]:
         while self.queue or any(r is not None for r in self.slot_req):

@@ -12,13 +12,17 @@ bf16 allows about one bf16 ulp (2e-2).  The int8 (w8a8) kernels sum integers
 exactly and apply the same f32 epilogue: equal bit for bit.  The int4 (w4a8)
 kernels sum exact terms in float64, as their plain versions do, and round
 once: held to 3e-5 of the largest output, the bar of chip_smoke.py (they
-agree bit for bit where a row's group scales span less than 2**21)."""
+agree bit for bit where a row's group scales span less than 2**21).  The
+paged and dense decode kernels on kv8/kv4 caches dequantize exactly, so
+they keep the attention tolerances; through an identity page table the two
+kernels agree bit for bit."""
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import registry as cfg_registry
+from repro_torch.core import encoding
 from repro_torch.core.packed import EncodingConfig
 from repro_torch.kernels import attn
 from repro_torch.kernels import fused_gemv
@@ -110,23 +114,88 @@ def test_flash_prefill_kernel(dev, dtype, sq, sk, q_offset):
     torch.testing.assert_close(got, want, **_tol(dtype, False))
 
 
+def _kv_pages(dev, kv, dtype, *shape, seed):
+    """K or V rows of `shape` (.., KV, D) in the layout `kv`: (data, scales)."""
+    x = _rand(dev, torch.float32, *shape, seed=seed)
+    if kv == "bf16":
+        return x.to(dtype), None
+    return encoding.kv_layout(kv).quantize(x)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "kv8", "kv4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L", [1, 3, 16, 256])
-def test_paged_decode_kernel(dev, dtype, L):
+def test_paged_decode_kernel(dev, dtype, L, kv):
     """G = 4: L = 16 and 256 are 64 and 1024 query rows per (row, kv head),
-    several 32-row tiles of the kernel."""
+    several 32-row tiles of the kernel.  kv8/kv4 pools with their scale
+    pages (the dequantized operands are exact; only the order of the sums
+    differs)."""
     rng = np.random.RandomState(L)
-    b, h, kv, d, bs, pages = 3, 8, 2, 64, 16, 30
+    b, h, kvh, d, bs, pages = 3, 8, 2, 64, 16, 30
     nb = 8 + L // bs
     q = _rand(dev, dtype, b, L, h, d, seed=4)
-    k_pool = _rand(dev, dtype, pages, bs, kv, d, seed=5)
-    v_pool = _rand(dev, dtype, pages, bs, kv, d, seed=6)
+    k_pool, k_scale = _kv_pages(dev, kv, dtype, pages, bs, kvh, d, seed=5)
+    v_pool, v_scale = _kv_pages(dev, kv, dtype, pages, bs, kvh, d, seed=6)
     table = torch.from_numpy(rng.randint(1, pages, (b, nb)).astype(np.int32)).to(dev)
     table[1, :2] = table[0, :2]  # shared leading pages
     pos = torch.tensor([0, 37, nb * bs - L], dtype=torch.int32, device=dev)
-    got = attn.paged_decode_attention(q, k_pool, v_pool, table, pos)
-    want = attn.paged_decode_attention_plain(q, k_pool, v_pool, table, pos)
+    kw = dict(k_scale=k_scale, v_scale=v_scale, kv_quant=kv)
+    before = attn.paged_decode_attention.launches_by_kv[kv]
+    got = attn.paged_decode_attention(q, k_pool, v_pool, table, pos, **kw)
+    assert attn.paged_decode_attention.launches_by_kv[kv] == before + 1
+    want = attn.paged_decode_attention_plain(q, k_pool, v_pool, table, pos, **kw)
     torch.testing.assert_close(got, want, **_tol(dtype, False))
+
+
+@pytest.mark.parametrize("kv", ["bf16", "kv8", "kv4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,window,pos", [(1, 0, [0, 37, 1023]), (16, 0, [5, 300, 1008]),
+                                          (1, 0, 511), (1, 256, [37, 300, 900]),
+                                          (1, 1024, [37, 1500, 3000])])
+def test_dense_decode_kernel(dev, dtype, L, window, pos, kv):
+    """Full attention at ragged and scalar positions and L = 16 windows, and
+    ring caches (bf16/f32 only) at positions past the window: S_c = 1024
+    with a 256-slot window, and S_c = window = 1024 wrapped twice."""
+    if window and kv != "bf16":
+        pytest.skip("ring windows take unquantized caches only (as in the JAX kernel)")
+    b, h, kvh, d, s_c = 3, 8, 2, 64, 1024
+    q = _rand(dev, dtype, b, L, h, d, seed=7)
+    k, k_scale = _kv_pages(dev, kv, dtype, b, s_c, kvh, d, seed=8)
+    v, v_scale = _kv_pages(dev, kv, dtype, b, s_c, kvh, d, seed=9)
+    posv = (torch.tensor(pos, dtype=torch.int32, device=dev) if isinstance(pos, list)
+            else pos)
+    kw = dict(window=window, k_scale=k_scale, v_scale=v_scale, kv_quant=kv)
+    before = attn.dense_decode_attention.launches_by_kv[kv]
+    got = attn.dense_decode_attention(q, k, v, posv, **kw)
+    assert attn.dense_decode_attention.launches_by_kv[kv] == before + 1
+    want = attn.dense_decode_attention_plain(q, k, v, posv, **kw)
+    torch.testing.assert_close(got, want, **_tol(dtype, False))
+
+
+@pytest.mark.parametrize("kv,dtype", [("bf16", torch.bfloat16), ("bf16", torch.float32),
+                                      ("kv8", torch.bfloat16), ("kv4", torch.float32)])
+@pytest.mark.parametrize("L", [1, 16])
+def test_identity_table_paged_kernel_equals_dense_kernel(dev, kv, dtype, L):
+    """The two kernels share one body and split keys across warps the same
+    way: a pool whose pages are the dense cache's blocks, read through the
+    identity table, gives the dense kernel's output bit for bit."""
+    b, h, kvh, d, bs, nb = 4, 32, 8, 64, 16, 64
+    s_c = nb * bs
+    q = _rand(dev, dtype, b, L, h, d, seed=10)
+    k, k_scale = _kv_pages(dev, kv, dtype, b, s_c, kvh, d, seed=11)
+    v, v_scale = _kv_pages(dev, kv, dtype, b, s_c, kvh, d, seed=12)
+    pos = torch.tensor([37, 300, 511, s_c - L], dtype=torch.int32, device=dev)
+    table = torch.arange(b * nb, dtype=torch.int32, device=dev).reshape(b, nb)
+
+    def pages(a):
+        return None if a is None else a.reshape(b * nb, bs, *a.shape[2:])
+
+    dense = attn.dense_decode_attention(q, k, v, pos, k_scale=k_scale, v_scale=v_scale,
+                                        kv_quant=kv)
+    paged = attn.paged_decode_attention(q, pages(k), pages(v), table, pos,
+                                        k_scale=pages(k_scale), v_scale=pages(v_scale),
+                                        kv_quant=kv)
+    assert torch.equal(paged, dense)
 
 
 def _serve(params, cfg, enc, dev, prompts, max_new, **config):
@@ -134,7 +203,7 @@ def _serve(params, cfg, enc, dev, prompts, max_new, **config):
     for i, p in enumerate(prompts):
         eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=max_new))
     done = {r.uid: r.generated for r in eng.run()}
-    assert eng.stats["pages_in_use"] == 0 and not eng.stats["degraded"]
+    assert eng.stats.get("pages_in_use", 0) == 0 and not eng.stats["degraded"]
     return done, eng
 
 
@@ -279,3 +348,58 @@ def test_quantized_engine_kernels_match_plain_path(dev, wq, config):
     assert got == want
     gemv_ran, gemm_ran = (k.launches > b for k, b in zip(kernels, before))
     assert gemm_ran and (gemv_ran or config.get("slots", 4) > 8)  # > 8 slots: no GEMV rows
+
+
+# ---------------------------------------------------------------------------
+# Quantized KV pools and the dense cache
+
+
+@pytest.mark.parametrize("kv", ["kv8", "kv4"])
+@pytest.mark.parametrize("config", [dict(), dict(spec_decode=True, draft_k=4),
+                                    dict(token_budget=16)])
+def test_quantized_kv_engine_kernels_match_cpu(dev, kv, config):
+    """The reduced f32 model on kv8/kv4 pools, served through the kernels
+    on the card, emits the tokens of the same engine on the CPU (the plain
+    versions, with the same weights)."""
+    cfg = cfg_registry.get_reduced("llama3.2-1b")
+    params = T.model_init(cfg, EncodingConfig(), seed=0, device="cpu")
+    rng = np.random.RandomState(3)
+    prompts = [np.tile(rng.randint(1, cfg.vocab_size, 4), n).astype(np.int32)
+               for n in (3, 8, 5, 2)]
+    prompts += [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (5, 17, 30)]
+    config = dict(dict(slots=4, max_seq=96, block_size=8, kv_quant=kv), **config)
+    enc = EncodingConfig(backend="auto", attn_backend="auto")
+    want, _ = _serve(params, cfg, enc, "cpu", prompts, 8, **config)
+    before = attn.paged_decode_attention.launches_by_kv[kv]
+    got, _ = _serve(_to(params, dev), cfg, enc, dev, prompts, 8, **config)
+    assert got == want
+    assert attn.paged_decode_attention.launches_by_kv[kv] > before
+
+
+@pytest.mark.parametrize("config", [dict(cache_mode="dense"), dict(decode_mode="grouped"),
+                                    dict(cache_mode="dense", spec_decode=True, draft_k=4),
+                                    dict(cache_mode="dense", token_budget=16)])
+def test_dense_engine_kernels_match_plain_path(dev, config):
+    """The reduced model on the dense cache, served through the kernels,
+    emits the tokens of the plain phase-split engine on the card."""
+    cfg = cfg_registry.get_reduced("llama3.2-1b")
+    params = T.model_init(cfg, EncodingConfig(), seed=0, device=dev)
+    rng = np.random.RandomState(4)
+    prompts = [np.tile(rng.randint(1, cfg.vocab_size, 4), n).astype(np.int32)
+               for n in (3, 8, 5, 2, 6, 4)]
+    want, _ = _serve(params, cfg, EncodingConfig(backend="reference", attn_backend="xla"),
+                     dev, prompts, 10, slots=4, max_seq=96, block_size=8)
+    before = attn.dense_decode_attention.launches
+    got, eng = _serve(params, cfg, EncodingConfig(backend="auto", attn_backend="auto"), dev,
+                      prompts, 10, max_seq=96, **config)
+    assert got == want and eng.stats["cache_mode"] == "dense"
+    assert attn.dense_decode_attention.launches > before
+
+
+def _to(tree, dev):
+    """A copy of a parameter tree on `dev`."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree

@@ -5,7 +5,9 @@ preemption and prefix-cache counts, on a mixed-length trace, a shared-prefix
 trace that runs the suffix prefill, and a small-pool trace that preempts.
 Also the port's registry keys, quarantine, lifecycle, the speculative,
 token-budget and many-slot configurations against the JAX engine, and the
-slices it refuses."""
+slices it refuses (temperature sampling, meshes).  The quantized KV pools
+and the dense cache are held against the JAX engine in
+tests/test_torch_kvquant.py and tests/test_torch_dense.py."""
 
 import numpy as np
 import pytest
@@ -232,9 +234,7 @@ def test_engine_lifecycle(model):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(cache_mode="dense"), "dense"),
     (dict(sample="temperature"), "temperature"),
-    (dict(kv_quant="kv8"), "kv8"),
     (dict(mesh_shape=(2,)), "tensor parallelism"),
 ])
 def test_engine_refuses_later_slices(model, kw, match):

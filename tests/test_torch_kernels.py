@@ -239,11 +239,3 @@ def test_paged_decode_idle_slot_on_scratch_page_is_finite():
     table = torch.zeros(2, 3, dtype=torch.int32)
     out = attn.paged_decode_attention(q, pool, pool, table, torch.zeros(2, dtype=torch.int32))
     assert torch.isfinite(out).all()
-
-
-def test_paged_decode_quantized_kv_waits_for_its_slice():
-    q = torch.zeros(1, 1, 4, 16)
-    pool = torch.zeros(2, 4, 1, 16)
-    with pytest.raises(NotImplementedError, match="kv8"):
-        attn.paged_decode_attention(q, pool, pool, torch.zeros(1, 1, dtype=torch.int32),
-                                    torch.zeros(1, dtype=torch.int32), kv_quant="kv8")
