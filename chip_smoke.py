@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. build   every csrc/*.cu kernel with nvcc for sm_90a (one process per
              source, all started together) and print the card's name and
              power limit;
-  2. kernels each of the eleven kernels against its plain PyTorch version
+  2. kernels each of the fourteen kernels against its plain PyTorch version
              at the full-width Llama-3.2-1B shapes the serving runs give it
              (the packed mmt4d GEMM at verify/mixed/many-slot decode rows
              and prefill slabs, the packed GEMV at 1-8 rows, paged decode
@@ -28,7 +28,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
              bf16, f32, kv8 and kv4 caches (S_c = 1024, L = 1 and 16) and on
              a wrapped 256-slot ring, SDPA on the dequantized view as the
              yardstick, and the paged kernel through an identity table
-             against the dense kernel, bit for bit;
+             against the dense kernel, bit for bit; then pack and unpack at
+             the weight packs of load, the packed routes' activation packs
+             and their output unpacks, bit for bit, permute().contiguous()
+             as the yardstick; batch_mmt4d (no serving path calls it) at an
+             attention scores and a context shape in f32 and bf16, einsum as
+             the yardstick; and the sampler: its (4, 128256) bits, uniforms
+             and sampled rows on the card equal to the CPU's for three keys,
+             a chi-square test of its frequencies, its launches and
+             device busy time;
   3. forward a depth-2, full-width f32 model served through the kernels and
              through the plain backends on the card: identical tokens, for
              the phase-split engine and for speculative decode (registry
@@ -41,6 +49,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
              engines on the plain attention, the dense cache (vectorized,
              grouped, spec, budget) against the plain phase-split engine,
              and kv4 pools on the card against the same engine on the CPU;
+             then temperature sampling (0.7 on half the requests, 0 on the
+             others; paged vectorized and dense grouped): kernel tokens ==
+             plain tokens, and temperature-0 requests == the greedy engine;
   4. serve   the full-depth, full-width bf16 Llama-3.2-1B (random weights from
              --seed): 8 requests, half sharing a 256-token prefix so the second
              wave runs the suffix prefill;
@@ -58,14 +69,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
              kv8 speculative decode on phase 5's tiled prompts) and on the
              dense cache (phase 4's trace, vectorized and grouped decode),
              with tokens/s, step p50/p99 by kind, prefix write-skip hits,
-             pool bytes per cached token and peak memory.
+             pool bytes per cached token and peak memory;
+  8. sampled the same bf16 model on phase 4's trace, greedy and with
+             sample="temperature" (0.8 on half the requests, 0 on the
+             others) in turns: tokens/s, decode p50/p99 and p50 as a
+             multiple of the greedy run's; the temperature-0 requests must
+             emit the greedy run's tokens.
 
-In phases 4 to 7 every kernel's launch count (per KV layout for the decode
+In phases 4 to 8 every kernel's launch count (per KV layout for the decode
 kernels), set to 0 before each run and read after it, must equal the
 dispatches that resolved to it (tallied here from each dispatch's rows,
 weight format, cache and KV layout, and the registry) x layers x (7
-projections or 1 attention), and every kernel of the table must have
-launched in these runs.
+projections or 1 attention; a packed projection kernel adds a pack and an
+unpack), and every kernel of the table but batch_mmt4d must have launched
+in these runs.  Every model made on the card must launch one weight pack
+per projection weight (two for int4: codes and scales).
 
 The third line from the end is the kernel table as JSON, the next the card's
 name and power limit, and the last {"ok": true, "device": {...}}.  Details go
@@ -104,6 +122,9 @@ REPLACES = {
     "paged_decode_attention_kv8": "src/repro/kernels/attn.py:163",
     "paged_decode_attention_kv4": "src/repro/kernels/attn.py:163",
     "dense_decode_attention": "src/repro/kernels/attn.py:321",
+    "pack": "src/repro/kernels/pack.py:36",
+    "unpack": "src/repro/kernels/pack.py:66",
+    "batch_mmt4d": "src/repro/kernels/batch_mmt4d.py:58",
 }
 SOURCES = {
     "fused_gemv": "src/repro_torch/csrc/fused_gemv.cu",
@@ -119,6 +140,9 @@ SOURCES = {
     "paged_decode_attention_kv8": "src/repro_torch/csrc/paged_decode.cu",
     "paged_decode_attention_kv4": "src/repro_torch/csrc/paged_decode.cu",
     "dense_decode_attention": "src/repro_torch/csrc/dense_decode.cu",
+    "pack": "src/repro_torch/csrc/pack.cu",
+    "unpack": "src/repro_torch/csrc/pack.cu",
+    "batch_mmt4d": "src/repro_torch/csrc/batch_mmt4d.cu",
 }
 # Table name -> (decode kernel, KV layout) of the per-layout launch counts.
 LAYOUT_ROWS = {
@@ -144,7 +168,18 @@ HEADLINE = {
     "paged_decode_attention_kv8": "kv8 bf16 B=4 L=1",
     "paged_decode_attention_kv4": "kv4 bf16 B=4 L=1",
     "dense_decode_attention": "bf16 B=4 S_c=1024 L=1",
+    "pack": "bf16 (4, 2048) tile (4, 128)",
+    "unpack": "f32 (1, 64, 4, 128) -> (4, 8192)",
+    "batch_mmt4d": "f32 scores (128, 8, 1, 16, 64) x (128, 8, 1, 16, 64)",
 }
+# batch_mmt4d is the one kernel no serving path launches: as in the JAX
+# package it completes the microkernel library (IREE's short-sequence
+# attention products); the model's attention runs the flash and decode
+# kernels.  Phase 2 checks it against its plain version.
+NOT_ON_SERVING_PATHS = ("batch_mmt4d",)
+# The packed projection kernels: a dispatch routed to one of them packs its
+# activation rows and unpacks its output through the pack kernels.
+PACKED_MATMULS = ("mmt4d", "mmt4d_gemv", "mmt4d_q8", "mmt4d_q4")
 # The projection kernel each matmul backend resolves to, per weight format
 # (registry quant name): (at decode with at most GEMV_MAX_ROWS rows, else).
 MATMUL_KERNELS = {
@@ -596,6 +631,172 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
     return identity
 
 
+def check_pack_kernels(torch, dev, target, timer, results: dict) -> None:
+    """Phase 2, the pack and unpack kernels at the serving shapes, bit for
+    bit against ref.pack / ref.unpack: the weight packs at load ((8192,
+    2048) bf16 and int8 at (128, 128), the int4 scales (8192, 128) bf16 at
+    (128, 8)), the activation packs of the packed routes (4 decode rows at
+    M0 = 4, a 20-row int8 verify window at M0 = 8, 300 prefill rows at M0 =
+    128) and the output unpacks to (300, 8192) and (4, 8192) f32.  The
+    library yardstick is the permute(...).contiguous() copy on the padded
+    operand (the pad is made outside the timing); the bound counts each
+    byte the function must read and write once.  Then batch_mmt4d at an
+    attention scores shape and a context shape, f32 and bf16, against its
+    plain version, torch.einsum timed as the yardstick."""
+    from repro_torch.kernels import batch_mmt4d, pack
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def raw(t):
+        return t.contiguous().view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+            t.element_size()])
+
+    def data(dtype, *shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return (x * 40).round().clamp(-127, 127).to(dtype) if dtype == torch.int8 else x.to(dtype)
+
+    names = {torch.bfloat16: "bf16", torch.int8: "int8", torch.float32: "f32"}
+    for dtype, (r, c), (t0, t1) in (
+            (torch.bfloat16, (8192, 2048), (128, 128)), (torch.int8, (8192, 2048), (128, 128)),
+            (torch.bfloat16, (8192, 128), (128, 8)), (torch.bfloat16, (4, 2048), (4, 128)),
+            (torch.int8, (20, 2048), (8, 128)), (torch.bfloat16, (300, 2048), (128, 128))):
+        x = data(dtype, r, c)
+        r1, c1 = -(-r // t0), -(-c // t1)
+        padded = torch.nn.functional.pad(x.float(), (0, c1 * t1 - c, 0, r1 * t0 - r)).to(dtype)
+        same = torch.equal(raw(pack.pack(x, (t0, t1))), raw(pack.pack_plain(x, (t0, t1))))
+        e = x.element_size()
+        add_row(results, target, "pack", f"{names[dtype]} ({r}, {c}) tile ({t0}, {t1})",
+                err=0.0 if same else float("inf"), tol=0.0,
+                ms=timer.ms(lambda: pack.pack(x, (t0, t1))),
+                plain_ms=timer.ms(lambda: pack.pack_plain(x, (t0, t1))),
+                library_ms=timer.ms(lambda: padded.reshape(r1, t0, c1, t1).permute(
+                    0, 2, 1, 3).contiguous()),
+                bytes_moved=r * c * e + r1 * c1 * t0 * t1 * e, flops=0, dname=names[dtype])
+    for m, m0 in ((300, 128), (4, 4)):
+        m1 = -(-m // m0)
+        y = data(torch.float32, m1, 64, m0, 128)
+        same = torch.equal(raw(pack.unpack(y, (m, 8192))), raw(pack.unpack_plain(y, (m, 8192))))
+        add_row(results, target, "unpack", f"f32 ({m1}, 64, {m0}, 128) -> ({m}, 8192)",
+                err=0.0 if same else float("inf"), tol=0.0,
+                ms=timer.ms(lambda: pack.unpack(y, (m, 8192))),
+                plain_ms=timer.ms(lambda: pack.unpack_plain(y, (m, 8192)).contiguous()),
+                library_ms=timer.ms(lambda: y.permute(0, 2, 1, 3).reshape(m1 * m0, 8192)[:m]),
+                bytes_moved=2 * m * 8192 * 4, flops=0, dname="f32")
+
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        s = 2 if dname == "bf16" else 4
+        for label, (b, m1, n1, k1, m0, n0, k0) in (("scores", (128, 8, 8, 1, 16, 16, 64)),
+                                                   ("context", (128, 8, 4, 2, 16, 16, 64))):
+            lhs = data(dtype, b, m1, k1, m0, k0)
+            rhs = data(dtype, b, n1, k1, n0, k0)
+            got = batch_mmt4d.batch_mmt4d(lhs, rhs)
+            want = batch_mmt4d.batch_mmt4d_plain(lhs, rhs)
+            m, n, k = m1 * m0, n1 * n0, k1 * k0
+            add_row(results, target, "batch_mmt4d",
+                    f"{dname} {label} {tuple(lhs.shape)} x {tuple(rhs.shape)}",
+                    err=(got - want).abs().max().item(),
+                    tol=1e-4 + 1e-5 * want.abs().max().item(),
+                    ms=timer.ms(lambda: batch_mmt4d.batch_mmt4d(lhs, rhs)),
+                    plain_ms=timer.ms(lambda: batch_mmt4d.batch_mmt4d_plain(lhs, rhs)),
+                    library_ms=timer.ms(lambda: torch.einsum("zmkac,znkbc->zmnab", lhs, rhs)),
+                    bytes_moved=b * (m * k + n * k) * s + b * m * n * 4,
+                    flops=2 * b * m * n * k, dname=dname)
+    torch.cuda.synchronize()
+
+
+def profiled(torch, fn) -> tuple[int, float] | tuple[None, None]:
+    """(device kernels and copies one call of `fn` launches, the sum of their
+    durations in ms: device busy time), by torch.profiler; (None, None)
+    where the profiler records no device activity."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        return None, None
+    return len(device), sum(e.time_range.elapsed_us() for e in device) / 1e3
+
+
+def check_sampler(torch, dev, timer) -> dict:
+    """Phase 2, the sampler (plain PyTorch, JAX's key stream): the (4,
+    128256) random bits on the card equal the CPU's for three keys, and so
+    do the uniforms and the sampled rows; a chi-square test of 20000 draws
+    at V = 8 against softmax(l / T) (threshold 24.32, 7 degrees of freedom
+    at p = 0.001); and, at the serving shape, its launches and device busy
+    time (profiler) beside the time between CUDA events around one call,
+    which the host's launch overhead bounds."""
+    import numpy as np
+
+    from repro_torch.serving import sampling
+
+    shape = (4, 128256)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    temp = torch.tensor([0.8, 0.0, 0.8, 0.0], device=dev)
+    for seed, step in ((0, 0), (9, 3), (12345, 100000)):
+        key = sampling.fold_in(sampling.prng_key(seed), step)
+        bits = torch.equal(sampling.random_bits(key, shape, dev).cpu(),
+                           sampling.random_bits(key, shape))
+        u_dev = sampling.uniform(key, shape, minval=sampling.TINY, device=dev).cpu()
+        u_cpu = sampling.uniform(key, shape, minval=sampling.TINY)
+        uni = torch.equal(u_dev.view(torch.int32), u_cpu.view(torch.int32))
+        logits = 4 * torch.randn(shape, generator=gen, device=dev)
+        rows = torch.equal(sampling.sample_rows(logits, temp, key).cpu(),
+                           sampling.sample_rows(logits.cpu(), temp.cpu(), key))
+        log(f"[sampler] key {key}: bits card == CPU {bits}, uniforms {uni}, sampled rows {rows}")
+        if not (bits and uni and rows):
+            raise AssertionError(f"sampler on the card differs from the CPU for key {key}")
+    logits = torch.tensor([1.0, 0.5, 0.0, -0.5, 2.0, -1.0, 0.25, 1.5], device=dev)
+    n, t = 20000, 0.7
+    draws = sampling.sample_rows(logits.expand(n, -1), torch.full((n,), t, device=dev),
+                                 sampling.fold_in(sampling.prng_key(5), 0))
+    counts = torch.bincount(draws, minlength=8).double().cpu()
+    expect = n * torch.softmax(logits.double().cpu() / t, dim=0)
+    chi2 = float(((counts - expect) ** 2 / expect).sum())
+    log(f"[sampler] chi-square of {n} draws at V=8, T={t}: {chi2:.3f} (threshold 24.32)")
+    if not chi2 < 24.32:
+        raise AssertionError(f"sampler frequencies off: chi2 {chi2}, counts {counts.tolist()}")
+    logits = torch.randn(shape, generator=gen, device=dev)
+    key = sampling.fold_in(sampling.prng_key(0), 1)
+    temps = np.array([0.8, 0.0, 0.8, 0.0], np.float32)
+
+    def step():  # what a sampled decode step adds: the temperatures' copy, the sampler
+        return sampling.sample_rows(logits, torch.from_numpy(temps).to(dev), key)
+
+    launches, busy_ms = profiled(torch, step)
+    out = {"chi2": chi2, "launches": launches, "busy_ms": busy_ms,
+           "event_ms": timer.ms(step, flush=False),
+           "argmax_ms": timer.ms(lambda: torch.argmax(logits, dim=-1), flush=False)}
+    log(f"[sampler] (4, 128256) sampled step: {launches} device launches, device busy "
+        f"{busy_ms} ms, {out['event_ms']:.4f} ms between CUDA events around the call "
+        f"(greedy argmax {out['argmax_ms']:.4f} ms)")
+    return out
+
+
+def init_model(cfg, enc, seed: int, dev):
+    """T.model_init on the card, where every projection weight is packed by
+    the pack kernel (int4 packs its codes and its scales): its launches must
+    equal the weights made, 7 x layers (+1 for an untied head), doubled
+    for int4."""
+    from repro_torch.kernels import pack
+    from repro_torch.models import transformer as T
+
+    before = pack.pack.launches
+    params = T.model_init(cfg, enc, seed=seed, device=dev)
+    weights = 7 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
+    want = weights * (2 if enc.weight_quant == "int4" else 1)
+    got = pack.pack.launches - before
+    if got != want:
+        raise AssertionError(f"model init ({enc.weight_quant} weights): {got} pack launches, "
+                             f"tallied {want}")
+    log(f"[init] {cfg.name} depth {cfg.num_layers} {enc.weight_quant} weights: {got} pack "
+        f"launches == tallied")
+    return params
+
+
 def forward_check(torch, dev, seed: int) -> dict:
     """Phase 3: depth-2, full-width f32 model; one batched prefill and 8
     decode steps through the kernels and through the plain backends; then
@@ -605,13 +806,12 @@ def forward_check(torch, dev, seed: int) -> dict:
 
     from repro_torch.configs import registry as cfg_registry
     from repro_torch.core.packed import EncodingConfig
-    from repro_torch.models import transformer as T
     from repro_torch.serving import engine as engine_lib
     from repro_torch.serving.config import EngineConfig
 
     cfg = dataclasses.replace(cfg_registry.get_config("llama3.2-1b"), num_layers=2,
                               dtype="float32")
-    params = T.model_init(cfg, EncodingConfig(), seed=seed, device=dev)
+    params = init_model(cfg, EncodingConfig(), seed, dev)
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (100, 37, 250, 180)]
     outs = {}
@@ -689,7 +889,6 @@ def quant_forward_check(torch, dev, seed: int) -> dict:
 
     from repro_torch.configs import registry as cfg_registry
     from repro_torch.core.packed import EncodingConfig
-    from repro_torch.models import transformer as T
     from repro_torch.serving import engine as engine_lib
     from repro_torch.serving.config import EngineConfig
 
@@ -702,7 +901,7 @@ def quant_forward_check(torch, dev, seed: int) -> dict:
     kernels = kernel_fns()
     outs = {}
     for wq in ("int8", "int4"):
-        params = T.model_init(cfg, EncodingConfig(weight_quant=wq), seed=seed, device=dev)
+        params = init_model(cfg, EncodingConfig(weight_quant=wq), seed, dev)
         for label, backend, config in (("phase-split", "fused", dict(slots=4)),
                                        ("spec", "auto", dict(slots=4, spec_decode=True,
                                                              draft_k=4))):
@@ -750,13 +949,12 @@ def kv_forward_check(torch, dev, seed: int) -> dict:
     from repro_torch.configs import registry as cfg_registry
     from repro_torch.core.packed import EncodingConfig
     from repro_torch.kernels import attn
-    from repro_torch.models import transformer as T
     from repro_torch.serving import engine as engine_lib
     from repro_torch.serving.config import EngineConfig
 
     cfg = dataclasses.replace(cfg_registry.get_config("llama3.2-1b"), num_layers=2,
                               dtype="float32")
-    params = T.model_init(cfg, EncodingConfig(), seed=seed, device=dev)
+    params = init_model(cfg, EncodingConfig(), seed, dev)
     rng = np.random.RandomState(seed + 3)
     prompts = [np.tile(rng.randint(1, cfg.vocab_size, 16), 12)[:n].astype(np.int32)
                for n in (48, 80, 112, 144)]
@@ -832,6 +1030,59 @@ def kv_forward_check(torch, dev, seed: int) -> dict:
     return outs
 
 
+def sampled_forward_check(torch, dev, seed: int) -> dict:
+    """Phase 3, temperature sampling: the depth-2, full-width f32 model
+    sampled at temperature 0.7 on half the requests and 0 on the others,
+    paged vectorized and dense grouped decode: the kernels' tokens equal the
+    plain backends' (the same logits within f32 rounding, the same key
+    stream), and the temperature-0 requests equal the greedy engine's."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+
+    cfg = dataclasses.replace(cfg_registry.get_config("llama3.2-1b"), num_layers=2,
+                              dtype="float32")
+    params = init_model(cfg, EncodingConfig(), seed, dev)
+    rng = np.random.RandomState(seed + 4)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (100, 37, 250, 180, 64, 20)]
+    temps = [0.7 if i % 2 == 0 else 0.0 for i in range(len(prompts))]
+    kernels = EncodingConfig(backend="fused", attn_backend="auto")
+    plain = EncodingConfig(backend="reference", attn_backend="xla")
+    outs = {}
+    for mode, config in (("vectorized", dict()), ("grouped", dict(decode_mode="grouped"))):
+        got = {}
+        for label, enc, sample in (("kernels", kernels, "temperature"),
+                                   ("plain", plain, "temperature"),
+                                   ("greedy", kernels, "greedy")):
+            eng = engine_lib.Engine(params, cfg, enc, device=dev, config=EngineConfig(
+                slots=4, max_seq=512, block_size=16, sample=sample, seed=seed, **config))
+            for i, (p, t) in enumerate(zip(prompts, temps)):
+                eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=8, temperature=t))
+            got[label] = {r.uid: r.generated for r in eng.run()}
+            st = eng.stats
+            if st["degraded"] or st.get("pages_in_use", 0) or st["decode_mode"] != mode:
+                raise AssertionError(f"sampled {mode} {label}: {st['decode_mode']} degraded "
+                                     f"{st['degraded']} pages {st.get('pages_in_use')}")
+        if got["kernels"] != got["plain"]:
+            raise AssertionError(f"sampled {mode}: kernel tokens {got['kernels']} differ from "
+                                 f"the plain backends' {got['plain']}")
+        cold = [i for i, t in enumerate(temps) if t == 0]
+        if any(got["kernels"][i] != got["greedy"][i] for i in cold):
+            raise AssertionError(f"sampled {mode}: temperature-0 requests differ from greedy")
+        moved = sum(got["kernels"][i] != got["greedy"][i] for i, t in enumerate(temps) if t > 0)
+        log(f"[forward] depth-2 f32 sampled {mode}: kernel tokens == plain tokens; temperature-0 "
+            f"requests == greedy; {moved} of {len(temps) - len(cold)} sampled requests left "
+            f"the greedy stream")
+        outs[mode] = got["kernels"]
+    del params
+    torch.cuda.empty_cache()
+    return outs
+
+
 def _to_device(tree, device):
     """A copy of a parameter tree on `device`."""
     import torch
@@ -862,8 +1113,8 @@ class LayoutLaunches:
 def kernel_fns() -> dict:
     """The kernel wrappers by table name, each with its launch count (the
     decode kernels' per KV layout)."""
-    from repro_torch.kernels import (attn, fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv,
-                                     mmt4d_q4, mmt4d_q8)
+    from repro_torch.kernels import (attn, batch_mmt4d, fused_gemv, fused_pack_mmt4d, mmt4d,
+                                     mmt4d_gemv, mmt4d_q4, mmt4d_q8, pack)
 
     decode = {"paged": attn.paged_decode_attention, "dense": attn.dense_decode_attention}
     fns = {
@@ -876,6 +1127,9 @@ def kernel_fns() -> dict:
         "mmt4d_q8": mmt4d_q8.mmt4d_q8,
         "fused_gemv_q4": mmt4d_q4.fused_gemv_q4,
         "mmt4d_q4": mmt4d_q4.mmt4d_q4,
+        "pack": pack.pack,
+        "unpack": pack.unpack,
+        "batch_mmt4d": batch_mmt4d.batch_mmt4d,
     }
     fns.update({name: LayoutLaunches(decode[cache], kv)
                 for name, (cache, kv) in LAYOUT_ROWS.items()})
@@ -891,7 +1145,7 @@ class DispatchTally:
     verify or mixed window), the weight format and the registry decide which
     kernel its 7 projections and its attention resolve to, as kernels/ops.py
     and models/layers.py route them; each adds layers launches per
-    projection.
+    projection; a packed projection kernel adds one pack and one unpack.
     Each step's watchdog duration is kept under the kinds it dispatched
     (verify and mixed windows with their width L)."""
 
@@ -934,7 +1188,10 @@ class DispatchTally:
             rows = int(args[0].numel())
             mm_kernel, at_kernel = routed(kind, rows)
             out = dispatch(kind, fn, *args)
-            for kernel, n in ((mm_kernel, 7 * layers), (at_kernel, layers)):
+            launched = [(mm_kernel, 7 * layers), (at_kernel, layers)]
+            if mm_kernel in PACKED_MATMULS:  # its rows packed, its output unpacked
+                launched += [("pack", 7 * layers), ("unpack", 7 * layers)]
+            for kernel, n in launched:
                 if kernel is not None:
                     self.want[kernel] += n
                     self.by_kind[(kind, kernel)] += n
@@ -1070,12 +1327,11 @@ def serve_windows(torch, dev, seed: int) -> dict:
 
     from repro_torch.configs import registry as cfg_registry
     from repro_torch.core.packed import EncodingConfig
-    from repro_torch.models import transformer as T
     from repro_torch.serving import engine as engine_lib
 
     cfg = cfg_registry.get_config("llama3.2-1b")
     auto = EncodingConfig(backend="auto", attn_backend="auto")
-    params = T.model_init(cfg, auto, seed=seed, device=dev)
+    params = init_model(cfg, auto, seed, dev)
     rng = np.random.RandomState(seed + 1)
     vocab = cfg.vocab_size
     runs = {}
@@ -1142,7 +1398,6 @@ def serve(torch, dev, seed: int) -> dict:
 
     from repro_torch.configs import registry as cfg_registry
     from repro_torch.core.packed import EncodingConfig
-    from repro_torch.models import transformer as T
     from repro_torch.serving import engine as engine_lib
     from repro_torch.serving.config import EngineConfig
 
@@ -1150,7 +1405,7 @@ def serve(torch, dev, seed: int) -> dict:
     enc = EncodingConfig(backend="fused", attn_backend="auto")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = T.model_init(cfg, enc, seed=seed, device=dev)
+    params = init_model(cfg, enc, seed, dev)
     torch.cuda.synchronize()
     log(f"[serve] init {cfg.name} ({cfg.dtype}) in {time.perf_counter() - t0:.1f}s")
     eng = engine_lib.Engine(params, cfg, enc,
@@ -1220,7 +1475,7 @@ def serve_quantized(torch, dev, seed: int) -> dict:
         fused = EncodingConfig(backend="fused", attn_backend="auto", weight_quant=wq)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params = T.model_init(cfg, fused, seed=seed, device=dev)
+        params = init_model(cfg, fused, seed, dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         stream = T.decode_weight_stream_bytes(cfg, fused)
@@ -1264,12 +1519,11 @@ def serve_kv(torch, dev, seed: int) -> dict:
 
     from repro_torch.configs import registry as cfg_registry
     from repro_torch.core.packed import EncodingConfig
-    from repro_torch.models import transformer as T
 
     cfg = cfg_registry.get_config("llama3.2-1b")
     vocab = cfg.vocab_size
     fused = EncodingConfig(backend="fused", attn_backend="auto")
-    params = T.model_init(cfg, fused, seed=seed, device=dev)
+    params = init_model(cfg, fused, seed, dev)
     runs = {}
     for label, config in (("bf16 phase4", dict(slots=4)),
                           ("kv8 phase4", dict(slots=4, kv_quant="kv8")),
@@ -1301,6 +1555,65 @@ def serve_kv(torch, dev, seed: int) -> dict:
                  "dense_decode_attention"):
         if not sum(r["launches"][name] for r in runs.values()):
             raise AssertionError(f"phase 7: {name} never launched")
+    return runs
+
+
+def serve_sampled(torch, dev, seed: int, sampler: dict) -> dict:
+    """Phase 8: full width and depth, bf16, phase 4's 8 shared-prefix
+    requests served greedy and with sample="temperature" (0.8 on the even
+    requests, 0 on the odd ones), in turns greedy, sampled, sampled, greedy,
+    each run's launches equal to its tally.  The temperature-0 requests
+    must emit the greedy run's tokens; decode step p50 is reported as a
+    multiple of the greedy runs', beside the sampler's launches and device
+    busy time a step (phase 2's `sampler`)."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.serving import engine as engine_lib
+
+    cfg = cfg_registry.get_config("llama3.2-1b")
+    fused = EncodingConfig(backend="fused", attn_backend="auto")
+    params = init_model(cfg, fused, seed, dev)
+    prompts = shared_prefix_prompts(np.random.RandomState(seed), cfg.vocab_size)
+    temps = [0.8 if i % 2 == 0 else 0.0 for i in range(len(prompts))]
+
+    def drive(eng):
+        for i, (p, t) in enumerate(zip(prompts, temps)):
+            if not eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=32,
+                                                 temperature=t)):
+                raise AssertionError(f"request {i} rejected")
+        return eng.run()
+
+    runs, tokens = {}, {}
+    for label, sample in (("greedy A", "greedy"), ("sampled A", "temperature"),
+                          ("sampled B", "temperature"), ("greedy B", "greedy")):
+        eng, runs[label] = counted_run(torch, dev, params, cfg, fused,
+                                       dict(slots=4, sample=sample, seed=seed), drive, label,
+                                       "sampled")
+        tokens[label] = {r.uid: r.generated for r in eng.finished}
+        runs[label]["sample"] = eng.stats["sample"]
+        runs[label]["key_draws"] = eng._step_idx
+    if tokens["greedy A"] != tokens["greedy B"] or tokens["sampled A"] != tokens["sampled B"]:
+        raise AssertionError("phase 8: a repeated run emitted other tokens")
+    cold = [i for i, t in enumerate(temps) if t == 0]
+    same = all(tokens["sampled A"][i] == tokens["greedy A"][i] for i in cold)
+    moved = sum(tokens["sampled A"][i] != tokens["greedy A"][i]
+                for i, t in enumerate(temps) if t > 0)
+    log(f"[sampled] temperature-0 requests == greedy run's tokens: {same}; {moved} of "
+        f"{len(temps) - len(cold)} sampled requests left the greedy stream")
+    if not same:
+        raise AssertionError("phase 8: temperature-0 requests differ from the greedy run")
+    p50 = {k: v["step_ms"]["decode"]["p50_ms"] for k, v in runs.items()}
+    for pair in ("A", "B"):
+        runs[f"sampled {pair}"]["p50_vs_greedy"] = p50[f"sampled {pair}"] / p50[f"greedy {pair}"]
+    log(f"[sampled] decode p50 sampled / greedy: A {runs['sampled A']['p50_vs_greedy']:.3f}, "
+        f"B {runs['sampled B']['p50_vs_greedy']:.3f}; key draws per run "
+        f"{runs['sampled A']['key_draws']} (one per decode dispatch); the sampler adds "
+        f"{sampler['launches']} launches and {sampler['busy_ms']} ms of device busy time a "
+        f"step (phase 2)")
+    del params
+    torch.cuda.empty_cache()
     return runs
 
 
@@ -1349,21 +1662,25 @@ def main() -> int:
     check_kernels(torch, dev, targets.H100, timer, results)
     check_quant_kernels(torch, dev, targets.H100, timer, results)
     identity = check_decode_kernels(torch, dev, targets.H100, timer, results)
+    check_pack_kernels(torch, dev, targets.H100, timer, results)
+    sampler = check_sampler(torch, dev, timer)
     log(f"[kernel] checks done in {time.perf_counter() - t0:.1f}s")
     del timer
     torch.cuda.empty_cache()
     forward_check(torch, dev, args.seed)
     quant_forward_check(torch, dev, args.seed)
     kv_forward_check(torch, dev, args.seed)
+    sampled_forward_check(torch, dev, args.seed)
     served = serve(torch, dev, args.seed)
     windows = serve_windows(torch, dev, args.seed)
     quant = serve_quantized(torch, dev, args.seed)
     kv = serve_kv(torch, dev, args.seed)
+    sampled = serve_sampled(torch, dev, args.seed, sampler)
     launches = {name: served["launches"][name]
-                + sum(r["launches"][name]
-                      for r in (*windows.values(), *quant.values(), *kv.values()))
+                + sum(r["launches"][name] for r in (*windows.values(), *quant.values(),
+                                                    *kv.values(), *sampled.values()))
                 for name in REPLACES}
-    idle = [name for name, n in launches.items() if n == 0]
+    idle = [name for name, n in launches.items() if n == 0 and name not in NOT_ON_SERVING_PATHS]
     if idle:
         raise AssertionError(f"kernels never launched on the serving paths: {idle}")
 
@@ -1381,8 +1698,9 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kind": kind, "build_s": build_s, "kernels": results,
-                   "identity": identity, "serve": served, "windows": windows, "quant": quant,
-                   "kv": kv, "table": table}, f, indent=1)
+                   "identity": identity, "sampler": sampler, "serve": served,
+                   "windows": windows, "quant": quant, "kv": kv, "sampled": sampled,
+                   "table": table}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,11 +10,12 @@ through the registry to one of:
     backend="fused"     : the CUDA kernels with pack/unpack inside them: the
                           GEMV for decode with at most GEMV_MAX_ROWS rows, the
                           GEMM otherwise
-    backend="pallas"    : plain pack, the packed CUDA kernels, plain unpack:
-                          the packed GEMV (csrc/mmt4d_gemv.cu) for decode
-                          with one packed row block, the packed GEMM
-                          (csrc/mmt4d.cu) otherwise -- the paper's two
-                          microkernels, as in repro/kernels/ops.py
+    backend="pallas"    : the pack kernel (csrc/pack.cu), the packed CUDA
+                          kernels, the unpack kernel: the packed GEMV
+                          (csrc/mmt4d_gemv.cu) for decode with one packed
+                          row block, the packed GEMM (csrc/mmt4d.cu)
+                          otherwise -- the paper's two microkernels, as in
+                          repro/kernels/ops.py
 
 The decode routing comes from the CUDA GEMV's own needs, not from the TPU's
 VMEM plan: the kernel streams the weight from device memory and stages at
@@ -30,6 +31,14 @@ decode with at most GEMV_MAX_ROWS rows takes the int8 or int4 GEMV
 "fused" otherwise, pack the rows and take the packed q8 or q4 GEMM
 (csrc/mmt4d_q8.cu, csrc/mmt4d_q4.cu); "xla" takes the plain oracle
 (ref.mmt4d_q8 / ref.mmt4d_q4), the registry's fallback for these quants.
+
+Every pack and unpack outside the oracle goes through kernels/pack.py (the
+pack and unpack kernels on a CUDA tensor, ref.pack / ref.unpack on the
+CPU): the weight packs at load (pack_rhs, pack_rhs_q8, pack_rhs_q4), and
+the activation pack and output unpack of the packed routes.  JAX's ops
+path packs and unpacks with its plain ref there; both are exact
+relayouts, so the tokens are the same.  The "xla" and "reference" routes
+keep ref.pack / ref.unpack.
 """
 
 from __future__ import annotations
@@ -39,12 +48,14 @@ import torch.nn.functional as F
 
 from repro_torch.core import encoding
 from repro_torch.core import targets as targets_lib
+from repro_torch.kernels import batch_mmt4d as batch_mmt4d_lib
 from repro_torch.kernels import fused_gemv as fused_gemv_lib
 from repro_torch.kernels import fused_pack_mmt4d as fused_lib
 from repro_torch.kernels import mmt4d as mmt4d_lib
 from repro_torch.kernels import mmt4d_gemv as gemv_lib
 from repro_torch.kernels import mmt4d_q4 as q4_lib
 from repro_torch.kernels import mmt4d_q8 as q8_lib
+from repro_torch.kernels import pack as pack_lib
 from repro_torch.kernels import ref
 from repro_torch.kernels import registry
 
@@ -56,7 +67,7 @@ BACKENDS = ("reference", "xla", "pallas", "fused", "auto")
 def pack_rhs(w_t: torch.Tensor, *, tiles: encoding.TileSizes | None = None) -> torch.Tensor:
     """Pack a transposed weight (N, K) into (N1, K1, N0, K0).  One-time cost."""
     tiles = tiles or encoding.select_tile_sizes(Phase.PREFILL)
-    return ref.pack(w_t, (tiles.n0, tiles.k0))
+    return pack_lib.pack(w_t, (tiles.n0, tiles.k0))
 
 
 def encoded_matmul(
@@ -89,6 +100,16 @@ def encoded_matmul(
         w_t = ref.unpack(rhs4, (n, k1 * k0))[:, :k]
         out = ref.matmul_reference(x2d, w_t)
         return out.to(out_dtype).reshape(*lead, n)
+    if backend == "pallas":  # pack -> packed kernel -> unpack, each a kernel
+        if -(-k // k0) != k1:  # the pack zero-fills x's last K tile, not tiles past it
+            x2d = F.pad(x2d, (0, k1 * k0 - k))
+        m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
+        lhs4 = pack_lib.pack(x2d, (m0, k0))
+        if phase is Phase.DECODE and lhs4.shape[0] == 1:
+            out4 = gemv_lib.mmt4d_gemv(lhs4, rhs4)
+        else:
+            out4 = mmt4d_lib.mmt4d(lhs4, rhs4)
+        return pack_lib.unpack(out4, (m, n)).to(out_dtype).reshape(*lead, n)
     if k != k1 * k0:  # K padding lives in the packed weight; mirror it on lhs.
         x2d = F.pad(x2d, (0, k1 * k0 - k))
     if backend == "fused":
@@ -96,15 +117,9 @@ def encoded_matmul(
             out2d = fused_gemv_lib.fused_gemv(x2d, rhs4)
         else:
             out2d = fused_lib.fused_pack_mmt4d(x2d, rhs4)
-    else:  # "xla" and "pallas": pack -> mmt4d -> unpack
+    else:  # "xla", the oracle: plain pack -> mmt4d -> unpack
         m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
-        lhs4 = ref.pack(x2d, (m0, k0))
-        if backend == "xla":
-            out4 = ref.mmt4d(lhs4, rhs4)
-        elif phase is Phase.DECODE and lhs4.shape[0] == 1:
-            out4 = gemv_lib.mmt4d_gemv(lhs4, rhs4)
-        else:
-            out4 = mmt4d_lib.mmt4d(lhs4, rhs4)
+        out4 = ref.mmt4d(ref.pack(x2d, (m0, k0)), rhs4)
         out2d = ref.unpack(out4, (m, n1 * n0))
     return out2d[:, :n].to(out_dtype).reshape(*lead, n)
 
@@ -134,8 +149,8 @@ def pack_rhs_q4(w_t: torch.Tensor, *, group: int = ref.Q4_GROUP
         raise ValueError(f"group {group} must divide the K0 tile {encoding.PACK_TILE}")
     q, s = ref.quantize_rows_q4_grouped(w_t, group=group)
     t = encoding.PACK_TILE
-    rhs4 = ref.pack(q, (t, t))
-    s_w4 = ref.pack(s, (t, t // group)).to(torch.bfloat16)
+    rhs4 = pack_lib.pack(q, (t, t))
+    s_w4 = pack_lib.pack(s.to(torch.bfloat16), (t, t // group))
     return ref.pack_nibbles(rhs4), s_w4
 
 
@@ -152,11 +167,12 @@ def _quantized_rows(x: torch.Tensor, k_packed: int) -> tuple[torch.Tensor, torch
 
 
 def _packed_rows(xq: torch.Tensor, s_a: torch.Tensor, phase: Phase,
-                 k0: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pack int8 rows at select_tile_sizes's M0; pad rows get scale 0."""
+                 k0: int, pack=pack_lib.pack) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack int8 rows at select_tile_sizes's M0 (`pack`: the kernel route's,
+    or ref.pack for the oracle); pad rows get scale 0."""
     m = xq.shape[0]
     m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
-    lhs4 = ref.pack(xq, (m0, k0))
+    lhs4 = pack(xq, (m0, k0))
     m1 = lhs4.shape[0]
     return lhs4, F.pad(s_a, (0, m1 * m0 - m)).reshape(m1, m0)
 
@@ -176,13 +192,12 @@ def encoded_matmul_q8(x: torch.Tensor, rhs4_q: torch.Tensor, s_w: torch.Tensor, 
                               requested=backend).backend
     if backend == "fused" and phase is Phase.DECODE and m <= encoding.GEMV_MAX_ROWS:
         out2d = fused_gemv_lib.fused_gemv_q8(xq, rhs4_q, s_a[:, None], s_w)
-    else:
+    elif backend == "xla":
+        lhs4, sa2 = _packed_rows(xq, s_a, phase, k0, ref.pack)
+        out2d = ref.unpack(ref.mmt4d_q8(lhs4, rhs4_q, sa2, s_w), (m, n1 * n0))
+    else:  # "pallas", and "fused" outside the GEMV's rows
         lhs4, sa2 = _packed_rows(xq, s_a, phase, k0)
-        if backend == "xla":
-            out4 = ref.mmt4d_q8(lhs4, rhs4_q, sa2, s_w)
-        else:  # "pallas", and "fused" outside the GEMV's rows
-            out4 = q8_lib.mmt4d_q8(lhs4, rhs4_q, sa2, s_w)
-        out2d = ref.unpack(out4, (m, n1 * n0))
+        out2d = pack_lib.unpack(q8_lib.mmt4d_q8(lhs4, rhs4_q, sa2, s_w), (m, n))
     return out2d[:, :n].to(out_dtype).reshape(*lead, n)
 
 
@@ -203,11 +218,17 @@ def encoded_matmul_q4(x: torch.Tensor, rhs4_p: torch.Tensor, s_w4: torch.Tensor,
                               requested=backend).backend
     if backend == "fused" and phase is Phase.DECODE and m <= encoding.GEMV_MAX_ROWS:
         out2d = q4_lib.fused_gemv_q4(xq, rhs4_p, s_a[:, None], s_w4, group)
-    else:
+    elif backend == "xla":
+        lhs4, sa2 = _packed_rows(xq, s_a, phase, k0, ref.pack)
+        out2d = ref.unpack(ref.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group), (m, n1 * n0))
+    else:  # "pallas", and "fused" outside the GEMV's rows
         lhs4, sa2 = _packed_rows(xq, s_a, phase, k0)
-        if backend == "xla":
-            out4 = ref.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group)
-        else:  # "pallas", and "fused" outside the GEMV's rows
-            out4 = q4_lib.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group)
-        out2d = ref.unpack(out4, (m, n1 * n0))
+        out2d = pack_lib.unpack(q4_lib.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group), (m, n))
     return out2d[:, :n].to(out_dtype).reshape(*lead, n)
+
+
+# The counterparts' names in the JAX package (repro/kernels/ops.py re-exports
+# pack_pallas and unpack_pallas; batch_mmt4d_pallas is repro/kernels/batch_mmt4d.py's).
+pack_pallas = pack_lib.pack
+unpack_pallas = pack_lib.unpack
+batch_mmt4d_pallas = batch_mmt4d_lib.batch_mmt4d

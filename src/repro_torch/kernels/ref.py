@@ -40,6 +40,12 @@ def mmt4d(lhs4: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
     return torch.einsum("mkac,nkbc->mnab", lhs4.float(), rhs4.float())
 
 
+def batch_mmt4d(lhs5: torch.Tensor, rhs5: torch.Tensor) -> torch.Tensor:
+    """linalg.batch_mmt4d: lhs (B,M1,K1,M0,K0) x rhs (B,N1,K1,N0,K0) ->
+    (B,M1,N1,M0,N0) f32, accumulated in f32 (repro's batch_mmt4d_ref)."""
+    return torch.einsum("zmkac,znkbc->zmnab", lhs5.float(), rhs5.float())
+
+
 def matmul_reference(lhs: torch.Tensor, rhs_t: torch.Tensor) -> torch.Tensor:
     """The un-encoded baseline: plain (M, K) x (N, K)^T contraction in f32."""
     return lhs.float() @ rhs_t.float().t()

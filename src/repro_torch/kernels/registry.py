@@ -31,8 +31,8 @@ that fails on int4 pages does not quarantine the bf16 path.
 
 Backend names keep the JAX vocabulary.  For matmul: "reference" (un-encoded
 torch.matmul), "xla" (plain pack + mmt4d + unpack), "fused" (the CUDA GEMV
-at decode, the CUDA GEMM otherwise) and "pallas" (plain pack, the packed
-CUDA mmt4d GEMV for one decode row block or the packed mmt4d GEMM, plain
+at decode, the CUDA GEMM otherwise) and "pallas" (the CUDA pack, the packed
+CUDA mmt4d GEMV for one decode row block or the packed mmt4d GEMM, the CUDA
 unpack).  For the quantized keys (w8a8, w4a8): "fused" (the int8 or int4
 CUDA GEMV at decode with at most 8 rows, the packed q8 or q4 GEMM
 otherwise), "pallas" (the packed q8 or q4 GEMM) and "xla" (their plain

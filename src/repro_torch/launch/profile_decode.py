@@ -11,7 +11,9 @@ do not overlap), the idle share, kernel launches per step, and device time
 by kernel name.  Writes the table to chiprun_out/profile_decode.json.
 --quant w8a8 | w4a8 (with --quant-group) profiles int8 or int4 weights;
 --kv-quant kv8 | kv4 profiles a quantized KV pool (quantize-on-write and the
-decode kernel's int8 / nibble path).
+decode kernel's int8 / nibble path); --sample temperature samples every
+request at --temperature (the sampler's elementwise ops and the copy of the
+temperatures join each step).
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--quant", default="none", choices=sorted(QUANT_KEYS.values()))
     ap.add_argument("--quant-group", dest="quant_group", type=int, default=16)
     ap.add_argument("--kv-quant", dest="kv_quant", default="bf16", choices=encoding.KV_QUANTS)
+    ap.add_argument("--sample", default="greedy", choices=["greedy", "temperature"])
+    ap.add_argument("--temperature", type=float, default=0.8)
     args = ap.parse_args(argv)
 
     dev = T.resolve_device("cuda")
@@ -52,12 +56,13 @@ def main(argv: list[str] | None = None) -> dict:
     params = T.model_init(cfg, enc, seed=args.seed, device=dev)
     eng = engine_lib.Engine(params, cfg, enc,
                             config=EngineConfig(slots=4, max_seq=1024, block_size=16,
-                                                kv_quant=args.kv_quant),
+                                                kv_quant=args.kv_quant, sample=args.sample),
                             device=dev)
     rng = np.random.RandomState(args.seed)
     for i in range(4):
         prompt = rng.randint(1, cfg.vocab_size, args.prompt_len).astype(np.int32)
-        eng.submit(engine_lib.Request(uid=i, prompt=prompt, max_new_tokens=args.steps + 4))
+        eng.submit(engine_lib.Request(uid=i, prompt=prompt, max_new_tokens=args.steps + 4,
+                                      temperature=args.temperature))
     for _ in range(3):  # prefill + first decode steps, outside the window
         eng.step()
     torch.cuda.synchronize()
@@ -84,6 +89,7 @@ def main(argv: list[str] | None = None) -> dict:
         "card": torch.cuda.get_device_name(0),
         "quant": args.quant,
         "kv_quant": args.kv_quant,
+        "sample": args.sample,
         "steps": args.steps,
         "host_ms_per_step": step_ms,
         "device_busy_ms_per_step": busy_ms,
@@ -95,7 +101,8 @@ def main(argv: list[str] | None = None) -> dict:
             key=lambda r: -r["ms_per_step"],
         ),
     }
-    print(f"[profile] {out['card']} ({args.quant}, {args.kv_quant}): {args.steps} decode steps, host {step_ms:.3f} ms/step, "
+    print(f"[profile] {out['card']} ({args.quant}, {args.kv_quant}, {args.sample}): "
+          f"{args.steps} decode steps, host {step_ms:.3f} ms/step, "
           f"device busy {busy_ms:.3f} ms/step, idle share {out['device_idle_share']:.3f}, "
           f"{out['kernel_launches_per_step']:.0f} kernel launches/step")
     if not by_name:

@@ -17,7 +17,10 @@ kernels; the run prints the weight bytes each decode step streams.
 float32 scale pages (the run prints the pool bytes per cached token);
 --cache-mode dense serves from the dense (slots, max_seq) cache through the
 dense decode kernel, and --decode-mode grouped decodes one group of slots at
-the same position per dispatch (on the dense cache).
+the same position per dispatch (on the dense cache).  --sample temperature
+samples every request at --temperature (0.8 by default; 0 keeps a request
+greedy) with JAX's Threefry-2x32 noise from --seed; it switches spec decode
+and the token budget off, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -77,6 +80,11 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     ap.add_argument("--decode-mode", dest="decode_mode", default="vectorized",
                     choices=["vectorized", "grouped"],
                     help="one decode dispatch per step, or one per position group")
+    ap.add_argument("--sample", default="greedy", choices=["greedy", "temperature"],
+                    help="temperature: per-request temperature sampling (a key per "
+                         "decode dispatch; disables --spec-decode and --token-budget)")
+    ap.add_argument("--temperature", type=float, default=0.8,
+                    help="per-request sampling temperature (--sample temperature)")
     args = ap.parse_args(argv)
 
     config = EngineConfig.from_args(args)
@@ -95,7 +103,8 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
         plen = rng.randint(args.prompt_len // 2, args.prompt_len + 1)
         prompt = rng.randint(1, cfg.vocab_size, size=plen).astype(np.int32)
         eng.submit(engine_lib.Request(uid=i, prompt=prompt, max_new_tokens=args.max_new,
-                                      slo_class=args.slo_class))
+                                      slo_class=args.slo_class,
+                                      temperature=args.temperature))
     done = eng.run()
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
@@ -111,7 +120,7 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     kv_bytes = encoding.kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
                                            itemsize=itemsize, kv_quant=stats["kv_quant"])
     print(f"[serve] cache={stats['cache_mode']} decode={stats['decode_mode']} "
-          f"kv={stats['kv_quant']} ({kv_bytes} bytes per cached token) "
+          f"kv={stats['kv_quant']} ({kv_bytes} bytes per cached token) sample={stats['sample']} "
           f"downgrades={stats.get('config_downgrades', [])}")
     wb = T.decode_weight_stream_bytes(cfg, enc)
     print(f"[serve] weights streamed per decode step ({args.quant}): projections "

@@ -58,8 +58,17 @@ through every step kind; their dispatches key the registry as w8a8 / w4a8.
 Attention dispatches key it with the cache width and the KV layout
 (attn|phase|S-bucket[|kv8|kv4]|target).
 
-Not in this slice (each raises NotImplementedError at construction, naming
-its ROADMAP slice): temperature sampling and meshes larger than one card.
+Temperature sampling (sample="temperature"): every decode dispatch draws
+one fresh key, fold_in(PRNGKey(seed), dispatch index), and each row with
+Request.temperature > 0 samples softmax(logits / temperature) through the
+JAX engine's Threefry-2x32 Gumbel noise, reproduced bit for bit
+(serving/sampling.py); rows at temperature <= 0 stay greedy.  resolve()
+switches spec decode and the token budget off under sampling, as in JAX.
+A preempted sampled request replays with fresh keys, so sampled engines
+under pool pressure are not replay-deterministic.
+
+Not in this slice (raises NotImplementedError at construction, naming its
+ROADMAP slice): meshes larger than one card.
 """
 
 from __future__ import annotations
@@ -80,6 +89,7 @@ from repro_torch.models import transformer as T
 from repro_torch.runtime import watchdog as watchdog_lib
 from repro_torch.serving import faults as faults_lib
 from repro_torch.serving import paged as paged_lib
+from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving import spec as spec_lib
 from repro_torch.serving.config import EngineConfig
 
@@ -111,6 +121,9 @@ class Request:
     enqueued_step: int | None = None
     # Tenant for per-tenant page-quota accounting (EngineConfig.tenant_quota).
     tenant: str = "default"
+    # Sampling temperature (engines built with sample="temperature" only;
+    # <= 0 means greedy for this request inside a sampled batch).
+    temperature: float = 1.0
 
     def cancel(self) -> None:
         """Ask the engine to drop this request at the next step boundary (and
@@ -222,8 +235,6 @@ def slot_merge(caches: dict, part: dict, slots_sel: list[int],
 
 def _check_supported(config: EngineConfig, enc: EncodingConfig) -> None:
     todo = []
-    if config.sample != "greedy":
-        todo.append("temperature sampling (ROADMAP: temperature sampling)")
     if config.mesh_devices > 1:
         todo.append("mesh_shape > 1 (ROADMAP: tensor parallelism)")
     if todo:
@@ -301,6 +312,12 @@ class Engine:
         # prefills; "decode", "verify", "mixed"): each runs every layer once,
         # so kernel launches are these counts times layers times projections.
         self.dispatches: collections.Counter[str] = collections.Counter()
+
+        # Temperature sampling: one key per decode dispatch, folded from the
+        # base key by a dispatch counter (the JAX engine's _step_idx).
+        self.sample = config.sample
+        self._base_key = sampling_lib.prng_key(config.seed)
+        self._step_idx = 0
 
         self.draft_k = int(config.draft_k)
         self.spec_decode = bool(config.spec_decode)
@@ -462,13 +479,32 @@ class Engine:
         T.forward(self.params, tokens, cfg=self.cfg, enc=self.enc, phase=Phase.PREFILL,
                   caches=caches, pos=pos, last_logits_only=True)
 
-    def _decode(self, tokens: torch.Tensor, pos: torch.Tensor | int, caches: dict):
-        """One greedy token for every row of `caches`: (next (B,) int, logits
-        (B, V)).  `pos` is (B,) (vectorized) or an int shared by every row
-        (grouped decode)."""
+    def _decode(self, tokens: torch.Tensor, pos: torch.Tensor | int, caches: dict,
+                temp: torch.Tensor | None = None,
+                key: sampling_lib.Key | None = None):
+        """One token for every row of `caches`: (next (B,) int, logits (B, V)).
+        `pos` is (B,) (vectorized) or an int shared by every row (grouped
+        decode).  Greedy, or with `temp` (B,) and `key` (sample="temperature")
+        sampled per row as JAX's decode_sampled does."""
         logits = T.forward(self.params, tokens, cfg=self.cfg, enc=self.enc,
                            phase=Phase.DECODE, caches=caches, pos=pos)[:, -1]
-        return torch.argmax(logits, dim=-1), logits
+        if temp is None:
+            return torch.argmax(logits, dim=-1), logits
+        return sampling_lib.sample_rows(logits, temp, key), logits
+
+    def _sample_args(self, slots_sel: list[int]) -> tuple:
+        """The (temp, key) extras of one decode dispatch: () for a greedy
+        engine; else a fresh key per dispatch and each slot's request
+        temperature (0 for slots outside `slots_sel`), as JAX's
+        _sample_args."""
+        if self.sample != "temperature":
+            return ()
+        key = sampling_lib.fold_in(self._base_key, self._step_idx)
+        self._step_idx += 1
+        temp = np.zeros(self.slots, np.float32)
+        for s in slots_sel:
+            temp[s] = self.slot_req[s].temperature
+        return torch.from_numpy(temp).to(self.device), key
 
     def _window(self, tokens: torch.Tensor, pos: torch.Tensor,
                 logits_idx: torch.Tensor | None = None) -> torch.Tensor:
@@ -1367,7 +1403,8 @@ class Engine:
             # Inactive rows decode token 0 at pos 0 (the scratch page of a
             # paged cache; a dense row's slot 0, rewritten by its next prefill).
             pos = self._tensor(np.maximum(self.slot_pos.astype(np.int32) - 1, 0))
-            nxt, logits = self._dispatch("decode", self._decode, tokens, pos, self.caches)
+            nxt, logits = self._dispatch("decode", self._decode, tokens, pos, self.caches,
+                                         *self._sample_args(active))
             bad = self._guard_slots(logits, active)
             return self._commit(active, nxt.cpu().numpy(), bad)
         # Grouped decode: one dispatch per group of slots at the same
@@ -1379,7 +1416,8 @@ class Engine:
         emitted = 0
         for p, group in groups.items():
             part = slot_gather(self.caches, list(range(self.slots)))
-            nxt, logits = self._dispatch("decode", self._decode, tokens, p - 1, part)
+            nxt, logits = self._dispatch("decode", self._decode, tokens, p - 1, part,
+                                         *self._sample_args(group))
             slot_merge(self.caches, part, group)
             bad = self._guard_slots(logits, group)
             emitted += self._commit(group, nxt.cpu().numpy(), bad)

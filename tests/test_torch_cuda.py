@@ -15,7 +15,10 @@ once: held to 3e-5 of the largest output, the bar of chip_smoke.py (they
 agree bit for bit where a row's group scales span less than 2**21).  The
 paged and dense decode kernels on kv8/kv4 caches dequantize exactly, so
 they keep the attention tolerances; through an identity page table the two
-kernels agree bit for bit."""
+kernels agree bit for bit.  The pack and unpack kernels copy bytes: equal
+bit for bit.  batch_mmt4d sums the same exact products in another order
+(rtol 1e-5, atol 1e-4).  The sampler's integer bits, and so its uniforms,
+are the same on the card and the CPU."""
 
 import numpy as np
 import pytest
@@ -23,16 +26,21 @@ import torch
 
 from repro_torch.configs import registry as cfg_registry
 from repro_torch.core import encoding
+from repro_torch.core import packed as packed_lib
+from repro_torch.core.encoding import Phase
 from repro_torch.core.packed import EncodingConfig
 from repro_torch.kernels import attn
+from repro_torch.kernels import batch_mmt4d
 from repro_torch.kernels import fused_gemv
 from repro_torch.kernels import fused_pack_mmt4d
 from repro_torch.kernels import mmt4d
 from repro_torch.kernels import mmt4d_gemv
 from repro_torch.kernels import mmt4d_q4
 from repro_torch.kernels import mmt4d_q8
+from repro_torch.kernels import pack
 from repro_torch.models import transformer as T
 from repro_torch.serving import engine as engine_lib
+from repro_torch.serving import sampling
 from repro_torch.serving.config import EngineConfig
 
 pytestmark = pytest.mark.cuda
@@ -403,3 +411,133 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+# ---------------------------------------------------------------------------
+# pack / unpack, batch_mmt4d, the sampler
+
+
+def _bits(dev, dtype, *shape, seed=0):
+    """Random values of every bit pattern a dtype holds (NaNs included for
+    floats: the kernels copy bytes and must not care)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    size = torch.empty((), dtype=dtype).element_size()
+    raw = torch.randint(-(2 ** (8 * size - 1)), 2 ** (8 * size - 1), shape, generator=g,
+                        device=dev, dtype={1: torch.int8, 2: torch.int16, 4: torch.int32}[size])
+    return raw.view(dtype)
+
+
+def _raw(t):
+    size = t.element_size()
+    return t.contiguous().view({1: torch.int8, 2: torch.int16, 4: torch.int32}[size])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8, torch.uint8])
+@pytest.mark.parametrize("shape,tile", [((256, 512), (128, 128)), ((300, 200), (128, 128)),
+                                        ((4, 200), (8, 128)), ((130, 13), (128, 8)),
+                                        ((256, 128), (128, 8)), ((37, 100), (16, 64)),
+                                        ((5, 7), (2, 4))])
+def test_pack_unpack_kernels(dev, dtype, shape, tile):
+    """Every element size, the port's tiles and ragged edges (the 16-byte
+    chunk path and the per-element path), bit for bit."""
+    x = _bits(dev, dtype, *shape)
+    before = (pack.pack.launches, pack.unpack.launches)
+    got = pack.pack(x, tile)
+    assert pack.pack.launches == before[0] + 1
+    assert torch.equal(_raw(got), _raw(pack.pack_plain(x, tile)))
+    for crop in (shape, (max(1, shape[0] - 1), max(1, shape[1] - 3))):
+        back = pack.unpack(got, crop)
+        assert back.is_contiguous() and torch.equal(_raw(back), _raw(pack.unpack_plain(got, crop)))
+    assert pack.unpack.launches == before[1] + 2
+
+
+def test_pack_kernel_takes_unaligned_views(dev):
+    x = _bits(dev, torch.bfloat16, 65, 264)[1:, 3:259]  # neither contiguous nor aligned
+    got = pack.pack(x, (16, 64))
+    assert torch.equal(_raw(got), _raw(pack.pack_plain(x, (16, 64))))
+    y4 = _bits(dev, torch.float32, 4097)[1:].reshape(2, 2, 8, 128)  # 4-byte offset
+    assert torch.equal(_raw(pack.unpack(y4, (13, 250))), _raw(pack.unpack_plain(y4, (13, 250))))
+
+
+def test_pack_kernels_check_operands(dev):
+    with pytest.raises(TypeError, match="4-byte"):
+        pack.pack(torch.zeros(4, 4, dtype=torch.float64, device=dev), (2, 2))
+    with pytest.raises(ValueError, match="cannot give"):
+        pack.unpack(torch.zeros(1, 1, 2, 2, device=dev), (3, 2))
+    with pytest.raises(ValueError, match="M0\\*N0"):
+        batch_mmt4d.batch_mmt4d(torch.zeros(1, 1, 1, 64, 8, device=dev),
+                                torch.zeros(1, 1, 1, 64, 8, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 2, 3, 16, 8, 8), (3, 4, 2, 8, 32, 16),
+                                   (128, 8, 1, 16, 16, 64), (128, 8, 2, 16, 16, 64)])
+def test_batch_mmt4d_kernel(dev, dtype, shape):
+    """The JAX test's shapes and the attention score / context shapes."""
+    bsz, m1, k1, m0, n0, k0 = shape
+    lhs = _rand(dev, dtype, bsz, m1, k1, m0, k0, seed=1)
+    rhs = _rand(dev, dtype, bsz, m1 + 1, k1, n0, k0, seed=2)
+    before = batch_mmt4d.batch_mmt4d.launches
+    got = batch_mmt4d.batch_mmt4d(lhs, rhs)
+    assert batch_mmt4d.batch_mmt4d.launches == before + 1
+    torch.testing.assert_close(got, batch_mmt4d.batch_mmt4d_plain(lhs, rhs), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+@pytest.mark.parametrize("wq", ["none", "int8", "int4"])
+def test_packed_routes_launch_pack_kernels(dev, backend, wq):
+    """The packed routes pack and unpack through the kernels once a
+    projection; the weight pack at load runs the pack kernel too."""
+    enc = EncodingConfig(backend=backend, attn_backend="auto", weight_quant=wq)
+    cfg = cfg_registry.get_reduced("llama3.2-1b")
+    before = pack.pack.launches
+    params = T.model_init(cfg, enc, seed=0, device=dev)
+    per_weight = 2 if wq == "int4" else 1  # int4 packs its codes and its scales
+    assert pack.pack.launches - before == 7 * cfg.num_layers * per_weight
+    x = _rand(dev, cfg.activation_dtype, 20, cfg.d_model)
+    counts = (pack.pack.launches, pack.unpack.launches)
+    packed_lib.linear_apply(params["layers"][0]["attn"]["wq"], x, n=cfg.d_model,
+                            phase=Phase.DECODE, enc=enc)
+    packed_route = backend == "pallas" or wq != "none"  # 20 decode rows: the packed GEMMs
+    assert (pack.pack.launches - counts[0], pack.unpack.launches - counts[1]) == (
+        (1, 1) if packed_route else (0, 0))
+
+
+@pytest.mark.parametrize("seed,step", [(0, 0), (9, 3), (12345, 100000)])
+def test_sampler_bits_on_card_equal_cpu(dev, seed, step):
+    key = sampling.fold_in(sampling.prng_key(seed), step)
+    shape = (4, 128256)
+    assert torch.equal(sampling.random_bits(key, shape, dev).cpu(),
+                       sampling.random_bits(key, shape))
+    u = sampling.uniform(key, shape, minval=sampling.TINY, device=dev).cpu()
+    assert torch.equal(u.view(torch.int32),
+                       sampling.uniform(key, shape, minval=sampling.TINY).view(torch.int32))
+    logits = _rand(dev, torch.float32, *shape, scale=4.0, seed=seed)
+    temp = torch.tensor([0.0, 0.5, 1.0, 2.0], device=dev)
+    assert torch.equal(sampling.sample_rows(logits, temp, key).cpu(),
+                       sampling.sample_rows(logits.cpu(), temp.cpu(), key))
+
+
+@pytest.mark.parametrize("config", [dict(), dict(decode_mode="grouped")])
+def test_sampled_engine_kernels_match_plain_path(dev, config):
+    """The reduced model sampled at mixed temperatures through the kernels
+    emits the plain backends' tokens on the card; its temperature-0
+    requests emit the greedy engine's."""
+    cfg = cfg_registry.get_reduced("llama3.2-1b")
+    params = T.model_init(cfg, EncodingConfig(), seed=0, device=dev)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (5, 17, 30, 9)]
+    temps = [0.7, 0.0, 0.7, 0.0]
+
+    def serve(enc, sample):
+        eng = engine_lib.Engine(params, cfg, enc, device=dev, config=EngineConfig(
+            slots=4, max_seq=64, sample=sample, seed=3, **config))
+        for i, (p, t) in enumerate(zip(prompts, temps)):
+            eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=8, temperature=t))
+        return {r.uid: r.generated for r in eng.run()}
+
+    kernels = serve(EncodingConfig(backend="auto", attn_backend="auto"), "temperature")
+    plain = serve(EncodingConfig(backend="reference", attn_backend="xla"), "temperature")
+    greedy = serve(EncodingConfig(backend="auto", attn_backend="auto"), "greedy")
+    assert kernels == plain
+    assert all(kernels[i] == greedy[i] for i, t in enumerate(temps) if t == 0)

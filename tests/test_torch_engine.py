@@ -5,9 +5,10 @@ preemption and prefix-cache counts, on a mixed-length trace, a shared-prefix
 trace that runs the suffix prefill, and a small-pool trace that preempts.
 Also the port's registry keys, quarantine, lifecycle, the speculative,
 token-budget and many-slot configurations against the JAX engine, and the
-slices it refuses (temperature sampling, meshes).  The quantized KV pools
-and the dense cache are held against the JAX engine in
-tests/test_torch_kvquant.py and tests/test_torch_dense.py."""
+slice it refuses (meshes).  The quantized KV pools, the dense cache and
+temperature sampling are held against the JAX engine in
+tests/test_torch_kvquant.py, tests/test_torch_dense.py and
+tests/test_torch_sample.py."""
 
 import numpy as np
 import pytest
@@ -234,8 +235,7 @@ def test_engine_lifecycle(model):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(sample="temperature"), "temperature"),
-    (dict(mesh_shape=(2,)), "tensor parallelism"),
+    pytest.param(dict(mesh_shape=(2,)), "tensor parallelism", id="kw1-tensor parallelism"),
 ])
 def test_engine_refuses_later_slices(model, kw, match):
     with pytest.raises(NotImplementedError, match=match):
