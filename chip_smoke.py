@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
              at the full-width Llama-3.2-1B shapes the serving runs give it
              (the packed mmt4d GEMM at verify/mixed/many-slot decode rows
              and prefill slabs, the packed GEMV at 1-8 rows, paged decode
-             at windows of 1 to 256), in bf16 and f32, with its time, the
-             plain version's time, a library yardstick timed only
+             at windows of 1, 4, 5, 16 and 256), in bf16 and f32, with its
+             time, the plain version's time, a library yardstick timed only
              (torch.matmul on the unpacked weight, SDPA), and the roofline
              bound computed from the shapes; then the four quantized-weight
              kernels (w8a8: fused_gemv_q8, mmt4d_q8, equal to their plain
@@ -24,11 +24,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
              padded to 32 where it needs more than 16) and none for int4
              (bf16 torch.matmul on the dequantized weight is timed as an
              aside); then the decode kernels on every KV layout: paged
-             decode on kv8 and kv4 pools (L = 1, 16, 256), dense decode on
+             decode on kv8 and kv4 pools (L = 1, 4, 5, 16, 256), dense decode on
              bf16, f32, kv8 and kv4 caches (S_c = 1024, L = 1 and 16) and on
              a wrapped 256-slot ring, SDPA on the dequantized view as the
              yardstick, and the paged kernel through an identity table
-             against the dense kernel, bit for bit; then pack and unpack at
+             against the dense kernel and against itself called again, bit
+             for bit; then pack and unpack at
              the weight packs of load, the packed routes' activation packs
              and their output unpacks, bit for bit, permute().contiguous()
              as the yardstick; batch_mmt4d (no serving path calls it) at an
@@ -359,9 +360,10 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
         full_table = torch.from_numpy(
             np.stack([rng.permutation(np.arange(1, pages))[:80] for _ in range(b)]).astype(np.int32)
         ).to(dev)
-        # L = 1: decode; 4: a short verify window; 16 and 256: verify and
-        # mixed windows of more than 32 query rows per block (G = 4).
-        for L in (1, 4, 16, 256):
+        # L = 1: decode; 4 and 5: short verify windows (5 = draft_k 4, 20
+        # query rows: the tensor cores in bf16); 16 and 256: verify and
+        # mixed windows of one and of sixteen 64-row tiles (G = 4).
+        for L in (1, 4, 5, 16, 256):
             nb = max(64, -(-(max(pos_list) + L) // bs))  # the table covers every window
             table = full_table[:, :nb].contiguous()
             pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
@@ -538,7 +540,7 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
         kw = dict(k_scale=k_sc, v_scale=v_sc, kv_quant=kv)
         for dname, dt in dtypes:
             s = 2 if dname == "bf16" else 4
-            for L in (1, 16, 256):
+            for L in (1, 4, 5, 16, 256):
                 nb = max(64, -(-(max(pos_list) + L) // bs))
                 table = full_table[:, :nb].contiguous()
                 q = rnd(b, L, h, d).to(dt)
@@ -614,19 +616,26 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
         def pages_of(x):
             return None if x is None else x.reshape(b * nb, bs, *x.shape[2:])
 
-        for L in (1, 16):
+        for L in (1, 5, 16):
             q = rnd(b, L, h, d).to(dt)
             dense = attn.dense_decode_attention(q, k, v, pos, k_scale=k_sc, v_scale=v_sc,
                                                 kv_quant=kv)
             paged = attn.paged_decode_attention(q, pages_of(k), pages_of(v), table, pos,
                                                 k_scale=pages_of(k_sc), v_scale=pages_of(v_sc),
                                                 kv_quant=kv)
-            same = bool(torch.equal(paged, dense))
+            # A second call gives the same bits: the split merge runs in a
+            # fixed order and leaves its counters at 0.
+            again = attn.paged_decode_attention(q, pages_of(k), pages_of(v), table, pos,
+                                                k_scale=pages_of(k_sc), v_scale=pages_of(v_sc),
+                                                kv_quant=kv)
+            same = bool(torch.equal(paged, dense)) and bool(torch.equal(paged, again))
             identity[f"{kv} {dname} L={L}"] = same
             log(f"[kernel] identity-table paged == dense, {kv} {dname} L={L}: bit for bit {same}")
             if not same:
-                raise AssertionError(f"identity-table paged != dense ({kv} {dname} L={L}): max "
-                                     f"diff {(paged.float() - dense.float()).abs().max().item()}")
+                raise AssertionError(f"identity-table paged != dense or != paged again ({kv} "
+                                     f"{dname} L={L}): max diffs "
+                                     f"{(paged.float() - dense.float()).abs().max().item()}, "
+                                     f"{(paged.float() - again.float()).abs().max().item()}")
     torch.cuda.synchronize()
     return identity
 

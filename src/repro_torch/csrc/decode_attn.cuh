@@ -11,45 +11,84 @@
 //   min(qpos + 1, window), as the JAX package's attention_decode does.
 //
 // Storage (Store<T, KVC>): KV_RAW pools in the query's dtype (bf16, f32);
-// KV_INT8 int8 rows (kv8, 64 bytes at D = 64, read as 16-byte loads);
-// KV_NIB packed nibbles (kv4, D/2 bytes a row, even dims in the low nibble,
-// two's complement, read as 8-byte loads and sign-extended by shifts).
+// KV_INT8 int8 rows (kv8); KV_NIB packed nibbles (kv4, D/2 bytes a row, even
+// dims in the low nibble, two's complement, sign-extended by shifts).
 // Quantized rows carry one float32 scale per (token, kv head) at the row's
 // index in a parallel scale array, and dequantize as float(q) * scale, the
-// order of the JAX package's KVLayout.dequantize.  The score of a lane's
-// key uses that key's K scale; the V pass broadcasts each key's V scale by
-// shuffle beside its row index.
+// order of the JAX package's KVLayout.dequantize.
 //
 // Addressing (Addr::row(b, t, kv)): the row index of key t's (kv head) row,
 // in rows of D/pack storage elements (and in scales).  PagedAddr reads the
 // block table: ((table[b, t / bs] * bs + t % bs) * KV + kv).  DenseAddr is
 // ((b * S_c + t) * KV + kv).
 //
-// What bounds it on the H100: bytes (each live K/V row is read once per kv
-// head; ~2 flops per byte in bf16, ~4 per byte in kv8 and ~8 in kv4).
+// What bounds it on the H100: bytes.  Each live K/V row must be read once
+// per kv head (~2 flops per byte in bf16, ~4 in kv8, ~8 in kv4, far below
+// the card's ~295); at the serving shapes (B = 4, KV = 8, ~1750 live keys)
+// that is 3.6 MB, ~1 us at 3.35 TB/s, so a launch is latency-bound: what
+// counts is how many SMs work and how long each one's chain of loads is.
 //
-// Design.  One block per (query-row tile, kv head, batch row).  The G query
-// heads of a kv head and the L window positions make L*G query rows (l, j),
-// head = kv*G + j; a tile holds LT = min(L, 32/G) window positions, at most
-// 32 rows, so any L runs as ceil(L/LT) tiles.  A row's keys 0 .. t_end are
-// split across W = 32 / (LT*G) warps in contiguous 32-aligned shares; each
-// warp takes 32 keys at a time, one key per lane: the lane reads its K row
-// and computes the full score, the warp shares max and sum by shuffles,
-// then accumulates p * V row by row with lanes on neighbouring dims.  The W
-// partial (m, l, acc) states of a row merge in shared memory at the end.
-// The arithmetic is pinned with explicit round-to-nearest intrinsics, so the
-// two addressing policies, which split keys across warps identically, give
-// bit-identical outputs on identical keys (a paged pool whose table is the
-// identity against the matching dense cache).  A 32-key chunk in which no
-// key is valid yet leaves the state untouched; a row with no valid key
-// writes 0.  Rows of the last tile past L read no key and write nothing.
+// Design.  The G query heads of a kv head and the L window positions make
+// L*G query rows r = l*G + j (head kv*G + j); a tile holds QT = 64 of them.
+// One block of 128 threads per (key split, row tile, batch row x kv head):
+//   1. Split keys across blocks (flash-decoding).  The host's plan
+//      (kernels/attn.py: decode_split_plan) gives the split count from
+//      (B, KV, tiles, the key bound) so that the grid holds >= 264 blocks
+//      (two per SM) where there are keys enough.  A block divides its
+//      tile's live keys 0 .. t_end evenly over the splits in 64-key-aligned
+//      ranges (decode_split_range mirrors the arithmetic), so the split
+//      depends on key indices and positions only, never on pages: the two
+//      addressing policies run the same blocks on the same keys and, every
+//      sum being pinned (round-to-nearest intrinsics, tensor-core products
+//      in a fixed order), give bit-identical outputs on identical keys (a
+//      paged pool whose table is the identity against the matching dense
+//      cache).  With more than one split each block writes its partial
+//      (m, l, acc) to f32 scratch; the last block of a (row, kv head, tile)
+//      to finish -- an atomic counter after __threadfence() tells it --
+//      merges all partials in split-index order (deterministic) and resets
+//      the counter to 0, all in the one launch.
+//   2. Stage K/V in shared memory, shared by every query row of the block.
+//      64-key tiles of K and V rows (and their scales) arrive by 16-byte
+//      cp.async into a double buffer; the table lookups and copies of the
+//      next tile are issued before the current one is computed.  Rows are
+//      padded by one copy chunk so that the row-per-lane reads below are
+//      free of bank conflicts.  Keys no row of the tile attends are
+//      zero-filled, never read.
+//   3. Tensor cores for bf16 windows of L*G >= 16 rows (no ring): each warp
+//      owns 16 query rows; S = Q K^T and O = P V run as mma.sync m16n8k16
+//      (bf16 in, f32 accumulate) on the staged tiles, a flash-attention
+//      tile over the page table (online softmax in registers, P rounded to
+//      bf16 for the second product, its row sums from the rounded values).
+//      kv8/kv4 tiles are dequantized to bf16 in shared memory first.
+//   4. CUDA cores otherwise (f32 queries, whose 1e-4 tolerance and token
+//      identity need f32 products; L*G < 16, e.g. plain decode at G = 4;
+//      ring windows): scores of (row, key) pairs from the staged rows, one
+//      warp per row for the online softmax, then acc += p * V with a
+//      thread per (row, dim).
+// What each part does about the limits of a key walk by one warp per query
+// row: the split fills the card where one block per (tile, kv, b) would
+// not (32 blocks at L = 1, B = 4, on 132 SMs; the split makes 512);
+// staging replaces each lane's dependent table-then-row loads by coalesced
+// copies issued a tile ahead; one staged tile serves all 64 rows of the
+// block, so no row re-reads a key another row of its tile has read; and
+// the tensor cores replace the per-key shuffle rounds of the V pass on
+// the wide windows.  The merge reads the partials with the loads of a
+// split in flight together (row weights first, then float4 sums).
+//
+// Numerics: a row with no valid key writes 0, never NaN; a key tile with
+// no valid key for a row leaves that row's state untouched; rows of the
+// last tile past L*G read no key and write nothing.
 #pragma once
 
 #include "common.cuh"
 
 namespace decode_attn {
 
-constexpr int MAXW = 32;  // warps per block
+constexpr int NT = 128;    // threads a block (4 warps)
+constexpr int QT = 64;     // query rows a tile (16 per warp on the tensor cores)
+constexpr int KT = 64;     // keys a staged tile; split ranges are multiples of it
+constexpr int MAXG = 32;   // query heads per kv head
+constexpr int MAXS = 64;   // key splits (kernels/attn.py: DECODE_MAX_SPLITS)
 constexpr int KV_RAW = 0;
 constexpr int KV_INT8 = 1;
 constexpr int KV_NIB = 2;
@@ -72,6 +111,8 @@ __device__ __forceinline__ float dot4(const float* q, const float* k) {
   return __fmaf_rn(q[3], k[3], g);
 }
 
+// A staged row: dot(row, qs) of the dequantized row against D f32 query
+// values, and the dequantized element d.
 template <typename T, int KVC>
 struct Store;
 
@@ -168,138 +209,587 @@ struct DenseAddr {
   }
 };
 
-// At most 32 registers a thread, so two 1024-thread blocks fit an SM: wide
-// windows (many tiles) need the warps to hide the latency of the key walk.
-// RING instantiates the ring-window mask (dense caches with window > 0
-// only), so the full-attention kernels carry none of its state.
-template <typename T, int KVC, int D, bool RING, typename Addr>
-__global__ void __launch_bounds__(1024, 2)
-decode_kernel(const T* __restrict__ q, const typename Store<T, KVC>::E* __restrict__ k,
-              const typename Store<T, KVC>::E* __restrict__ v, const float* __restrict__ ks,
-              const float* __restrict__ vs, Addr addr, const int* __restrict__ pos,
-              T* __restrict__ out, int L, int lt, int h, int kvh, int parts, float scale,
-              int t_cap, int window, int s_c) {
-  using S = Store<T, KVC>;
-  using E = typename S::E;
-  constexpr int DS = D / S::kPack;    // storage elements per K/V row
-  constexpr int DPL = (D + 31) / 32;  // accumulator dims per lane
-  const float NEG_INF = __int_as_float(0xff800000);
-  __shared__ float qs[MAXW][D];
-  __shared__ float accs[MAXW][D];
-  __shared__ float ms[MAXW];
-  __shared__ float ls[MAXW];
-  const int g = h / kvh;
-  const int kv = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int qrow = warp / parts;  // (l, j) query row of this warp, in the tile
-  const int part = warp % parts;
-  const int l = blockIdx.z * lt + qrow / g;
-  const bool live = l < L;        // the last tile may hold fewer than lt positions
-  const int head = kv * g + (qrow % g);
-  const int qpos = pos[b] + l;
-  // A wrapped ring row visits every slot and masks by age; any other row
-  // walks keys 0 .. qpos.
-  const bool ring = RING && window > 0 && qpos >= window;
-  const int ring_n = min(qpos + 1, window);
-  const int t_end = !live ? -1 : ring ? t_cap : min(qpos, t_cap);
+// ---------------------------------------------------------------------------
+// Copies and tensor-core primitives
 
-  if (part == 0 && live) {
-    for (int d = lane; d < D; d += 32)
-      qs[qrow][d] = __fmul_rn(to_f32(q[((static_cast<size_t>(b) * L + l) * h + head) * D + d]),
-                              scale);
-  }
-  __syncthreads();
-
-  // This warp's contiguous, 32-aligned share of keys 0 .. t_end.
-  const int chunks = (t_end + 1 + 31) / 32;
-  const int per = ((chunks + parts - 1) / parts) * 32;
-  const int t_lo = part * per;
-  const int t_hi = min(t_end + 1, t_lo + per);
-
-  float m = NEG_INF;
-  float lsum = 0.f;
-  float acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-
-  for (int t0 = t_lo; t0 < t_hi; t0 += 32) {
-    const int t = t0 + lane;
-    bool valid = t < t_hi;
-    if (valid && ring) {
-      int age = (qpos - t) % s_c;
-      if (age < 0) age += s_c;
-      valid = age < ring_n;
-    }
-    long long r = 0;  // row index of key t's (kv head) row
-    float s = NEG_INF;
-    float vsc = 1.f;
-    if (valid) {
-      r = addr.row(b, t, kv);
-      float ksc = 1.f;
-      if (S::kQuant) {
-        ksc = ks[r];
-        vsc = vs[r];
-      }
-      s = S::template dot<D>(k + r * DS, &qs[qrow][0], ksc);
-    }
-    const float m_new = fmaxf(m, warp_max(s));
-    // A ring chunk with no valid key yet (warp-uniform) leaves the state
-    // unchanged; without a ring, lane 0 of a chunk is always valid.
-    if (RING && m_new == NEG_INF) continue;
-    const float corr = expf(m - m_new);
-    const float p = valid ? expf(s - m_new) : 0.f;
-    lsum = __fmaf_rn(lsum, corr, warp_sum(p));
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] = __fmul_rn(acc[i], corr);
-    const int n = min(32, t_hi - t0);
-    for (int c = 0; c < n; ++c) {
-      // Only a wrapped ring row has masked keys inside its range (ring is
-      // uniform over the warp: one warp serves one query row).
-      if (ring && !__shfl_sync(0xffffffffu, static_cast<int>(valid), c)) continue;
-      const float pc = __shfl_sync(0xffffffffu, p, c);
-      const long long rc = __shfl_sync(0xffffffffu, r, c);
-      const float vc = S::kQuant ? __shfl_sync(0xffffffffu, vsc, c) : 1.f;
-      const E* vrow = v + rc * DS;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) acc[i] = __fmaf_rn(pc, S::val(vrow, d, vc), acc[i]);
-      }
-    }
-    m = m_new;
-  }
-
-  if (lane == 0) {
-    ms[warp] = m;
-    ls[warp] = lsum;
-  }
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) accs[warp][d] = acc[i];
-  }
-  __syncthreads();
-  if (part != 0 || !live) return;
-  // Merge the `parts` partial states of this query row.
-  const int w0 = qrow * parts;
-  float mx = ms[w0];
-  for (int p = 1; p < parts; ++p) mx = fmaxf(mx, ms[w0 + p]);
-  if (mx == NEG_INF) mx = 0.f;  // no valid key: every weight below is 0
-  float den = 0.f;
-  for (int p = 0; p < parts; ++p) den = __fmaf_rn(ls[w0 + p], expf(ms[w0 + p] - mx), den);
-  const float inv = den > 0.f ? __frcp_rn(den) : 0.f;
-  T* o = out + ((static_cast<size_t>(b) * L + l) * h + head) * D;
-  for (int d = lane; d < D; d += 32) {
-    float a = 0.f;
-    for (int p = 0; p < parts; ++p) a = __fmaf_rn(accs[w0 + p][d], expf(ms[w0 + p] - mx), a);
-    o[d] = from_f32<T>(__fmul_rn(a, inv));
+// N-byte asynchronous copy global -> shared; zero-fills the N bytes when
+// !full (nothing is read then).
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = full ? N : 0;
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(N),
+                 "r"(n));
   }
 }
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most one copy group (the newest) is in flight.
+__device__ __forceinline__ void cp_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
+__device__ __forceinline__ void mma16816(float* c, const unsigned* a, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory, transposed (B fragments of a
+// row-major [key][dim] tile).
+__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(unsigned w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+// ---------------------------------------------------------------------------
+// Shared-memory geometry of one instantiation (host and device).
+
+template <typename T, int KVC, int D, bool TC>
+struct Geo {
+  using S = Store<T, KVC>;
+  using E = typename S::E;
+  static constexpr int RB = D * static_cast<int>(sizeof(E)) / S::kPack;  // bytes a row
+  static constexpr int CH = RB < 16 ? RB : 16;                         // copy chunk
+  static constexpr int NCH = RB / CH;                                  // chunks a row
+  static constexpr int SRB = RB + CH;       // padded staged row (bank-conflict free)
+  static constexpr int SB = D + 8;          // bf16 elements a tensor-core row
+  static constexpr int STAGE = KT * SRB;    // one K or V tile
+  static constexpr bool DEQ = TC && S::kQuant;  // dequantized bf16 tiles
+  // [K buf 0, K buf 1, V buf 0, V buf 1] [K scales x2, V scales x2]
+  // [TC kv8/kv4: Kb, Vb bf16] [CUDA cores: qs, scores, m, l, corr]
+  static constexpr int OFF_SC = 4 * STAGE;
+  static constexpr int OFF_X = OFF_SC + (S::kQuant ? 4 * KT * 4 : 0);
+  // Sized by the launch's rows a tile (qt = min(64, L*G)): a decode step's
+  // 4 rows leave room for more blocks on an SM.  The merge reuses it all.
+  static constexpr int BYTES_TC = DEQ ? 2 * KT * SB * 2 : 0;
+  __host__ __device__ static constexpr int bytes(int qt) {
+    const int run = OFF_X + BYTES_TC + (TC ? 0 : (qt * D + qt * (KT + 1) + 3 * qt) * 4);
+    const int merge = (qt * MAXS + qt) * 4;
+    return run > merge ? run : merge;
+  }
+};
 
 // Runtime arguments of one launch.  t_cap: the last key index a row may
-// read (paged: NB*bs - 1, dense: S_c - 1).
+// read (paged: NB*bs - 1, dense: S_c - 1).  part/cnt: f32 scratch for the
+// partial states and one int counter per (b, kv, tile), both unused when
+// splits == 1.
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* pos;
+  void* out;
+  float* part;
+  int* cnt;
+  int L, h, kvh, g, t_cap, window, s_c, splits, kps, tiles, qt;
+  float scale;
+};
+
+// ---------------------------------------------------------------------------
+// The kernel
+
+template <typename T, int KVC, int D, bool RING, bool TC, typename Addr>
+__global__ void __launch_bounds__(NT)
+decode_kernel(const Params p, const Addr addr) {
+  using S = Store<T, KVC>;
+  using E = typename S::E;
+  using Gm = Geo<T, KVC, D, TC>;
+  static_assert(!TC || (sizeof(T) == 2 && !RING), "tensor cores take bf16 full attention");
+  const float NEG_INF = __int_as_float(0xff800000);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last_block;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int split = blockIdx.x;
+  const int tile = blockIdx.y;
+  const int bk = blockIdx.z;
+  const int b = bk / p.kvh;
+  const int kv = bk % p.kvh;
+  const int rows = p.L * p.g;
+  const int r0 = tile * QT;                 // first query row of the tile
+  const int R = min(QT, rows - r0);         // its live rows
+  const int pos_b = p.pos[b];
+  // A wrapped ring row (L = 1: the tile's one position) visits every slot
+  // and masks by age; any other row walks keys 0 .. qpos.
+  const bool ring = RING && p.window > 0 && pos_b >= p.window;
+  const int ring_n = min(pos_b + 1, p.window);
+  const int n_live = (ring ? p.t_cap : min(pos_b + (r0 + R - 1) / p.g, p.t_cap)) + 1;
+  // This split's keys: the tile's live keys cut into `splits` 64-aligned
+  // ranges (kernels/attn.py: decode_split_range).
+  const int chunks = (n_live + KT - 1) / KT;
+  const int per = min(p.kps, ((chunks + p.splits - 1) / p.splits) * KT);
+  const int lo = split * per;
+  const int hi = min(n_live, lo + per);
+  const int ntile = lo < hi ? (hi - lo + KT - 1) / KT : 0;
+
+  auto ring_ok = [&](int t) {
+    int age = (pos_b - t) % p.s_c;
+    if (age < 0) age += p.s_c;
+    return age < ring_n;
+  };
+  auto t_end_of = [&](int r) {  // last key of tile row r (r < R)
+    return ring ? p.t_cap : min(pos_b + (r0 + r) / p.g, p.t_cap);
+  };
+
+  unsigned char* stage_k = smem;
+  unsigned char* stage_v = smem + 2 * Gm::STAGE;
+  float* sc_k = reinterpret_cast<float*>(smem + Gm::OFF_SC);
+  float* sc_v = sc_k + 2 * KT;
+  const unsigned char* kbase = static_cast<const unsigned char*>(p.k);
+  const unsigned char* vbase = static_cast<const unsigned char*>(p.v);
+
+  // Issue the copies of key tile i (keys lo + i*KT ..) into buffer i & 1.
+  auto stage = [&](int i) {
+    const int t0 = lo + i * KT;
+    const int buf = i & 1;
+    for (int c = tid; c < KT * Gm::NCH; c += NT) {
+      const int kk = c / Gm::NCH;
+      const int part = c % Gm::NCH;
+      const int t = t0 + kk;
+      const bool need = t < hi && (!ring || ring_ok(t));
+      const long long row = need ? addr.row(b, t, kv) : 0;
+      const size_t dst = static_cast<size_t>(buf) * Gm::STAGE + kk * Gm::SRB + part * Gm::CH;
+      const long long src = row * Gm::RB + part * Gm::CH;
+      cp_async<Gm::CH>(stage_k + dst, kbase + src, need);
+      cp_async<Gm::CH>(stage_v + dst, vbase + src, need);
+    }
+    if constexpr (S::kQuant) {
+      for (int kk = tid; kk < KT; kk += NT) {
+        const int t = t0 + kk;
+        const bool need = t < hi && (!ring || ring_ok(t));
+        const long long row = need ? addr.row(b, t, kv) : 0;
+        cp_async<4>(sc_k + buf * KT + kk, p.ks + row, need);
+        cp_async<4>(sc_v + buf * KT + kk, p.vs + row, need);
+      }
+    }
+  };
+
+  // Partial states: ml[(pidx * 2 + 0/1) * qt + r] = m / l; acc after them.
+  const size_t pbase = (static_cast<size_t>(bk) * p.tiles + tile) * p.splits;
+  const size_t nparts = static_cast<size_t>(gridDim.z) * p.tiles * p.splits;
+  float* part_ml = p.part;
+  float* part_acc = p.part + nparts * 2 * p.qt;
+  T* out = static_cast<T*>(p.out);
+  const T* q = static_cast<const T*>(p.q);
+  auto out_at = [&](int r) {  // output row of tile row r
+    const int rg = r0 + r;
+    const int l = rg / p.g;
+    const int head = kv * p.g + rg % p.g;
+    return out + ((static_cast<size_t>(b) * p.L + l) * p.h + head) * D;
+  };
+  auto q_at = [&](int r) {
+    const int rg = r0 + r;
+    const int l = rg / p.g;
+    const int head = kv * p.g + rg % p.g;
+    return q + ((static_cast<size_t>(b) * p.L + l) * p.h + head) * D;
+  };
+
+  if (ntile > 0) stage(0);
+  cp_commit();
+
+  if constexpr (TC) {
+    // ---------------- tensor cores: warp w owns tile rows 16w .. 16w+15
+    const int g4 = lane >> 2;  // fragment row (and +8)
+    const int q4 = lane & 3;   // fragment column pair
+    const int ra = warp * 16 + g4;
+    const int rb = ra + 8;
+    const bool active = warp * 16 < R;
+    const int te_a = ra < R ? t_end_of(ra) : -1;
+    const int te_b = rb < R ? t_end_of(rb) : -1;
+    unsigned qa[D / 16][4];
+    {
+      const T* qra = ra < R ? q_at(ra) : nullptr;
+      const T* qrb = rb < R ? q_at(rb) : nullptr;
+      auto ld = [](const T* row, int d) -> unsigned {
+        return row ? *reinterpret_cast<const unsigned*>(row + d) : 0u;
+      };
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        qa[kk][0] = ld(qra, kk * 16 + 2 * q4);
+        qa[kk][1] = ld(qrb, kk * 16 + 2 * q4);
+        qa[kk][2] = ld(qra, kk * 16 + 8 + 2 * q4);
+        qa[kk][3] = ld(qrb, kk * 16 + 8 + 2 * q4);
+      }
+    }
+    float o[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};
+    float lsum[2] = {0.f, 0.f};
+    bf16* kb = reinterpret_cast<bf16*>(smem + Gm::OFF_X);
+    bf16* vb = kb + KT * Gm::SB;
+
+    for (int i = 0; i < ntile; ++i) {
+      if (i + 1 < ntile) stage(i + 1);
+      cp_commit();
+      cp_wait_prev();
+      __syncthreads();
+      const int buf = i & 1;
+      const int t0 = lo + i * KT;
+      const bf16* kt;
+      const bf16* vt;
+      if constexpr (Gm::DEQ) {
+        const E* sk = reinterpret_cast<const E*>(stage_k + buf * Gm::STAGE);
+        const E* sv = reinterpret_cast<const E*>(stage_v + buf * Gm::STAGE);
+        constexpr int ROW_E = Gm::SRB / static_cast<int>(sizeof(E));
+        for (int e = tid; e < KT * (D / 2); e += NT) {
+          const int kk = e / (D / 2);
+          const int d = (e % (D / 2)) * 2;
+          const float ck = sc_k[buf * KT + kk];
+          const float cv = sc_v[buf * KT + kk];
+          const E* rk = sk + kk * ROW_E;
+          const E* rv = sv + kk * ROW_E;
+          *reinterpret_cast<unsigned*>(kb + kk * Gm::SB + d) =
+              pack_bf16(S::val(rk, d, ck), S::val(rk, d + 1, ck));
+          *reinterpret_cast<unsigned*>(vb + kk * Gm::SB + d) =
+              pack_bf16(S::val(rv, d, cv), S::val(rv, d + 1, cv));
+        }
+        __syncthreads();
+        kt = kb;
+        vt = vb;
+      } else {
+        kt = reinterpret_cast<const bf16*>(stage_k + buf * Gm::STAGE);
+        vt = reinterpret_cast<const bf16*>(stage_v + buf * Gm::STAGE);
+      }
+      if (active) {
+        float s[KT / 8][4];
+#pragma unroll
+        for (int n = 0; n < KT / 8; ++n) {
+          s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+          const bf16* krow = kt + (n * 8 + g4) * Gm::SB + 2 * q4;
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const unsigned b0 = *reinterpret_cast<const unsigned*>(krow + kk * 16);
+            const unsigned b1 = *reinterpret_cast<const unsigned*>(krow + kk * 16 + 8);
+            mma16816(s[n], qa[kk], b0, b1);
+          }
+        }
+        // Scale and mask; the tile's row maxima (a row's 64 scores lie in
+        // the 4 lanes of a quad).
+        float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int n = 0; n < KT / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = t0 + n * 8 + 2 * q4 + (e & 1);
+            const int te = e < 2 ? te_a : te_b;
+            const float x = (t < hi && t <= te) ? __fmul_rn(s[n][e], p.scale) : NEG_INF;
+            s[n][e] = x;
+            mt[e >> 1] = fmaxf(mt[e >> 1], x);
+          }
+        }
+        float corr[2];
+        float mu[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 1));
+          mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 2));
+          const float m_new = fmaxf(m[hh], mt[hh]);
+          // No valid key yet: the state stays as it is (p = 0 below).
+          corr[hh] = m_new == NEG_INF ? 1.f : expf(m[hh] - m_new);
+          mu[hh] = m_new == NEG_INF ? 0.f : m_new;
+          m[hh] = m_new;
+        }
+        // P in bf16 (A fragments of the second product) and its row sums.
+        unsigned pa[KT / 16][4];
+        float ps[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < KT / 8; ++n) {
+          const unsigned w0 = pack_bf16(expf(s[n][0] - mu[0]), expf(s[n][1] - mu[0]));
+          const unsigned w1 = pack_bf16(expf(s[n][2] - mu[1]), expf(s[n][3] - mu[1]));
+          const float2 f0 = unpack_bf16(w0);
+          const float2 f1 = unpack_bf16(w1);
+          ps[0] = __fadd_rn(ps[0], __fadd_rn(f0.x, f0.y));
+          ps[1] = __fadd_rn(ps[1], __fadd_rn(f1.x, f1.y));
+          pa[n >> 1][(n & 1) * 2 + 0] = w0;
+          pa[n >> 1][(n & 1) * 2 + 1] = w1;
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) lsum[hh] = __fmaf_rn(lsum[hh], corr[hh], ps[hh]);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][0] = __fmul_rn(o[n][0], corr[0]);
+          o[n][1] = __fmul_rn(o[n][1], corr[0]);
+          o[n][2] = __fmul_rn(o[n][2], corr[1]);
+          o[n][3] = __fmul_rn(o[n][3], corr[1]);
+        }
+        // O += P V: B fragments by ldmatrix.trans, two dim tiles a load.
+        const int vkey = (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int vdim = (lane >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < KT / 16; ++j) {
+#pragma unroll
+          for (int n = 0; n < D / 8; n += 2) {
+            unsigned vf[4];
+            ldsm_x4_t(vf, vt + (j * 16 + vkey) * Gm::SB + n * 8 + vdim);
+            mma16816(o[n], pa[j], vf[0], vf[1]);
+            mma16816(o[n + 1], pa[j], vf[2], vf[3]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // Each row's sum lies in the 4 lanes of its quad.
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      lsum[hh] = __fadd_rn(lsum[hh], __shfl_xor_sync(0xffffffffu, lsum[hh], 1));
+      lsum[hh] = __fadd_rn(lsum[hh], __shfl_xor_sync(0xffffffffu, lsum[hh], 2));
+    }
+    if (p.splits == 1) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = hh ? rb : ra;
+        if (r >= R) continue;
+        const float inv = lsum[hh] > 0.f ? __frcp_rn(lsum[hh]) : 0.f;
+        T* orow = out_at(r);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          *reinterpret_cast<unsigned*>(orow + n * 8 + 2 * q4) =
+              pack_bf16(__fmul_rn(o[n][2 * hh], inv), __fmul_rn(o[n][2 * hh + 1], inv));
+        }
+      }
+      return;
+    }
+    const size_t pidx = pbase + split;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = hh ? rb : ra;
+      if (r >= R) continue;
+      if (q4 == 0) {
+        part_ml[(pidx * 2) * p.qt + r] = m[hh];
+        part_ml[(pidx * 2 + 1) * p.qt + r] = lsum[hh];
+      }
+      if (m[hh] == NEG_INF) continue;  // the merge reads no acc of such a row
+      float* arow = part_acc + (pidx * p.qt + r) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(arow + n * 8 + 2 * q4) =
+            make_float2(o[n][2 * hh], o[n][2 * hh + 1]);
+      }
+    }
+  } else {
+    // ---------------- CUDA cores
+    float* qs = reinterpret_cast<float*>(smem + Gm::OFF_X);  // [qt][D], scaled
+    float* ss = qs + p.qt * D;                                // [qt][KT + 1]
+    float* rm = ss + p.qt * (KT + 1);
+    float* rl = rm + p.qt;
+    float* rc = rl + p.qt;
+    for (int e = tid; e < R * D; e += NT) {
+      const int r = e / D;
+      const int d = e % D;
+      qs[r * D + d] = __fmul_rn(to_f32(q_at(r)[d]), p.scale);
+    }
+    for (int r = tid; r < R; r += NT) {
+      rm[r] = NEG_INF;
+      rl[r] = 0.f;
+    }
+    // acc: thread owns dim d of rows rb0 + step*i.
+    constexpr int STEP = NT / D > 0 ? NT / D : 1;
+    constexpr int NR = QT / STEP;
+    const int d_own = tid % D;
+    const int rb0 = tid / D;  // D <= 128 = NT
+    float acc[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) acc[i] = 0.f;
+
+    for (int it = 0; it < ntile; ++it) {
+      if (it + 1 < ntile) stage(it + 1);
+      cp_commit();
+      cp_wait_prev();
+      __syncthreads();
+      const int buf = it & 1;
+      const int t0 = lo + it * KT;
+      const E* sk = reinterpret_cast<const E*>(stage_k + buf * Gm::STAGE);
+      const E* sv = reinterpret_cast<const E*>(stage_v + buf * Gm::STAGE);
+      constexpr int ROW_E = Gm::SRB / static_cast<int>(sizeof(E));
+      // Scores of the tile's (row, key) pairs.
+      for (int e = tid; e < R * KT; e += NT) {
+        const int r = e / KT;
+        const int kk = e % KT;
+        const int t = t0 + kk;
+        bool valid = t < hi && t <= t_end_of(r);
+        if (valid && ring) valid = ring_ok(t);
+        float x = NEG_INF;
+        if (valid) {
+          x = S::template dot<D>(sk + kk * ROW_E, qs + r * D,
+                                 S::kQuant ? sc_k[buf * KT + kk] : 1.f);
+        }
+        ss[r * (KT + 1) + kk] = x;
+      }
+      __syncthreads();
+      // Online softmax, one warp a row; lanes take keys lane and lane + 32.
+      for (int r = warp; r < R; r += NT / 32) {
+        const float s0 = ss[r * (KT + 1) + lane];
+        const float s1 = ss[r * (KT + 1) + lane + 32];
+        const float m_old = rm[r];
+        const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
+        float corr = 1.f, p0 = 0.f, p1 = 0.f;
+        if (m_new != NEG_INF) {  // else no valid key yet: state untouched
+          corr = expf(m_old - m_new);
+          p0 = expf(s0 - m_new);
+          p1 = expf(s1 - m_new);
+        }
+        const float psum = warp_sum(__fadd_rn(p0, p1));
+        ss[r * (KT + 1) + lane] = p0;
+        ss[r * (KT + 1) + lane + 32] = p1;
+        __syncwarp();
+        if (lane == 0) {
+          rl[r] = __fmaf_rn(rl[r], corr, psum);
+          rm[r] = m_new;
+          rc[r] = corr;
+        }
+      }
+      __syncthreads();
+      // acc = acc * corr + p . V over the tile's keys (rows rise with i:
+      // a thread's live rows end at the first past R, a warp-uniform exit).
+      const int kn = min(KT, hi - t0);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int r = rb0 + STEP * i;
+        if (r >= R) break;
+        acc[i] = __fmul_rn(acc[i], rc[r]);
+      }
+      if (rb0 + STEP * (NR - 1) < R) {  // all NR rows live: no exit tests
+        for (int kk = 0; kk < kn; ++kk) {
+          const float vx = S::val(sv + kk * ROW_E, d_own, S::kQuant ? sc_v[buf * KT + kk] : 1.f);
+#pragma unroll
+          for (int i = 0; i < NR; ++i)
+            acc[i] = __fmaf_rn(ss[(rb0 + STEP * i) * (KT + 1) + kk], vx, acc[i]);
+        }
+      } else {
+        for (int kk = 0; kk < kn; ++kk) {
+          const float vx = S::val(sv + kk * ROW_E, d_own, S::kQuant ? sc_v[buf * KT + kk] : 1.f);
+#pragma unroll
+          for (int i = 0; i < NR; ++i) {
+            const int r = rb0 + STEP * i;
+            if (r >= R) break;
+            acc[i] = __fmaf_rn(ss[r * (KT + 1) + kk], vx, acc[i]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    __syncthreads();  // rm / rl of a split with no tile
+
+    if (p.splits == 1) {
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int r = rb0 + STEP * i;
+        if (r >= R) break;
+        const float inv = rl[r] > 0.f ? __frcp_rn(rl[r]) : 0.f;
+        out_at(r)[d_own] = from_f32<T>(__fmul_rn(acc[i], inv));
+      }
+      return;
+    }
+    const size_t pidx = pbase + split;
+    for (int r = tid; r < R; r += NT) {
+      part_ml[(pidx * 2) * p.qt + r] = rm[r];
+      part_ml[(pidx * 2 + 1) * p.qt + r] = rl[r];
+    }
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int r = rb0 + STEP * i;
+      if (r < R && rm[r] != NEG_INF) part_acc[(pidx * p.qt + r) * D + d_own] = acc[i];
+    }
+  }
+
+  // ---------------- merge: the last split of (b, kv, tile) to finish
+  __threadfence();
+  __syncthreads();
+  int* counter = p.cnt + static_cast<size_t>(bk) * p.tiles + tile;
+  if (tid == 0) last_block = atomicAdd(counter, 1) == p.splits - 1;
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  // Row weights first (one thread a row): w[s] = exp(m_s - max m), 0 for a
+  // split with no valid key of the row, and 1 / sum_s l_s w_s (0 for a row
+  // with no valid key at all, which then writes 0).  The staging buffers
+  // are free now; they hold the weights.
+  float* ws = reinterpret_cast<float*>(smem);  // [qt][MAXS]
+  float* inv = ws + p.qt * MAXS;               // [qt]
+  for (int r = tid; r < R; r += NT) {
+    const float* mr = part_ml + (pbase * 2) * p.qt + r;  // m of split s: mr[2 s qt]
+    float mx = NEG_INF;
+#pragma unroll 8
+    for (int sp = 0; sp < p.splits; ++sp) mx = fmaxf(mx, __ldcg(mr + 2 * sp * p.qt));
+    float den = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < p.splits; ++sp) {
+      const float ms = __ldcg(mr + 2 * sp * p.qt);
+      const float ls = __ldcg(mr + (2 * sp + 1) * p.qt);
+      const float w = ms == NEG_INF ? 0.f : expf(ms - mx);
+      den = __fmaf_rn(w != 0.f ? ls : 0.f, w, den);
+      ws[r * MAXS + sp] = w;
+    }
+    inv[r] = den > 0.f ? __frcp_rn(den) : 0.f;
+  }
+  __syncthreads();
+  // Then acc = sum_s w_s acc_s in split order, four dims (one float4) an
+  // output and up to MJ outputs a thread, whose loads of one split are all
+  // in flight together (an acc a split left unwritten is masked by its
+  // zero weight).
+  constexpr int MJ = QT * D / (4 * NT);
+  const int n4 = R * D / 4;
+  float4 a[MJ];
+#pragma unroll
+  for (int j = 0; j < MJ; ++j) a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = 0; sp < p.splits; ++sp) {
+    const float4* src = reinterpret_cast<const float4*>(part_acc + (pbase + sp) * p.qt * D);
+    float4 x[MJ];
+#pragma unroll
+    for (int j = 0; j < MJ; ++j) {
+      if (tid + NT * j < n4) x[j] = __ldcg(src + tid + NT * j);
+    }
+#pragma unroll
+    for (int j = 0; j < MJ; ++j) {
+      const int e4 = tid + NT * j;
+      if (e4 >= n4) break;
+      const float w = ws[(e4 * 4 / D) * MAXS + sp];
+      const bool on = w != 0.f;
+      a[j].x = __fmaf_rn(on ? x[j].x : 0.f, w, a[j].x);
+      a[j].y = __fmaf_rn(on ? x[j].y : 0.f, w, a[j].y);
+      a[j].z = __fmaf_rn(on ? x[j].z : 0.f, w, a[j].z);
+      a[j].w = __fmaf_rn(on ? x[j].w : 0.f, w, a[j].w);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < MJ; ++j) {
+    const int e4 = tid + NT * j;
+    if (e4 >= n4) break;
+    const int r = e4 * 4 / D;
+    const float sc = inv[r];
+    T* o = out_at(r) + (e4 * 4) % D;
+    o[0] = from_f32<T>(__fmul_rn(a[j].x, sc));
+    o[1] = from_f32<T>(__fmul_rn(a[j].y, sc));
+    o[2] = from_f32<T>(__fmul_rn(a[j].z, sc));
+    o[3] = from_f32<T>(__fmul_rn(a[j].w, sc));
+  }
+  if (tid == 0) *counter = 0;  // ready for the next launch
+}
+
+// Runtime arguments of one call.  t_cap: the last key index a row may read
+// (paged: NB*bs - 1, dense: S_c - 1).  splits/kps: the host's split plan.
 struct Args {
   const void* q;
   const void* k;
@@ -308,33 +798,56 @@ struct Args {
   const float* vs;
   const int* pos;
   void* out;
-  int b, L, h, kvh, t_cap, window, s_c;
+  float* part;
+  int* cnt;
+  int b, L, h, kvh, t_cap, window, s_c, splits, kps;
   float scale;
 };
 
-template <typename T, int KVC, int D, bool RING, typename Addr>
+template <typename T, int KVC, int D, bool RING, bool TC, typename Addr>
 int launch(const Args& a, const Addr& addr, cudaStream_t stream) {
-  using E = typename Store<T, KVC>::E;
+  using Gm = Geo<T, KVC, D, TC>;
   const int g = a.h / a.kvh;
-  const int lt = min(a.L, MAXW / g);  // window positions per tile
-  const int rows = lt * g;            // query rows per tile, at most MAXW
-  const int parts = MAXW / rows;
-  const dim3 grid(a.kvh, a.b, (a.L + lt - 1) / lt);
-  const dim3 block(rows * parts * 32);
-  decode_kernel<T, KVC, D, RING, Addr><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const E*>(a.k), static_cast<const E*>(a.v), a.ks,
-      a.vs, addr, a.pos, static_cast<T*>(a.out), a.L, lt, a.h, a.kvh, parts, a.scale, a.t_cap,
-      a.window, a.s_c);
+  const int rows = a.L * g;
+  const int tiles = (rows + QT - 1) / QT;
+  const Params p{a.q,     a.k,     a.v,      a.ks,     a.vs,     a.pos,   a.out,
+                 a.part,  a.cnt,   a.L,      a.h,      a.kvh,    g,       a.t_cap,
+                 a.window, a.s_c,  a.splits, a.kps,    tiles,    min(QT, rows), a.scale};
+  auto kern = decode_kernel<T, KVC, D, RING, TC, Addr>;
+  const int bytes = Gm::bytes(min(QT, rows));
+  if (Gm::bytes(QT) > 48 * 1024) {  // opt in once per device, for any qt
+    static unsigned long long opted = 0;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev >= 64 || !(opted >> dev & 1ull)) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Gm::bytes(QT));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (dev < 64) opted |= 1ull << dev;
+    }
+  }
+  const dim3 grid(a.splits, tiles, a.b * a.kvh);
+  kern<<<grid, NT, bytes, stream>>>(p, addr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 full-attention windows of at least 16 query rows take the tensor
+// cores; everything else the CUDA cores.
+template <typename T, int KVC, int D, bool RING, typename Addr>
+int launch_path(const Args& a, const Addr& addr, cudaStream_t s) {
+  if constexpr (sizeof(T) == 2 && !RING) {
+    if (a.L * (a.h / a.kvh) >= 16) return launch<T, KVC, D, RING, true>(a, addr, s);
+  }
+  return launch<T, KVC, D, RING, false>(a, addr, s);
 }
 
 template <typename T, int KVC, bool RING, typename Addr>
 int launch_d(int d, const Args& a, const Addr& addr, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, KVC, 16, RING>(a, addr, s);
-    case 32: return launch<T, KVC, 32, RING>(a, addr, s);
-    case 64: return launch<T, KVC, 64, RING>(a, addr, s);
-    case 128: return launch<T, KVC, 128, RING>(a, addr, s);
+    case 16: return launch_path<T, KVC, 16, RING>(a, addr, s);
+    case 32: return launch_path<T, KVC, 32, RING>(a, addr, s);
+    case 64: return launch_path<T, KVC, 64, RING>(a, addr, s);
+    case 128: return launch_path<T, KVC, 128, RING>(a, addr, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -360,8 +873,13 @@ int launch_kv(int kv, int d, const Args& a, const Addr& addr, cudaStream_t s) {
 template <bool RING, typename Addr>
 int launch_any(int dtype, int kv, int d, const Args& a, const Addr& addr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.b < 1 || a.kvh < 1 || a.h % a.kvh != 0 || a.h / a.kvh > MAXW || a.L < 1 ||
-      a.L > 65535 || a.t_cap < 0 || (kv != KV_RAW && (a.ks == nullptr || a.vs == nullptr))) {
+  const long long rows = static_cast<long long>(a.L) * (a.kvh > 0 ? a.h / a.kvh : 0);
+  if (a.b < 1 || a.kvh < 1 || a.h % a.kvh != 0 || a.h / a.kvh > MAXG || a.L < 1 ||
+      a.L > 65535 || a.t_cap < 0 || static_cast<long long>(a.b) * a.kvh > 65535 ||
+      (rows + QT - 1) / QT > 65535 || a.splits < 1 || a.splits > MAXS || a.kps < KT ||
+      a.kps % KT != 0 ||
+      (a.splits > 1 && (a.part == nullptr || a.cnt == nullptr)) ||
+      (kv != KV_RAW && (a.ks == nullptr || a.vs == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == DTYPE_BF16) return launch_kv<bf16, RING>(kv, d, a, addr, s);

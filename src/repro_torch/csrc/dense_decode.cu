@@ -14,24 +14,28 @@
 // The TPU kernel streams kv_chunk slabs of the cache through a BlockSpec
 // and skips chunks past the newest written slot.  Here one body with the
 // paged kernel (decode_attn.cuh, DenseAddr policy: row (b * S_c + t) * KV +
-// kv): a block walks only the live keys of its row.  Both kernels split
-// keys across warps identically, so a paged pool whose table is the
-// identity gives the same bits as the matching dense cache.  Bound and
+// kv): a block stages only its split of the live keys of its row.  Both
+// kernels split keys across blocks identically (the split depends on key
+// indices, never on pages), so a paged pool whose table is the identity
+// gives the same bits as the matching dense cache.  part/cnt: the split
+// partials' scratch and counters, as in paged_decode.cu.  Bound and
 // design: decode_attn.cuh.
 #include "decode_attn.cuh"
 
 extern "C" int dense_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                       const void* k_scale, const void* v_scale,
-                                      const void* pos, void* out, int b, int L, int h,
-                                      int kvh, int d, int s_c, int window, float scale,
-                                      int dtype, int kv, void* stream) {
+                                      const void* pos, void* out, void* part, void* cnt,
+                                      int b, int L, int h, int kvh, int d, int s_c, int window,
+                                      int splits, int kps, float scale, int dtype, int kv,
+                                      void* stream) {
   using namespace decode_attn;
   if (s_c < 1 || window < 0 || (window > 0 && L != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k_cache, v_cache, static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale), static_cast<const int*>(pos), out, b, L, h,
-               kvh, s_c - 1, window, s_c, scale};
+               static_cast<const float*>(v_scale), static_cast<const int*>(pos), out,
+               static_cast<float*>(part), static_cast<int*>(cnt), b, L, h, kvh, s_c - 1, window,
+               s_c, splits, kps, scale};
   const DenseAddr addr{s_c, kvh};
   return window > 0 ? launch_any<true>(dtype, kv, d, a, addr, stream)
                     : launch_any<false>(dtype, kv, d, a, addr, stream);

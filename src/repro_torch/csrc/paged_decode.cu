@@ -11,23 +11,27 @@
 //
 // The TPU kernel is driven by a scalar-prefetched block table whose index
 // map streams one page per grid step.  Here each block reads its own table
-// row and position and walks only the live keys 0 .. pos+l, at most
-// (pos+L-1)/bs + 1 pages: the body, bound and design are in
-// decode_attn.cuh, shared with the dense kernel (dense_decode.cu) through
-// the PagedAddr policy.  Idle slots decode at pos 0 against the scratch
-// page and stay finite.
+// row and position and stages only its share of the live keys 0 .. pos+l
+// (a key split of the host's plan, decode_split_plan), looking the pages
+// up a tile ahead: the body, bound and design are in decode_attn.cuh,
+// shared with the dense kernel (dense_decode.cu) through the PagedAddr
+// policy.  part/cnt: the split partials' f32 scratch and the per-tile
+// counters (zero on entry, left zero), unused when splits == 1.  Idle
+// slots decode at pos 0 against the scratch page and stay finite.
 #include "decode_attn.cuh"
 
 extern "C" int paged_decode_attention(const void* q, const void* k_pool, const void* v_pool,
                                       const void* k_scale, const void* v_scale,
-                                      const void* table, const void* pos, void* out, int b,
-                                      int L, int h, int kvh, int d, int bs, int nb,
-                                      float scale, int dtype, int kv, void* stream) {
+                                      const void* table, const void* pos, void* out,
+                                      void* part, void* cnt, int b, int L, int h, int kvh,
+                                      int d, int bs, int nb, int splits, int kps, float scale,
+                                      int dtype, int kv, void* stream) {
   using namespace decode_attn;
   if (bs < 1 || nb < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale), static_cast<const int*>(pos), out, b, L, h,
-               kvh, nb * bs - 1, 0, 0, scale};
+               static_cast<const float*>(v_scale), static_cast<const int*>(pos), out,
+               static_cast<float*>(part), static_cast<int*>(cnt), b, L, h, kvh, nb * bs - 1,
+               0, 0, splits, kps, scale};
   return launch_any<false>(dtype, kv, d, a,
                            PagedAddr{static_cast<const int*>(table), nb, bs, kvh}, stream);
 }

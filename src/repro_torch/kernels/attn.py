@@ -16,7 +16,8 @@ pools in the query's dtype ("bf16": bf16 or f32), int8 pools ("kv8") and
 packed-nibble uint8 pools ("kv4", head dim D/2), the quantized ones with
 float32 scale pages (..., KV, 1) beside them, dequantized as float(q) *
 scale.  Each keeps a launch count per layout (`launches_by_kv`) beside the
-total (`launches`).
+total (`launches`).  Both split a row's keys across thread blocks by one
+plan, `decode_split_plan`, and merge the splits inside the same launch.
 """
 
 from __future__ import annotations
@@ -32,6 +33,74 @@ from repro_torch.kernels import build
 # The decode kernels' storage codes (csrc/decode_attn.cuh): pools in the
 # query's dtype, int8, packed nibbles.
 _KV_CODES = {"bf16": 0, "kv8": 1, "kv4": 2}
+
+# The decode kernels' tiling (csrc/decode_attn.cuh: QT, KT): query rows
+# (l, j) a block, keys a staged tile (split ranges are multiples of it), and
+# the blocks the split plan aims for: two per SM of the H100's 132.
+DECODE_TILE_ROWS = 64
+DECODE_KEY_TILE = 64
+DECODE_TARGET_BLOCKS = 264
+DECODE_MAX_SPLITS = 64  # the merge's weights fill a (64 rows, 64 splits) table
+
+
+def decode_split_plan(b: int, kvh: int, L: int, g: int, live_keys: int) -> tuple[int, int]:
+    """How the decode kernels split keys across blocks: (splits,
+    keys_per_split).  The grid holds b * kvh * tiles * splits blocks (tiles
+    = ceil(L * g / 64) query-row tiles); splits is the least count of
+    64-key-aligned ranges of `live_keys` keys (the host's bound: the table's
+    or the cache's width) of equal size that brings the grid to
+    DECODE_TARGET_BLOCKS, at most one range per 64 keys and
+    DECODE_MAX_SPLITS ranges, each range holding keys at the bound.  It
+    depends on key counts only, never on pages, so the paged and the dense
+    kernel run the same split on the same keys."""
+    tiles = -(-(L * g) // DECODE_TILE_ROWS)
+    chunks = max(1, -(-live_keys // DECODE_KEY_TILE))
+    want = min(chunks, DECODE_MAX_SPLITS,
+               max(1, -(-DECODE_TARGET_BLOCKS // (b * kvh * tiles))))
+    per = chunks // want  # key tiles a split: splits >= want
+    return -(-chunks // per), per * DECODE_KEY_TILE
+
+
+def decode_split_range(split: int, splits: int, keys_per_split: int,
+                       n_live: int) -> tuple[int, int]:
+    """Keys [lo, hi) of split `split` in a block whose rows attend keys 0 ..
+    n_live - 1 (n_live <= the plan's live_keys), as the kernel computes
+    them: the live keys cut into `splits` equal 64-aligned ranges, so a
+    split past the row's last key is empty (lo == hi) and writes only an
+    empty state."""
+    chunks = -(-n_live // DECODE_KEY_TILE)
+    per = min(keys_per_split, -(-chunks // splits) * DECODE_KEY_TILE)
+    lo = split * per
+    return lo, max(lo, min(n_live, lo + per))
+
+
+# Per device: the split counters (one int per (row, kv head, tile)), zeroed
+# once when made; every launch leaves them zero again.
+_split_counters: dict = {}
+
+
+def _split_scratch(q: torch.Tensor, kvh: int, live_keys: int):
+    """The plan for `q` and, when it splits, the f32 partial-state scratch
+    and the counters: (splits, keys_per_split, part, cnt), the last two
+    None for a single split."""
+    b, L, h, d = q.shape
+    g = h // kvh
+    splits, kps = decode_split_plan(b, kvh, L, g, live_keys)
+    if splits == 1:
+        return splits, kps, None, None
+    qt = min(DECODE_TILE_ROWS, L * g)
+    tiles = -(-(L * g) // DECODE_TILE_ROWS)
+    n = b * kvh * tiles
+    part = torch.empty(n * splits * qt * (2 + d), dtype=torch.float32, device=q.device)
+    cnt = _split_counters.get(q.device)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 4096), dtype=torch.int32, device=q.device)
+        _split_counters[q.device] = cnt
+    return splits, kps, part, cnt
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def masked_softmax(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -180,7 +249,7 @@ def _scale_ptrs(k_scale, v_scale):
 def _paged_kernel():
     return build.entry(
         "paged_decode", "paged_decode_attention",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     )
 
@@ -191,7 +260,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
                            kv_quant: str = "bf16") -> torch.Tensor:
     """q (B, L, H, D) against pools (P, bs, KV, Ds) through table (B, NB)
     int32 and pos (B,) int32 (position of q[:, 0]), any window L (the kernel
-    tiles the L*G query rows 32 at a time).  `kv_quant` names the pools'
+    tiles the L*G query rows 64 at a time and splits keys by
+    decode_split_plan over the table's NB*bs keys).  `kv_quant` names the pools'
     layout; kv8/kv4 take `k_scale`/`v_scale` pages (P, bs, KV, 1) float32.
     Only live pages are read.  Plain version on the CPU; on a CUDA tensor
     the kernel runs or this raises."""
@@ -208,10 +278,12 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     table = table.to(torch.int32).contiguous()
     posv = _row_positions(pos, b, q.device).to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    splits, kps, part, cnt = _split_scratch(q, kvh, table.shape[1] * bs)
     err = _paged_kernel()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs, table.data_ptr(),
-        posv.data_ptr(), out.data_ptr(), b, L, h, kvh, d, bs, table.shape[1],
-        d**-0.5, build.dtype_code(q.dtype), _KV_CODES[kv_quant], build.stream_ptr(q.device),
+        posv.data_ptr(), out.data_ptr(), _ptr(part), _ptr(cnt), b, L, h, kvh, d, bs,
+        table.shape[1], splits, kps, d**-0.5, build.dtype_code(q.dtype), _KV_CODES[kv_quant],
+        build.stream_ptr(q.device),
     )
     build.check(err, "paged_decode", "paged_decode_attention launch")
     paged_decode_attention.launches += 1
@@ -227,7 +299,7 @@ paged_decode_attention.launches_by_kv = dict.fromkeys(encoding.KV_QUANTS, 0)
 def _dense_kernel():
     return build.entry(
         "dense_decode", "dense_decode_attention",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     )
 
@@ -258,10 +330,12 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     ks, vs = _scale_ptrs(k_scale, v_scale)
     posv = _row_positions(pos, b, q.device).to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    splits, kps, part, cnt = _split_scratch(q, kvh, s_c)
     err = _dense_kernel()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ks, vs, posv.data_ptr(),
-        out.data_ptr(), b, L, h, kvh, d, s_c, window, d**-0.5, build.dtype_code(q.dtype),
-        _KV_CODES[kv_quant], build.stream_ptr(q.device),
+        out.data_ptr(), _ptr(part), _ptr(cnt), b, L, h, kvh, d, s_c, window, splits, kps,
+        d**-0.5,
+        build.dtype_code(q.dtype), _KV_CODES[kv_quant], build.stream_ptr(q.device),
     )
     build.check(err, "dense_decode", "dense_decode_attention launch")
     dense_decode_attention.launches += 1

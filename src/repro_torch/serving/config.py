@@ -3,9 +3,9 @@
 A copy of repro/serving/config.py (the port imports nothing of `repro`):
 the same fields, validation, resolve() rules and from_args routing, so a
 config reads the same in both packages (tests/test_torch_dense.py holds
-resolve() to JAX's).  The port's Engine raises NotImplementedError for the
-fields whose slice has not landed yet (temperature sampling, meshes:
-serving/engine.py).
+resolve() to JAX's).  The port's Engine serves every field but one: a
+`mesh_shape` with more than one device raises NotImplementedError
+(serving/engine.py); temperature sampling runs (serving/sampling.py).
 
 `Engine.__init__` historically grew ~15 ad-hoc keyword arguments (cache mode,
 paging geometry, speculative decode, token budget, SLO aging, sampling, ...),

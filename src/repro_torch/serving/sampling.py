@@ -13,13 +13,17 @@ argmax.  This module reproduces those functions bit for bit:
                             over the flat index i of every element
     uniform(key, shape)     the top 23 bits as a float in [1, 2), minus 1,
                             scaled to [minval, maxval) and clipped at minval
-    gumbel(key, shape)      -log(-log(uniform(minval=tiny, maxval=1)))
+    gumbel(key, shape)      -log(-log(uniform(minval=tiny, maxval=1))), each log
+                            taken in float64 and rounded to float32
     categorical(key, l)     argmax(gumbel(key, l.shape) + l, axis=-1)
 
 Keys are pairs of Python ints (fold_in costs no device work); the bits are
 computed in int64 tensors holding uint32 values, on the logits' device, so
 the card and the CPU give the same integers.  Only the two logs may differ
-from XLA's in the last bit.  This is plain PyTorch: JAX computes it outside
+from XLA's in the last bit: each is taken in float64 and rounded to float32
+(XLA's order of two float32 logs, each correctly rounded but for the double
+rounding), so the noise does not hang on the float32 log of the process's
+math library or its state.  This is plain PyTorch: JAX computes it outside
 any Pallas kernel.
 """
 
@@ -90,8 +94,12 @@ def uniform(key: Key, shape: tuple[int, ...], *, minval: float = 0.0, maxval: fl
 
 
 def gumbel(key: Key, shape: tuple[int, ...], device="cpu") -> torch.Tensor:
-    """jax.random.gumbel(key, shape, float32) in its default "low" mode."""
-    return -torch.log(-torch.log(uniform(key, shape, minval=TINY, maxval=1.0, device=device)))
+    """jax.random.gumbel(key, shape, float32) in its default "low" mode:
+    -log(-log(u)) with each log in float64, rounded to float32 before the
+    next step."""
+    u = uniform(key, shape, minval=TINY, maxval=1.0, device=device)
+    inner = torch.log(u.double()).float()
+    return -torch.log(-inner.double()).float()
 
 
 def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:

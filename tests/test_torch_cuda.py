@@ -206,6 +206,81 @@ def test_identity_table_paged_kernel_equals_dense_kernel(dev, kv, dtype, L):
     assert torch.equal(paged, dense)
 
 
+def _paged_case(dev, kv, dtype, b, L, pos, *, nb=64, h=32, kvh=8, seed=20):
+    """Paged decode at Llama-3.2-1B's heads over a random table of nb pages
+    of 16: (kernel output, plain output, inputs for a second call)."""
+    rng = np.random.RandomState(seed)
+    d, bs, pages = 64, 16, b * nb + 1
+    q = _rand(dev, dtype, b, L, h, d, seed=seed)
+    k_pool, k_scale = _kv_pages(dev, kv, dtype, pages, bs, kvh, d, seed=seed + 1)
+    v_pool, v_scale = _kv_pages(dev, kv, dtype, pages, bs, kvh, d, seed=seed + 2)
+    table = torch.from_numpy(
+        np.stack([rng.permutation(pages - 1)[:nb] + 1 for _ in range(b)]).astype(np.int32)
+    ).to(dev)
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    args = (q, k_pool, v_pool, table, posv)
+    kw = dict(k_scale=k_scale, v_scale=v_scale, kv_quant=kv)
+    got = attn.paged_decode_attention(*args, **kw)
+    return got, attn.paged_decode_attention_plain(*args, **kw), (args, kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [[0, 62, 63, 64], [1023, 0, 900, 255], [511, 767, 383, 127]])
+def test_decode_split_edges(dev, dtype, pos):
+    """L = 1 at B = 4 over a 1024-key table splits into 16 ranges of 64 keys:
+    rows with 1, 63, 64 and 65 live keys (one split busy, or two), pos 0
+    beside 900 and a full 1024 (every split busy), and rows ending on split
+    boundaries."""
+    got, want, _ = _paged_case(dev, "bf16", dtype, 4, 1, pos)
+    assert attn.decode_split_plan(4, 8, 1, 4, 1024)[0] > 1
+    torch.testing.assert_close(got, want, **_tol(dtype, False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 16])
+def test_decode_wide_window_batch_edges(dev, dtype, b):
+    """L = 256 (sixteen 64-row tiles, the tensor cores in bf16) at B = 1,
+    which splits keys, and at B = 16, which does not."""
+    pos = [0, 37, 300, 511, 700, 64, 1, 128, 600, 2, 65, 63, 450, 99, 200, 767][:b]
+    got, want, _ = _paged_case(dev, "bf16", dtype, b, 256, pos)
+    torch.testing.assert_close(got, want, **_tol(dtype, False))
+
+
+@pytest.mark.parametrize("kv", ["kv8", "kv4"])
+@pytest.mark.parametrize("L", [4, 5, 16])
+def test_quantized_pools_on_tensor_cores(dev, kv, L):
+    """bf16 queries on kv8/kv4 pools: L*G = 16, 20 and 64 rows take the
+    tensor cores (tiles dequantized to bf16 in shared memory)."""
+    got, want, _ = _paged_case(dev, kv, torch.bfloat16, 4, L, [37, 300, 511, 900])
+    torch.testing.assert_close(got, want, **_tol(torch.bfloat16, False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_wrapping_at_a_split_boundary(dev, dtype):
+    """A 256-slot ring (window 256) over four 64-key splits: rows whose
+    newest slot is 63, 127 or 191 wrap exactly at a split boundary."""
+    b, h, kvh, d, ring = 4, 32, 8, 64, 256
+    q = _rand(dev, dtype, b, 1, h, d, seed=30)
+    k = _rand(dev, dtype, b, ring, kvh, d, seed=31)
+    v = _rand(dev, dtype, b, ring, kvh, d, seed=32)
+    pos = torch.tensor([319, 383, 447 + 256, 63], dtype=torch.int32, device=dev)
+    assert attn.decode_split_plan(b, kvh, 1, h // kvh, ring)[0] == 4
+    got = attn.dense_decode_attention(q, k, v, pos, window=ring)
+    want = attn.dense_decode_attention_plain(q, k, v, pos, window=ring)
+    torch.testing.assert_close(got, want, **_tol(dtype, False))
+
+
+@pytest.mark.parametrize("kv,dtype,L", [("bf16", torch.bfloat16, 1), ("bf16", torch.float32, 1),
+                                        ("bf16", torch.bfloat16, 16), ("kv8", torch.bfloat16, 5),
+                                        ("kv4", torch.float32, 1)])
+def test_decode_repeats_bit_for_bit(dev, kv, dtype, L):
+    """Two calls in a row give the same bits: the merge runs in split order
+    and the last block leaves its counter at 0 for the next launch."""
+    got, _, (args, kw) = _paged_case(dev, kv, dtype, 4, L, [37, 300, 511, 900])
+    for _ in range(2):
+        assert torch.equal(attn.paged_decode_attention(*args, **kw), got)
+
+
 def _serve(params, cfg, enc, dev, prompts, max_new, **config):
     eng = engine_lib.Engine(params, cfg, enc, config=EngineConfig(**config), device=dev)
     for i, p in enumerate(prompts):

@@ -16,7 +16,13 @@
   equal greedy, the same seed gives the same stream, spec decode and the
   token budget are off under sampling.
 - A chi-square test of the sampler's frequencies against softmax(l / T).
+- The Gumbel noise keeps its bits under process states a test worker may
+  carry (thread count, flushed denormals, MKL's low-accuracy vector math).
 """
+
+import contextlib
+import ctypes
+import os
 
 import numpy as np
 import pytest
@@ -82,6 +88,56 @@ def test_gumbel_and_categorical_match_jax(shape):
     np.testing.assert_array_equal(
         sampling.categorical(tkey, torch.from_numpy(logits)).numpy(),
         np.asarray(jax.random.categorical(key, logits)))
+
+
+@contextlib.contextmanager
+def _process_state(state: str):
+    """A state a test worker's process may carry from earlier tests: fewer
+    intra-op threads, denormals flushed, or MKL's vector math in its
+    low-accuracy mode (where this torch build exports vmlSetMode)."""
+    if state.startswith("threads"):
+        n = torch.get_num_threads()
+        torch.set_num_threads(int(state[len("threads"):]))
+        try:
+            yield
+        finally:
+            torch.set_num_threads(n)
+    elif state == "flush_denormal":
+        torch.set_flush_denormal(True)
+        try:
+            yield
+        finally:
+            torch.set_flush_denormal(False)
+    else:  # "vml_ep": MKL VML's enhanced-performance (half-precision-bits) mode
+        lib = ctypes.CDLL(os.path.join(os.path.dirname(torch.__file__), "lib",
+                                       "libtorch_cpu.so"))
+        if not hasattr(lib, "vmlSetMode"):
+            yield
+            return
+        old = lib.vmlSetMode(ctypes.c_uint(0x3))
+        try:
+            yield
+        finally:
+            lib.vmlSetMode(ctypes.c_uint(old))
+
+
+@pytest.mark.parametrize("state", ["threads1", "threads2", "flush_denormal", "vml_ep"])
+def test_gumbel_independent_of_process_state(state):
+    """Regression for noise that drifted in a multi-worker run (one value
+    off by 9e-5, passing in a fresh process): under each process state the
+    port's Gumbel noise has the same bits as in the default state and stays
+    within 2 ulp of JAX's, for the decode shape and a flat size above the
+    intra-op grain."""
+    key = jax.random.fold_in(jax.random.PRNGKey(3), 5)
+    tkey = sampling.fold_in(sampling.prng_key(3), 5)
+    for shape in ((4, 1001), (70001,)):
+        want = np.asarray(jax.random.gumbel(key, shape))
+        fresh = sampling.gumbel(tkey, shape)
+        with _process_state(state):
+            got = sampling.gumbel(tkey, shape)
+        assert torch.equal(got, fresh)
+        got = got.numpy()
+        assert np.all(np.abs(got - want) <= 2 * EPS32 * np.maximum(1.0, np.abs(want)))
 
 
 def _jax_decode_sampled(logits, temp, key):
