@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
              and prefill slabs, the packed GEMV at 1-8 rows, paged decode
              at windows of 1, 4, 5, 16 and 256), in bf16 and f32, with its
              time, the plain version's time, a library yardstick timed only
-             (torch.matmul on the unpacked weight, SDPA), and the roofline
+             (torch.matmul on the unpacked weight, SDPA with the causal mask,
+             and beside it at q_offset 0 SDPA's own is_causal prefill over
+             the grouped heads), and the roofline
              bound computed from the shapes; then the four quantized-weight
              kernels (w8a8: fused_gemv_q8, mmt4d_q8, equal to their plain
              versions bit for bit; w4a8 at group 16 and 32: fused_gemv_q4,
@@ -339,6 +341,16 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
             # SDPA yardstick on K/V expanded to the query heads (head = kv*G + j).
             qt = q.transpose(1, 2)
             kt, vt = (t.repeat_interleave(h // kvh, dim=2).transpose(1, 2) for t in (k, v))
+            # Beside it at q_offset 0, SDPA's own causal prefill over the
+            # grouped heads (the same function), where torch takes enable_gqa.
+            extra = {}
+            if q_off == 0:
+                try:
+                    qg, kg, vg = (t.transpose(1, 2) for t in (q, k, v))
+                    extra["sdpa_causal_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+                        qg, kg, vg, is_causal=True, enable_gqa=True))
+                except TypeError:
+                    extra["sdpa_causal_ms"] = None
             record("flash_prefill_attention", f"{dname} B={b} Sq={sq} Sk={sk} q_offset={q_off}",
                    err=(got.float() - want.float()).abs().max().item(), tol=tol,
                    ms=timer.ms(lambda: attn.flash_prefill_attention(q, k, v, q_offset=q_off)),
@@ -347,7 +359,7 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
                    library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, attn_mask=mask)),
                    bytes_moved=(2 * b * sq * h * d + 2 * b * sk * kvh * d) * s,
-                   flops=4 * b * h * d * pairs, dname=dname)
+                   flops=4 * b * h * d * pairs, dname=dname, **extra)
 
     bs, pages = 16, 257
     pos_list = [37, 300, 511, 900]

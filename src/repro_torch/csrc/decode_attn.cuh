@@ -1,14 +1,19 @@
-// Decode attention: the kernel body shared by the paged and the dense decode
-// kernels (paged_decode.cu, dense_decode.cu), templated on the query dtype,
-// the KV storage and an addressing policy.
+// Attention over a KV cache: the kernel body shared by the paged and the
+// dense decode kernels and by flash prefill (paged_decode.cu,
+// dense_decode.cu, flash_prefill.cu), templated on the query dtype, the KV
+// storage and an addressing policy.
 //
-//   q (B, L, H, D); pos (B,) int32, the position of q[:, 0]; out (B, L, H, D)
-//   in q's dtype.  Query l of row b sits at qpos = pos[b] + l and attends
-//   keys t <= qpos (masked-causal inside an L > 1 window).  A dense ring
-//   cache (window > 0, L = 1) holds the last positions in S_c slots: a row
-//   still inside its first window takes the prefix mask, a wrapped row
-//   visits every slot and keeps those whose age (qpos - t) mod S_c is below
-//   min(qpos + 1, window), as the JAX package's attention_decode does.
+//   q (B, L, H, D); pos (B,) int32, the position of q[:, 0] (or one scalar
+//   position pos0 for every row: pos == nullptr); out (B, L, H, D) in q's
+//   dtype.  Query l of row b sits at qpos = pos[b] + l and attends keys
+//   t <= qpos (masked-causal inside an L > 1 window; every key up to the
+//   cap when !causal).  A dense ring cache (RING: window > 0, L = 1) holds
+//   the last positions in S_c slots: a row still inside its first window
+//   takes the prefix mask, a wrapped row visits every slot and keeps those
+//   whose age (qpos - t) mod S_c is below min(qpos + 1, window), as the JAX
+//   package's attention_decode does.  Without RING, window > 0 is prefill's
+//   sliding band at any L: keys t > qpos - window, and key tiles wholly
+//   below the band of every row of a query tile are never staged.
 //
 // Storage (Store<T, KVC>): KV_RAW pools in the query's dtype (bf16, f32);
 // KV_INT8 int8 rows (kv8); KV_NIB packed nibbles (kv4, D/2 bytes a row, even
@@ -35,7 +40,8 @@
 //      (kernels/attn.py: decode_split_plan) gives the split count from
 //      (B, KV, tiles, the key bound) so that the grid holds >= 264 blocks
 //      (two per SM) where there are keys enough.  A block divides its
-//      tile's live keys 0 .. t_end evenly over the splits in 64-key-aligned
+//      tile's live keys first .. t_end (first: 0, or the 64-aligned start
+//      of a prefill band) evenly over the splits in 64-key-aligned
 //      ranges (decode_split_range mirrors the arithmetic), so the split
 //      depends on key indices and positions only, never on pages: the two
 //      addressing policies run the same blocks on the same keys and, every
@@ -54,7 +60,8 @@
 //      padded by one copy chunk so that the row-per-lane reads below are
 //      free of bank conflicts.  Keys no row of the tile attends are
 //      zero-filled, never read.
-//   3. Tensor cores for bf16 windows of L*G >= 16 rows (no ring): each warp
+//   3. Tensor cores for bf16 windows of L*G >= 16 rows (no ring; a bf16
+//      prefill of Sq*G >= 16 rows takes this path too): each warp
 //      owns 16 query rows; S = Q K^T and O = P V run as mma.sync m16n8k16
 //      (bf16 in, f32 accumulate) on the staged tiles, a flash-attention
 //      tile over the page table (online softmax in registers, P rounded to
@@ -82,6 +89,11 @@
 
 #include "common.cuh"
 
+// Internal linkage: each entry's library keeps its own instantiations (and
+// their function-local statics, such as the shared-memory opt-in flags),
+// which would otherwise be merged process-wide as GNU-unique symbols when
+// two libraries instantiate the same template.
+namespace {
 namespace decode_attn {
 
 constexpr int NT = 128;    // threads a block (4 warps)
@@ -288,7 +300,7 @@ struct Geo {
 // Runtime arguments of one launch.  t_cap: the last key index a row may
 // read (paged: NB*bs - 1, dense: S_c - 1).  part/cnt: f32 scratch for the
 // partial states and one int counter per (b, kv, tile), both unused when
-// splits == 1.
+// splits == 1.  pos0: every row's position when pos is null.
 struct Params {
   const void* q;
   const void* k;
@@ -301,6 +313,7 @@ struct Params {
   int* cnt;
   int L, h, kvh, g, t_cap, window, s_c, splits, kps, tiles, qt;
   float scale;
+  int pos0, causal;
 };
 
 // ---------------------------------------------------------------------------
@@ -328,28 +341,33 @@ decode_kernel(const Params p, const Addr addr) {
   const int rows = p.L * p.g;
   const int r0 = tile * QT;                 // first query row of the tile
   const int R = min(QT, rows - r0);         // its live rows
-  const int pos_b = p.pos[b];
+  const int pos_b = p.pos ? p.pos[b] : p.pos0;
   // A wrapped ring row (L = 1: the tile's one position) visits every slot
-  // and masks by age; any other row walks keys 0 .. qpos.
+  // and masks by age; a causal row walks keys 0 .. qpos (from qpos -
+  // window + 1 in a prefill band), a non-causal one every key to the cap.
   const bool ring = RING && p.window > 0 && pos_b >= p.window;
+  const bool band = !RING && p.window > 0;
   const int ring_n = min(pos_b + 1, p.window);
-  const int n_live = (ring ? p.t_cap : min(pos_b + (r0 + R - 1) / p.g, p.t_cap)) + 1;
-  // This split's keys: the tile's live keys cut into `splits` 64-aligned
-  // ranges (kernels/attn.py: decode_split_range).
-  const int chunks = (n_live + KT - 1) / KT;
-  const int per = min(p.kps, ((chunks + p.splits - 1) / p.splits) * KT);
-  const int lo = split * per;
-  const int hi = min(n_live, lo + per);
-  const int ntile = lo < hi ? (hi - lo + KT - 1) / KT : 0;
-
   auto ring_ok = [&](int t) {
     int age = (pos_b - t) % p.s_c;
     if (age < 0) age += p.s_c;
     return age < ring_n;
   };
-  auto t_end_of = [&](int r) {  // last key of tile row r (r < R)
-    return ring ? p.t_cap : min(pos_b + (r0 + r) / p.g, p.t_cap);
+  auto t_end_of = [&](int r) {  // last key of tile row r (r < R); rows rise with r
+    return ring || !p.causal ? p.t_cap : min(pos_b + (r0 + r) / p.g, p.t_cap);
   };
+  auto t_beg_of = [&](int r) {  // first key of tile row r (may be negative)
+    return band ? pos_b + (r0 + r) / p.g - p.window + 1 : 0;
+  };
+  const int n_live = t_end_of(R - 1) + 1;
+  const int first = band ? max(0, t_beg_of(0)) / KT * KT : 0;
+  // This split's keys: the tile's live keys first .. n_live - 1 cut into
+  // `splits` 64-aligned ranges (kernels/attn.py: decode_split_range).
+  const int chunks = n_live > first ? (n_live - first + KT - 1) / KT : 0;
+  const int per = min(p.kps, ((chunks + p.splits - 1) / p.splits) * KT);
+  const int lo = first + split * per;
+  const int hi = min(n_live, lo + per);
+  const int ntile = lo < hi ? (hi - lo + KT - 1) / KT : 0;
 
   unsigned char* stage_k = smem;
   unsigned char* stage_v = smem + 2 * Gm::STAGE;
@@ -416,6 +434,8 @@ decode_kernel(const Params p, const Addr addr) {
     const bool active = warp * 16 < R;
     const int te_a = ra < R ? t_end_of(ra) : -1;
     const int te_b = rb < R ? t_end_of(rb) : -1;
+    const int tb_a = ra < R ? t_beg_of(ra) : 0;
+    const int tb_b = rb < R ? t_beg_of(rb) : 0;
     unsigned qa[D / 16][4];
     {
       const T* qra = ra < R ? q_at(ra) : nullptr;
@@ -493,7 +513,8 @@ decode_kernel(const Params p, const Addr addr) {
           for (int e = 0; e < 4; ++e) {
             const int t = t0 + n * 8 + 2 * q4 + (e & 1);
             const int te = e < 2 ? te_a : te_b;
-            const float x = (t < hi && t <= te) ? __fmul_rn(s[n][e], p.scale) : NEG_INF;
+            const int tb = e < 2 ? tb_a : tb_b;
+            const float x = (t < hi && t <= te && t >= tb) ? __fmul_rn(s[n][e], p.scale) : NEG_INF;
             s[n][e] = x;
             mt[e >> 1] = fmaxf(mt[e >> 1], x);
           }
@@ -628,7 +649,7 @@ decode_kernel(const Params p, const Addr addr) {
         const int r = e / KT;
         const int kk = e % KT;
         const int t = t0 + kk;
-        bool valid = t < hi && t <= t_end_of(r);
+        bool valid = t < hi && t <= t_end_of(r) && t >= t_beg_of(r);
         if (valid && ring) valid = ring_ok(t);
         float x = NEG_INF;
         if (valid) {
@@ -789,7 +810,9 @@ decode_kernel(const Params p, const Addr addr) {
 }
 
 // Runtime arguments of one call.  t_cap: the last key index a row may read
-// (paged: NB*bs - 1, dense: S_c - 1).  splits/kps: the host's split plan.
+// (paged: NB*bs - 1, dense: S_c - 1, prefill: Sk - 1).  splits/kps: the
+// host's split plan.  pos0: every row's position when pos is null
+// (prefill's q_offset); causal 0: every key to t_cap (prefill only).
 struct Args {
   const void* q;
   const void* k;
@@ -802,6 +825,8 @@ struct Args {
   int* cnt;
   int b, L, h, kvh, t_cap, window, s_c, splits, kps;
   float scale;
+  int pos0 = 0;
+  int causal = 1;
 };
 
 template <typename T, int KVC, int D, bool RING, bool TC, typename Addr>
@@ -812,7 +837,8 @@ int launch(const Args& a, const Addr& addr, cudaStream_t stream) {
   const int tiles = (rows + QT - 1) / QT;
   const Params p{a.q,     a.k,     a.v,      a.ks,     a.vs,     a.pos,   a.out,
                  a.part,  a.cnt,   a.L,      a.h,      a.kvh,    g,       a.t_cap,
-                 a.window, a.s_c,  a.splits, a.kps,    tiles,    min(QT, rows), a.scale};
+                 a.window, a.s_c,  a.splits, a.kps,    tiles,    min(QT, rows), a.scale,
+                 a.pos0,  a.causal};
   auto kern = decode_kernel<T, KVC, D, RING, TC, Addr>;
   const int bytes = Gm::bytes(min(QT, rows));
   if (Gm::bytes(QT) > 48 * 1024) {  // opt in once per device, for any qt
@@ -831,8 +857,8 @@ int launch(const Args& a, const Addr& addr, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 full-attention windows of at least 16 query rows take the tensor
-// cores; everything else the CUDA cores.
+// bf16 windows (full attention or a prefill band) of at least 16 query
+// rows take the tensor cores; everything else the CUDA cores.
 template <typename T, int KVC, int D, bool RING, typename Addr>
 int launch_path(const Args& a, const Addr& addr, cudaStream_t s) {
   if constexpr (sizeof(T) == 2 && !RING) {
@@ -888,3 +914,4 @@ int launch_any(int dtype, int kv, int d, const Args& a, const Addr& addr, void* 
 }
 
 }  // namespace decode_attn
+}  // namespace

@@ -4,8 +4,9 @@ repro/kernels/attn.py: flash_prefill_attention, paged_decode_attention and
 dense_decode_attention).
 
 CUDA sources: csrc/flash_prefill.cu, csrc/paged_decode.cu and
-csrc/dense_decode.cu (the two decode kernels share one body,
-csrc/decode_attn.cuh, with two addressing policies).  Each wrapper launches
+csrc/dense_decode.cu, three entries into one body, csrc/decode_attn.cuh,
+with two addressing policies (prefill reads its K/V as a dense cache of Sk
+slots, every query row at q_offset + i).  Each wrapper launches
 its kernel for CUDA tensors and takes its plain version only for tensors on
 the CPU.  Head h of a query reads kv head h // G (G = H / KV), i.e. head =
 kv*G + j, the JAX package's grouping.  Rows with no valid key come back 0,
@@ -16,8 +17,8 @@ pools in the query's dtype ("bf16": bf16 or f32), int8 pools ("kv8") and
 packed-nibble uint8 pools ("kv4", head dim D/2), the quantized ones with
 float32 scale pages (..., KV, 1) beside them, dequantized as float(q) *
 scale.  Each keeps a launch count per layout (`launches_by_kv`) beside the
-total (`launches`).  Both split a row's keys across thread blocks by one
-plan, `decode_split_plan`, and merge the splits inside the same launch.
+total (`launches`).  All three split a row's keys across thread blocks by
+one plan, `decode_split_plan`, and merge the splits inside the same launch.
 """
 
 from __future__ import annotations
@@ -62,15 +63,15 @@ def decode_split_plan(b: int, kvh: int, L: int, g: int, live_keys: int) -> tuple
 
 
 def decode_split_range(split: int, splits: int, keys_per_split: int,
-                       n_live: int) -> tuple[int, int]:
-    """Keys [lo, hi) of split `split` in a block whose rows attend keys 0 ..
-    n_live - 1 (n_live <= the plan's live_keys), as the kernel computes
-    them: the live keys cut into `splits` equal 64-aligned ranges, so a
-    split past the row's last key is empty (lo == hi) and writes only an
-    empty state."""
-    chunks = -(-n_live // DECODE_KEY_TILE)
+                       n_live: int, first: int = 0) -> tuple[int, int]:
+    """Keys [lo, hi) of split `split` in a block whose rows attend keys
+    first .. n_live - 1 (n_live <= the plan's live_keys; first 0, or the
+    64-aligned start of a prefill band), as the kernel computes them: those
+    keys cut into `splits` equal 64-aligned ranges, so a split past the
+    row's last key is empty (lo == hi) and writes only an empty state."""
+    chunks = max(0, -(-(n_live - first) // DECODE_KEY_TILE))
     per = min(keys_per_split, -(-chunks // splits) * DECODE_KEY_TILE)
-    lo = split * per
+    lo = first + split * per
     return lo, max(lo, min(n_live, lo + per))
 
 
@@ -231,6 +232,7 @@ def _check_decode(name, q, k, v, k_scale, v_scale, kv_quant, lead_ok) -> None:
 
 
 def _check_card(name: str, q: torch.Tensor, kvh: int) -> None:
+    """What the shared body takes on the card (csrc/decode_attn.cuh)."""
     if q.device.type != "cuda":
         raise RuntimeError(f"{name} runs on cuda (or cpu: plain), not {q.device}")
     b, L, h, d = q.shape
@@ -377,7 +379,7 @@ def flash_prefill_attention_plain(q, k, v, *, causal: bool = True, window: int =
 def _flash_kernel():
     return build.entry(
         "flash_prefill", "flash_prefill_attention",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     )
 
@@ -385,9 +387,13 @@ def _flash_kernel():
 def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             causal: bool = True, window: int = 0,
                             q_offset: int = 0) -> torch.Tensor:
-    """Tiled causal GQA prefill; chunks above the diagonal (q_offset
-    included) are never read.  Plain version on the CPU; on a CUDA tensor
-    the kernel runs or this raises."""
+    """Tiled causal GQA prefill; key tiles above the diagonal (q_offset
+    included) or below a `window` band are never read.  The card runs the
+    decode kernels' body over K/V as a dense cache (split by
+    decode_split_plan over the Sk keys, as dense decode does), so with
+    causal=True, window=0 it gives dense_decode_attention's bits for
+    pos = q_offset.  Plain version on the CPU; on a CUDA tensor the kernel
+    runs or this raises."""
     b, sq, h, d = q.shape
     _, sk, kvh, dk = k.shape
     if dk != d or v.shape != k.shape or k.shape[0] != b or h % kvh:
@@ -396,19 +402,19 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
     if q.device.type == "cpu":
         return flash_prefill_attention_plain(q, k, v, causal=causal, window=window,
                                              q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_prefill_attention runs on cuda (or cpu: plain), not {q.device}")
-    if d not in (16, 32, 64, 128) or (h // kvh) * 32 > 1024:
-        raise ValueError(f"flash kernel takes D in 16/32/64/128 and G <= 32, "
-                         f"got D={d}, G={h // kvh}")
+    _check_card("flash_prefill_attention", q, kvh)
+    if sk < 1 or q_offset < 0 or window < 0:
+        raise ValueError(f"flash kernel takes Sk >= 1, q_offset >= 0 and window >= 0, "
+                         f"got Sk={sk}, q_offset={q_offset}, window={window}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"k/v dtype {k.dtype}/{v.dtype} != query dtype {q.dtype}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     out = torch.empty_like(q)
+    splits, kps, part, cnt = _split_scratch(q, kvh, sk)
     err = _flash_kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kvh,
-        d, q_offset, int(causal), window, d**-0.5, build.dtype_code(q.dtype),
-        build.stream_ptr(q.device),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(part), _ptr(cnt),
+        b, sq, sk, h, kvh, d, q_offset, int(causal), window, splits, kps, d**-0.5,
+        build.dtype_code(q.dtype), build.stream_ptr(q.device),
     )
     build.check(err, "flash_prefill", "flash_prefill_attention launch")
     flash_prefill_attention.launches += 1

@@ -7,7 +7,10 @@ fused_pack_mmt4d_pallas).
     out  : (M, N1*N0) f32     plain
 
 CUDA source: csrc/fused_pack_mmt4d.cu.  `fused_pack_mmt4d` launches the
-kernel for CUDA tensors and takes the plain version only on the CPU.
+kernel for CUDA tensors and takes the plain version only on the CPU.  The
+bf16 kernel's block tile comes from `gemm_tile_plan`, and
+`gemm_block_loads` mirrors where each block's TMA copies read, so the CPU
+tests hold both.
 """
 
 from __future__ import annotations
@@ -31,11 +34,49 @@ def fused_pack_mmt4d_plain(lhs: torch.Tensor, rhs4: torch.Tensor) -> torch.Tenso
     return ref.unpack(out4, (m, n1 * n0))
 
 
+# The bf16 kernel's block tiles (BM, BN), largest first, and the blocks of
+# one full wave: one per SM of the H100.  (64 x 128 would never be chosen: a
+# 128 x 64 grid has at least as many blocks.)
+GEMM_TILES = ((128, 128), (128, 64), (64, 64))
+GEMM_WAVE = 132
+GEMM_K_STEP = 64  # K a pipeline stage
+
+
+def gemm_grid(m: int, n1: int, bm: int, bn: int) -> tuple[int, int]:
+    """The bf16 kernel's grid (x: N tiles, y: M tiles) for tile (bm, bn)."""
+    return n1 * 128 // bn, -(-m // bm)
+
+
+def gemm_tile_plan(m: int, n1: int) -> tuple[int, int]:
+    """(BM, BN) of the bf16 kernel at M rows and N = n1 * 128: the largest
+    tile of GEMM_TILES whose grid still fills one wave of GEMM_WAVE blocks,
+    else the smallest (the most blocks the shape allows).  K does not enter:
+    every block walks all of it."""
+    for bm, bn in GEMM_TILES:
+        gx, gy = gemm_grid(m, n1, bm, bn)
+        if gx * gy >= GEMM_WAVE:
+            return bm, bn
+    return GEMM_TILES[-1]
+
+
+def gemm_block_loads(bx: int, by: int, step: int, bm: int, bn: int,
+                     k1: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """The (column, row) origins of the two TMA boxes block (bx, by) loads at
+    K step `step` (0 .. 2*k1 - 1), as the kernel computes them: lhs's
+    (64, bm) box in its (M, K) map, and the weight's (64, bn) box in rhs4
+    viewed as (N1*K1*128, 128) -- packed tile (nt, kt) at rows
+    (nt*K1 + kt)*128 .., the block's N offset within it added."""
+    n_base = bx * bn
+    row0 = (n_base // 128) * k1 * 128 + n_base % 128
+    return ((step * GEMM_K_STEP, by * bm),
+            ((step & 1) * GEMM_K_STEP, row0 + (step >> 1) * 128))
+
+
 @functools.cache
 def _kernel():
     return build.entry(
         "fused_pack_mmt4d", "fused_pack_mmt4d",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     )
 
 
@@ -54,7 +95,8 @@ def fused_pack_mmt4d(lhs: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
                          f"got M={m}, tile=({n0}, {k0})")
     lhs, rhs4 = build.aligned(lhs), build.aligned(rhs4)
     out = torch.empty((m, n1 * n0), dtype=torch.float32, device=lhs.device)
-    err = _kernel()(lhs.data_ptr(), rhs4.data_ptr(), out.data_ptr(), m, n1, k1,
+    bm, bn = gemm_tile_plan(m, n1)
+    err = _kernel()(lhs.data_ptr(), rhs4.data_ptr(), out.data_ptr(), m, n1, k1, bm, bn,
                     build.dtype_code(lhs.dtype), build.stream_ptr(lhs.device))
     build.check(err, "fused_pack_mmt4d", "fused_pack_mmt4d launch")
     fused_pack_mmt4d.launches += 1

@@ -1,6 +1,6 @@
-"""Where a decode step's time goes on the card.
+"""Where a decode (or prefill) step's time goes on the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_decode
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode [--prefill]
 
 Serves four requests of the full-width bf16 Llama-3.2-1B (random weights from
 --seed; 4 slots, max_seq 1024, block 16, the serving path chip_smoke.py
@@ -13,13 +13,18 @@ by kernel name.  Writes the table to chiprun_out/profile_decode.json.
 --kv-quant kv8 | kv4 profiles a quantized KV pool (quantize-on-write and the
 decode kernel's int8 / nibble path); --sample temperature samples every
 request at --temperature (the sampler's elementwise ops and the copy of the
-temperatures join each step).
+temperatures join each step).  --prefill profiles the step that admits four
+fresh --prompt-len (default 512) prompts instead: one batched 4 x 512 =
+2048-row prefill (and the first decode of the four slots), --steps times,
+each after the previous requests have drained (a warm-up batch runs first,
+outside the profile); it writes chiprun_out/profile_prefill.json.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import itertools
 import json
 import os
 import time
@@ -39,14 +44,20 @@ def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--prompt-len", type=int, default=300)
-    ap.add_argument("--out", default="chiprun_out/profile_decode.json")
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="tokens a prompt (default 300; 512 with --prefill)")
+    ap.add_argument("--prefill", action="store_true",
+                    help="profile the step that runs a batched prefill")
+    ap.add_argument("--out", default=None)
     ap.add_argument("--quant", default="none", choices=sorted(QUANT_KEYS.values()))
     ap.add_argument("--quant-group", dest="quant_group", type=int, default=16)
     ap.add_argument("--kv-quant", dest="kv_quant", default="bf16", choices=encoding.KV_QUANTS)
     ap.add_argument("--sample", default="greedy", choices=["greedy", "temperature"])
     ap.add_argument("--temperature", type=float, default=0.8)
     args = ap.parse_args(argv)
+    prompt_len = args.prompt_len or (512 if args.prefill else 300)
+    kind = "prefill" if args.prefill else "decode"
+    out_path = args.out or f"chiprun_out/profile_{kind}.json"
 
     dev = T.resolve_device("cuda")
     cfg = registry.get_config("llama3.2-1b")
@@ -59,34 +70,55 @@ def main(argv: list[str] | None = None) -> dict:
                                                 kv_quant=args.kv_quant, sample=args.sample),
                             device=dev)
     rng = np.random.RandomState(args.seed)
-    for i in range(4):
-        prompt = rng.randint(1, cfg.vocab_size, args.prompt_len).astype(np.int32)
-        eng.submit(engine_lib.Request(uid=i, prompt=prompt, max_new_tokens=args.steps + 4,
-                                      temperature=args.temperature))
-    for _ in range(3):  # prefill + first decode steps, outside the window
-        eng.step()
-    torch.cuda.synchronize()
+    uid = itertools.count()
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    def submit(max_new):  # four fresh prompts: no prefix-cache hits
+        for _ in range(4):
+            prompt = rng.randint(1, cfg.vocab_size, prompt_len).astype(np.int32)
+            eng.submit(engine_lib.Request(uid=next(uid), prompt=prompt, max_new_tokens=max_new,
+                                          temperature=args.temperature))
 
     by_name: dict[str, list[float]] = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            row = by_name[e.name]
-            row[0] += e.time_range.elapsed_us() / 1e3
-            row[1] += 1
+    wall = 0.0
+
+    def profiled(n_steps: int) -> None:
+        """Run n_steps steps under the profiler; add their host time and
+        their device kernels to the totals."""
+        nonlocal wall
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                row = by_name[e.name]
+                row[0] += e.time_range.elapsed_us() / 1e3
+                row[1] += 1
+
+    if args.prefill:
+        for i in range(args.steps + 1):  # the first batch warms up, unprofiled
+            submit(max_new=2)
+            if i:
+                profiled(1)
+            eng.run()  # drain, outside the window
+            torch.cuda.synchronize()
+    else:
+        submit(max_new=args.steps + 4)
+        for _ in range(3):  # prefill + first decode steps, outside the window
+            eng.step()
+        torch.cuda.synchronize()
+        profiled(args.steps)
     busy = sum(v[0] for v in by_name.values())
     launches = sum(v[1] for v in by_name.values())
     step_ms = 1e3 * wall / args.steps
     busy_ms = busy / args.steps
     out = {
         "card": torch.cuda.get_device_name(0),
+        "step_kind": kind,
+        "prompt_len": prompt_len,
         "quant": args.quant,
         "kv_quant": args.kv_quant,
         "sample": args.sample,
@@ -102,15 +134,15 @@ def main(argv: list[str] | None = None) -> dict:
         ),
     }
     print(f"[profile] {out['card']} ({args.quant}, {args.kv_quant}, {args.sample}): "
-          f"{args.steps} decode steps, host {step_ms:.3f} ms/step, "
+          f"{args.steps} {kind} steps, host {step_ms:.3f} ms/step, "
           f"device busy {busy_ms:.3f} ms/step, idle share {out['device_idle_share']:.3f}, "
           f"{out['kernel_launches_per_step']:.0f} kernel launches/step")
     if not by_name:
         print("[profile] the profiler recorded no device activity")
     for r in out["kernels"][:15]:
         print(f"[profile] {r['ms_per_step']:8.4f} ms/step  x{r['count_per_step']:6.1f}  {r['name'][:90]}")
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
     return out
 

@@ -15,7 +15,10 @@ once: held to 3e-5 of the largest output, the bar of chip_smoke.py (they
 agree bit for bit where a row's group scales span less than 2**21).  The
 paged and dense decode kernels on kv8/kv4 caches dequantize exactly, so
 they keep the attention tolerances; through an identity page table the two
-kernels agree bit for bit.  The pack and unpack kernels copy bytes: equal
+kernels agree bit for bit, and flash prefill (the same body over K/V as a
+dense cache) agrees with dense decode at pos = q_offset bit for bit.  The
+bf16 prefill GEMM sums each output in a fixed order: a repeat call gives
+the same bits.  The pack and unpack kernels copy bytes: equal
 bit for bit.  batch_mmt4d sums the same exact products in another order
 (rtol 1e-5, atol 1e-4).  The sampler's integer bits, and so its uniforms,
 are the same on the card and the CPU."""
@@ -77,13 +80,50 @@ def test_fused_gemv_kernel(dev, dtype, m):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [16, 37, 300])
+@pytest.mark.parametrize("m", [1, 16, 37, 63, 64, 65, 129, 300, 2065])
 def test_fused_pack_mmt4d_kernel(dev, dtype, m):
+    """Ragged M: rows past M are zero-filled by the copies (bf16: TMA) and
+    never stored, at, below and past the 64- and 128-row tiles."""
     rhs4 = _rand(dev, dtype, 4, 3, 128, 128, scale=384**-0.5)
     lhs = _rand(dev, dtype, m, 384, seed=m)
+    before = fused_pack_mmt4d.fused_pack_mmt4d.launches
     got = fused_pack_mmt4d.fused_pack_mmt4d(lhs, rhs4)
+    assert fused_pack_mmt4d.fused_pack_mmt4d.launches == before + 1
     torch.testing.assert_close(got, fused_pack_mmt4d.fused_pack_mmt4d_plain(lhs, rhs4),
                                **_tol(dtype, True))
+
+
+# (N1, K1, M) and the bf16 tile the plan gives them: every tile the plan can
+# pick, at N1 in {1, 4, 64} and K1 in {1, 64}.
+_GEMM_TILE_CASES = [
+    (64, 1, 300, (128, 128)), (64, 64, 300, (128, 128)), (4, 1, 4200, (128, 128)),
+    (64, 1, 200, (128, 64)), (64, 64, 200, (128, 64)), (4, 64, 2065, (128, 64)),
+    (1, 1, 8321, (128, 64)),
+    (64, 1, 65, (64, 64)), (64, 64, 65, (64, 64)), (4, 1, 2048, (64, 64)),
+    (1, 64, 129, (64, 64)), (1, 1, 1, (64, 64)),
+]
+
+
+@pytest.mark.parametrize("n1,k1,m,tile", _GEMM_TILE_CASES)
+def test_fused_pack_mmt4d_every_tile(dev, n1, k1, m, tile):
+    assert fused_pack_mmt4d.gemm_tile_plan(m, n1) == tile
+    k = k1 * 128
+    rhs4 = _rand(dev, torch.bfloat16, n1, k1, 128, 128, scale=k**-0.5, seed=n1 + k1)
+    lhs = _rand(dev, torch.bfloat16, m, k, seed=m)
+    got = fused_pack_mmt4d.fused_pack_mmt4d(lhs, rhs4)
+    torch.testing.assert_close(got, fused_pack_mmt4d.fused_pack_mmt4d_plain(lhs, rhs4),
+                               **_tol(torch.bfloat16, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_pack_mmt4d_repeats_bit_for_bit(dev, dtype):
+    """Each block sums all of K itself in a fixed order: no split, no
+    atomics, so a second call gives the same bits."""
+    rhs4 = _rand(dev, dtype, 16, 16, 128, 128, scale=2048**-0.5)
+    lhs = _rand(dev, dtype, 777, 2048, seed=7)
+    got = fused_pack_mmt4d.fused_pack_mmt4d(lhs, rhs4)
+    for _ in range(2):
+        assert torch.equal(fused_pack_mmt4d.fused_pack_mmt4d(lhs, rhs4), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -112,14 +152,64 @@ def test_mmt4d_gemv_kernel(dev, dtype, m0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sq,sk,q_offset", [(40, 40, 0), (40, 72, 32), (7, 100, 93)])
+@pytest.mark.parametrize("sq,sk,q_offset", [
+    (40, 40, 0), (40, 72, 32), (7, 100, 93),
+    (1, 1, 0), (7, 7, 0), (63, 63, 0), (64, 64, 0), (65, 65, 0), (512, 512, 0),
+    (40, 100, 20),  # keys past the last query's position: never attended
+    (40, 50, 30),   # q_offset + Sq > Sk: the last rows attend every key
+])
 def test_flash_prefill_kernel(dev, dtype, sq, sk, q_offset):
+    """Sq at and around the 16-position query tiles of G = 4 and a full
+    serving prefill; Sk past the diagonal and Sk short of it."""
     q = _rand(dev, dtype, 2, sq, 8, 64, seed=1)
     k = _rand(dev, dtype, 2, sk, 2, 64, seed=2)
     v = _rand(dev, dtype, 2, sk, 2, 64, seed=3)
     got = attn.flash_prefill_attention(q, k, v, q_offset=q_offset)
     want = attn.flash_prefill_attention_plain(q, k, v, q_offset=q_offset)
     torch.testing.assert_close(got, want, **_tol(dtype, False))
+
+
+def _prefill_qkv(dev, dtype, b, sq, sk, h, kvh, d, seed=40):
+    return (_rand(dev, dtype, b, sq, h, d, seed=seed), _rand(dev, dtype, b, sk, kvh, d, seed=seed + 1),
+            _rand(dev, dtype, b, sk, kvh, d, seed=seed + 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 50), (False, 0), (False, 50)])
+def test_flash_prefill_masks(dev, dtype, d, g, causal, window):
+    """The sliding band at L > 1 (keys > qpos - window; tiles below every
+    row's band skipped), non-causal attention to every key, at each head
+    width and group size, with a q_offset that puts keys on both sides."""
+    q, k, v = _prefill_qkv(dev, dtype, 2, 150, 230, 2 * g, 2, d)
+    kw = dict(causal=causal, window=window, q_offset=60)
+    got = attn.flash_prefill_attention(q, k, v, **kw)
+    want = attn.flash_prefill_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got, want, **_tol(dtype, False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_rows_without_keys_are_zero_on_card(dev, dtype):
+    """A band that lies past every key (window 1, q_offset 10, Sk 4): every
+    row writes 0, not NaN, at 16 rows (tensor cores in bf16) and 3."""
+    for sq, h in ((4, 4), (3, 1)):
+        q, k, v = _prefill_qkv(dev, dtype, 1, sq, 4, h, 1, 16)
+        out = attn.flash_prefill_attention(q, k, v, causal=True, window=1, q_offset=10)
+        assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,q_offset", [(4, 512, 512, 0), (4, 256, 512, 256),
+                                              (1, 7, 100, 93), (2, 40, 72, 32)])
+def test_flash_prefill_equals_dense_decode_bit_for_bit(dev, dtype, b, sq, sk, q_offset):
+    """Flash prefill is the dense decode body over K/V as a cache of Sk
+    slots: with pos = q_offset the two give the same bits (one unsplit and
+    one split plan among the shapes), and a repeat call too."""
+    q, k, v = _prefill_qkv(dev, dtype, b, sq, sk, 32, 8, 64)
+    got = attn.flash_prefill_attention(q, k, v, q_offset=q_offset)
+    assert torch.equal(got, attn.dense_decode_attention(q, k, v, q_offset))
+    assert torch.equal(attn.flash_prefill_attention(q, k, v, q_offset=q_offset), got)
 
 
 def _kv_pages(dev, kv, dtype, *shape, seed):

@@ -79,3 +79,33 @@ def test_serving_shapes_fill_the_card():
     splits, kps = attn.decode_split_plan(4, KVH, 1, G, 1024)
     assert 4 * KVH * splits >= TARGET and splits * kps >= 1024
     assert attn.decode_split_plan(4, KVH, 256, G, 1216)[0] == 1
+
+
+@pytest.mark.parametrize("b,sq,sk", [(4, 512, 512), (4, 256, 512), (16, 512, 512),
+                                     (1, 100, 356), (1, 7, 100)])
+def test_split_plan_at_the_prefill_shapes(b, sq, sk):
+    """Flash prefill runs the decode body with L = Sq over Sk keys: the
+    batched prefills of the serving runs (4 x 512, a 4 x 256 suffix at
+    q_offset 256, 16 x 512) fill the card unsplit; one short request's
+    prefill (or suffix) splits its keys until the grid reaches 264 blocks."""
+    splits, kps = attn.decode_split_plan(b, KVH, sq, G, sk)
+    blocks = b * KVH * -(-(sq * G) // attn.DECODE_TILE_ROWS)
+    if blocks >= TARGET:
+        assert splits == 1 and kps >= sk
+    else:
+        assert splits > 1 and (blocks * splits >= TARGET or splits == -(-sk // KT))
+    for q_offset in (0, sk - sq):
+        if q_offset >= 0:
+            _check_cover(splits, kps, min(sk, q_offset + sq))
+
+
+@pytest.mark.parametrize("first", [0, 64, 128, 320])
+@pytest.mark.parametrize("n_live", [1, 65, 200, 384, 700])
+def test_split_range_covers_a_band_once(first, n_live):
+    """A prefill band's tile starts its splits at the band's 64-aligned
+    first key: the ranges cover first .. n_live - 1 exactly once (nothing
+    when the band lies past the live keys)."""
+    splits, kps = attn.decode_split_plan(1, KVH, 7, G, 1024)
+    rs = [attn.decode_split_range(s, splits, kps, n_live, first) for s in range(splits)]
+    assert all(lo >= first and (lo - first) % KT == 0 and lo <= hi for lo, hi in rs)
+    assert [t for lo, hi in rs for t in range(lo, hi)] == list(range(first, n_live))
