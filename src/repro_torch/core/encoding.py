@@ -54,10 +54,12 @@ def select_tile_sizes(phase: Phase, *, m_hint: int | None = None) -> TileSizes:
     packs the same way): decode with at most 8 rows is one row block (M1 =
     1) that the packed GEMV takes unpadded; more decode rows (a verify or
     mixed window, many slots) pack into M1 = ceil(rows / 8) blocks of 8 for
-    the packed GEMM.  The GEMM flattens (m1, m0) rows into its own 64-row
-    tiles (csrc/mmt4d.cu), so a larger M0 would buy it nothing and only pad
-    more rows; 8 keeps the pad under one row block.  Pad rows are zero, so
-    the result is exact whatever M0 is."""
+    the packed GEMM.  The GEMM flattens (m1, m0) rows into its own row
+    tiles (csrc/mmt4d.cu: up to 64 rows a block in the skinny split-K body,
+    padded to 8 for mma.sync; 64 or 128 in the wide wgmma body, whose TMA
+    box lands 8 or 16 whole row blocks of 8), so a larger M0 would buy it
+    nothing and only pad more rows; 8 keeps the pad under one row block.
+    Pad rows are zero, so the result is exact whatever M0 is."""
     if phase in (Phase.PREFILL, Phase.TRAIN):
         return TileSizes(PACK_TILE, PACK_TILE, PACK_TILE)
     rows = m_hint if m_hint is not None else 1

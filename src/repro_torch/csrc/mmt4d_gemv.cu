@@ -9,17 +9,21 @@
 // packed weight streamed once (N*K*itemsize / 3.35 TB/s).
 //
 // Design.  The TPU kernel keeps the whole packed row block resident in VMEM
-// and walks N, one weight block per grid step.  Here one warp owns one output
-// column n and walks that column's K1 packed rows: within tile (n/128, k1)
-// the 128 K0 elements of row n%128 are 256 contiguous bytes in bf16, so lane
-// l reads elements 4l..4l+3 and the warp's load is one coalesced segment;
-// every weight byte is read exactly once over the grid.  The packed rows are
-// staged in shared memory one K chunk at a time (at most 8 x 1024 floats),
-// converted to f32 once and read by every warp of the block: row m0's K
-// element k sits at lhs4[0, k/128, m0, k%128].  Rows are never padded: M0 is
-// a template parameter from 1 to 8.  The warp's sum goes to
-// out4[0, n/128, m0, n%128]; accumulation is f32 for bf16 and f32 alike.
-#include "common.cuh"
+// and walks N, one weight block per grid step.
+//   bf16: the packed GEMM's skinny body (packed_skinny.cuh) at M1 = 1: 32
+//     output columns a block, K split so that the grid fills the card (the
+//     host's plan, kernels/mmt4d.py: mmt4d_plan), weight slices and the
+//     row block streamed by TMA into a 4-8-stage ring, mma.sync m16n8k16
+//     with the weight as the wide side (the M0 rows pad to 8), the splits
+//     merged in split order in the one launch.
+//   f32: one warp per output column n walks that column's K1 packed rows
+//     (in tile (n/128, k1) the 128 K0 elements of row n%128 are 512
+//     contiguous bytes: lane l reads elements 4l..4l+3); the row block is
+//     staged in shared memory one K chunk at a time, read by every warp of
+//     the block; exact f32 products on CUDA cores (no TF32: the f32 token
+//     identity of the serving checks needs them).  M0 is a template
+//     parameter from 1 to 8, never padded.
+#include "packed_skinny.cuh"
 
 namespace {
 
@@ -27,10 +31,10 @@ constexpr int T0 = 128;   // N0 = K0
 constexpr int WARPS = 8;  // output columns per block
 constexpr int KC = 1024;  // K elements of the rows staged per pass
 
-template <typename T, int M>
+template <int M>
 __global__ void __launch_bounds__(WARPS * 32)
-mmt4d_gemv_kernel(const T* __restrict__ lhs4, const T* __restrict__ rhs4,
-                  float* __restrict__ out4, int k1) {
+mmt4d_gemv_f32_kernel(const float* __restrict__ lhs4, const float* __restrict__ rhs4,
+                      float* __restrict__ out4, int k1) {
   __shared__ __align__(16) float xs[M][KC];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -49,10 +53,10 @@ mmt4d_gemv_kernel(const T* __restrict__ lhs4, const T* __restrict__ rhs4,
     for (int i = threadIdx.x; i < M * kn; i += blockDim.x) {
       const int m = i / kn;
       const int k = kc + (i - m * kn);
-      xs[m][k - kc] = to_f32(lhs4[((size_t)(k / T0) * M + m) * T0 + (k % T0)]);
+      xs[m][k - kc] = lhs4[((size_t)(k / T0) * M + m) * T0 + (k % T0)];
     }
     __syncthreads();
-    const T* wrow = rhs4 + (((size_t)nt * k1 + kc / T0) * T0 + n0) * T0 + lane * 4;
+    const float* wrow = rhs4 + (((size_t)nt * k1 + kc / T0) * T0 + n0) * T0 + lane * 4;
     const int tiles = kn / T0;
 #pragma unroll 4
     for (int t = 0; t < tiles; ++t) {
@@ -72,17 +76,16 @@ mmt4d_gemv_kernel(const T* __restrict__ lhs4, const T* __restrict__ rhs4,
   }
 }
 
-template <typename T>
-int launch(const void* lhs4, const void* rhs4, void* out4, int m0, int n1, int k1,
-           cudaStream_t stream) {
+int launch_f32(const void* lhs4, const void* rhs4, void* out4, int m0, int n1, int k1,
+               cudaStream_t stream) {
   const dim3 grid(n1 * T0 / WARPS);
   const dim3 block(WARPS * 32);
-  const T* a = static_cast<const T*>(lhs4);
-  const T* w = static_cast<const T*>(rhs4);
+  const float* a = static_cast<const float*>(lhs4);
+  const float* w = static_cast<const float*>(rhs4);
   float* o = static_cast<float*>(out4);
   switch (m0) {
 #define CASE(MM) \
-  case MM: mmt4d_gemv_kernel<T, MM><<<grid, block, 0, stream>>>(a, w, o, k1); break;
+  case MM: mmt4d_gemv_f32_kernel<MM><<<grid, block, 0, stream>>>(a, w, o, k1); break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -92,11 +95,16 @@ int launch(const void* lhs4, const void* rhs4, void* out4, int m0, int n1, int k
 
 }  // namespace
 
+// splits: the bf16 body's K ranges (part, cnt: the wrapper's scratch when
+// splits > 1); the f32 kernel ignores them.
 extern "C" int mmt4d_gemv(const void* lhs4, const void* rhs4, void* out4, int m0, int n1,
-                          int k1, int dtype, void* stream) {
+                          int k1, int dtype, int splits, void* part, void* cnt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n1 < 1 || k1 < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == DTYPE_BF16) return launch<bf16>(lhs4, rhs4, out4, m0, n1, k1, s);
-  if (dtype == DTYPE_F32) return launch<float>(lhs4, rhs4, out4, m0, n1, k1, s);
+  if (n1 < 1 || k1 < 1 || m0 < 1 || m0 > 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DTYPE_BF16)
+    return static_cast<int>(launch_skinny(lhs4, rhs4, static_cast<float*>(out4), 1, m0, n1, k1,
+                                          splits, static_cast<float*>(part),
+                                          static_cast<int*>(cnt), s));
+  if (dtype == DTYPE_F32) return launch_f32(lhs4, rhs4, out4, m0, n1, k1, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,8 +6,10 @@ fused_pack_mmt4d_pallas).
     rhs4 : (N1, K1, N0, K0)   packed weight
     out  : (M, N1*N0) f32     plain
 
-CUDA source: csrc/fused_pack_mmt4d.cu.  `fused_pack_mmt4d` launches the
-kernel for CUDA tensors and takes the plain version only on the CPU.  The
+CUDA source: csrc/fused_pack_mmt4d.cu (its bf16 pipeline is
+csrc/gemm_wgmma.cuh, which the packed GEMM's wide windows share).
+`fused_pack_mmt4d` launches the kernel for CUDA tensors and takes the plain
+version only on the CPU.  The
 bf16 kernel's block tile comes from `gemm_tile_plan`, and
 `gemm_block_loads` mirrors where each block's TMA copies read, so the CPU
 tests hold both.

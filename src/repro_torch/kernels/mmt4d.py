@@ -7,6 +7,13 @@
 CUDA source: csrc/mmt4d.cu (what bounds it and how it is laid out is noted
 there).  `mmt4d` launches the kernel for CUDA tensors and takes the plain
 version `mmt4d_plain` (= ref.mmt4d) only for tensors on the CPU.
+
+The bf16 kernel runs one of two bodies, by `mmt4d_plan`: the skinny split-K
+body (csrc/packed_skinny.cuh; the packed GEMV's too) for few rows, or the
+TMA + wgmma pipeline (csrc/gemm_wgmma.cuh, the prefill GEMM's) for wide
+windows.  The plan and the addresses each body's TMA copies read are
+mirrored here (`skinny_split_range`, `skinny_block_loads`, `wide_lhs_box`,
+`wide_lhs_origin`) so the CPU tests can hold them.
 """
 
 from __future__ import annotations
@@ -19,8 +26,23 @@ import torch
 from repro_torch.core.encoding import GEMV_MAX_ROWS, PACK_TILE
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
+from repro_torch.kernels.fused_pack_mmt4d import (GEMM_K_STEP, GEMM_WAVE, gemm_grid,
+                                                  gemm_tile_plan)
 
 mmt4d_plain = ref.mmt4d
+
+SKINNY_BN = 32    # output columns (weight rows) a skinny block owns
+SKINNY_ROWS = 64  # packed rows a skinny block holds at most
+# Rows up to which bf16 always takes the skinny body; above them the wide
+# body where its grid fills one wave (PERF.md, section 6: the crossover
+# measured at 64, 128 and 256 rows).
+SKINNY_MAX_ROWS = 64
+# Blocks the skinny grid's K split aims at: one per SM of the H100 (132
+# beat 264 and 528 at every measured shape: a split costs a merge).
+SKINNY_TARGET = GEMM_WAVE
+# M0s whose row blocks the wide body's rank-4 box lands whole (M0 divides
+# the 64- and 128-row tiles) or in whole slabs (the tiles divide M0).
+WIDE_M0 = (1, 2, 4, 8, PACK_TILE)
 
 
 def check_packed(lhs4: torch.Tensor, rhs4: torch.Tensor, m0_ok) -> None:
@@ -45,17 +67,128 @@ def gemm_m0(m0: int) -> bool:
     return 1 <= m0 <= GEMV_MAX_ROWS or m0 == PACK_TILE
 
 
+# ---- the plan ---------------------------------------------------------------------
+
+
+def skinny_groups(m1: int, m0: int) -> tuple[int, int]:
+    """(G, groups): the row blocks a skinny block holds, min(M1, 64 // M0),
+    and the grid's row groups, ceil(M1 / G)."""
+    g = min(m1, SKINNY_ROWS // m0)
+    return g, -(-m1 // g)
+
+
+def skinny_grid(m1: int, m0: int, n1: int, splits: int) -> tuple[int, int, int]:
+    """The skinny grid (x: 32-column N slices, y: K splits, z: row groups)."""
+    return n1 * PACK_TILE // SKINNY_BN, splits, skinny_groups(m1, m0)[1]
+
+
+@functools.cache
+def mmt4d_plan(m1: int, m0: int, n1: int, k1: int) -> tuple[str, int, int]:
+    """The bf16 kernel's plan at lhs4 (M1, K1, M0, 128) and N = n1 * 128:
+    ("wide", BM, BN) -- the wgmma pipeline with the prefill GEMM's tile at
+    these rows -- for M0 = 128, and for more than SKINNY_MAX_ROWS rows at an
+    M0 its box can land where that tile's grid fills one wave; else
+    ("skinny", BN, splits) with the least split count that brings the grid
+    to SKINNY_TARGET blocks, at most one split per K tile (the wide body
+    walks all of K in every block, so a grid short of a wave leaves SMs
+    idle that the skinny body's split would fill)."""
+    rows = m1 * m0
+    if m0 == PACK_TILE or (m0 in WIDE_M0 and rows > SKINNY_MAX_ROWS):
+        bm, bn = gemm_tile_plan(rows, n1)
+        gx, gy = gemm_grid(rows, n1, bm, bn)
+        if m0 == PACK_TILE or gx * gy >= GEMM_WAVE:
+            return "wide", bm, bn
+    x, _, z = skinny_grid(m1, m0, n1, 1)
+    splits = min(k1, -(-SKINNY_TARGET // (x * z)))
+    return "skinny", SKINNY_BN, splits
+
+
+def skinny_split_range(split: int, splits: int, k1: int) -> tuple[int, int]:
+    """Packed K tiles [lo, hi) of split `split` of `splits`, as the kernel
+    computes them: balanced, none empty while splits <= K1."""
+    return split * k1 // splits, (split + 1) * k1 // splits
+
+
+def skinny_block_loads(bx: int, split: int, bz: int, i: int, m1: int, m0: int,
+                       splits: int, k1: int):
+    """The TMA box origins skinny block (bx, split, bz) loads at its i-th K
+    tile: the two weight boxes (64, 32) in rhs4 viewed as (N1*K1*128, 128)
+    as (column, row), and the two row boxes (64, M0, 1, G) in lhs4 as (k0,
+    m0, k1, m1) coordinates, innermost first."""
+    g, _ = skinny_groups(m1, m0)
+    n_base = bx * SKINNY_BN
+    kt = skinny_split_range(split, splits, k1)[0] + i
+    row = (n_base // PACK_TILE) * k1 * PACK_TILE + n_base % PACK_TILE + kt * PACK_TILE
+    weight = ((0, row), (GEMM_K_STEP, row))
+    rows = ((0, 0, kt, bz * g), (GEMM_K_STEP, 0, kt, bz * g))
+    return weight, rows
+
+
+def wide_lhs_box(m0: int, bm: int) -> tuple[int, int, int, int]:
+    """The wide body's rank-4 box over lhs4, (K0, M0, K1, M1) extents
+    innermost first: a (bm, 64) slab of flattened rows."""
+    return GEMM_K_STEP, min(m0, bm), 1, max(1, bm // m0)
+
+
+def wide_lhs_origin(by: int, step: int, m0: int, bm: int) -> tuple[int, int, int, int]:
+    """The origin of block row `by`'s lhs box at K step `step` (0 .. 2*K1 -
+    1), as the kernel's PackedRows policy computes it."""
+    m_base = by * bm
+    b1 = m_base // m0
+    return (step & 1) * GEMM_K_STEP, m_base - b1 * m0, step >> 1, b1
+
+
+# ---- scratch ----------------------------------------------------------------------
+
+# Per device: the skinny body's f32 partials and its arrival counters (zero
+# between launches: the last block of a tile resets its own), grown to the
+# largest size asked for.
+_scratch: dict = {}
+
+
+def skinny_scratch(device: torch.device, m1: int, m0: int, n1: int, splits: int):
+    """(part, cnt) for a skinny launch, or (None, None) when it does not split."""
+    if splits == 1:
+        return None, None
+    x, _, z = skinny_grid(m1, m0, n1, splits)
+    tiles = x * z
+    n_part = tiles * splits * SKINNY_ROWS * SKINNY_BN
+    part, cnt = _scratch.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < tiles:
+        cnt = torch.zeros(tiles, dtype=torch.int32, device=device)
+    _scratch[device] = (part, cnt)
+    return part, cnt
+
+
+def launch_args(lhs4: torch.Tensor, n1: int, plan) -> tuple:
+    """The kernel's plan arguments (wide, bm, bn, splits, part, cnt) for
+    bf16 lhs4 under `plan`; part and cnt are the scratch's addresses (the
+    cache keeps the tensors alive), None when the launch does not split."""
+    m1, k1, m0, _ = lhs4.shape
+    if plan[0] == "wide":
+        return 1, plan[1], plan[2], 1, None, None
+    if plan[1] != SKINNY_BN or not 1 <= plan[2] <= k1:
+        raise ValueError(f"skinny plan takes BN={SKINNY_BN} and 1..{k1} splits, got {plan}")
+    part, cnt = skinny_scratch(lhs4.device, m1, m0, n1, plan[2])
+    if part is None:
+        return 0, 0, 0, plan[2], None, None
+    return 0, 0, 0, plan[2], part.data_ptr(), cnt.data_ptr()
+
+
 @functools.cache
 def _kernel():
     return build.entry(
         "mmt4d", "mmt4d",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3,
     )
 
 
-def mmt4d(lhs4: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
+def mmt4d(lhs4: torch.Tensor, rhs4: torch.Tensor, plan=None) -> torch.Tensor:
     """Packed lhs4 x packed rhs4 -> packed (M1, N1, M0, N0) f32.  Plain
-    version on the CPU; on a CUDA tensor the kernel runs or this raises."""
+    version on the CPU; on a CUDA tensor the kernel runs or this raises.
+    `plan` (bf16 only) overrides `mmt4d_plan`, for measuring either body."""
     if lhs4.device.type == "cpu":
         return mmt4d_plain(lhs4, rhs4)
     if lhs4.device.type != "cuda":
@@ -65,8 +198,13 @@ def mmt4d(lhs4: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
     n1, _, n0, _ = rhs4.shape
     lhs4, rhs4 = build.aligned(lhs4), build.aligned(rhs4)
     out4 = torch.empty((m1, n1, m0, n0), dtype=torch.float32, device=lhs4.device)
+    wide, bm, bn, splits, part, cnt = 0, 0, 0, 1, None, None
+    if lhs4.dtype == torch.bfloat16:
+        wide, bm, bn, splits, part, cnt = launch_args(
+            lhs4, n1, plan or mmt4d_plan(m1, m0, n1, k1))
     err = _kernel()(lhs4.data_ptr(), rhs4.data_ptr(), out4.data_ptr(), m1, m0, n1, k1,
-                    build.dtype_code(lhs4.dtype), build.stream_ptr(lhs4.device))
+                    build.dtype_code(lhs4.dtype), wide, bm, bn, splits, part, cnt,
+                    build.stream_ptr(lhs4.device))
     build.check(err, "mmt4d", "mmt4d launch")
     mmt4d.launches += 1
     return out4

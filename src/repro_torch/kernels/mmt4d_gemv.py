@@ -6,7 +6,9 @@ mmt4d_gemv_pallas).
     out4 : (1, N1, M0, N0)    f32, packed
 
 CUDA source: csrc/mmt4d_gemv.cu.  `mmt4d_gemv` launches the kernel for CUDA
-tensors and takes the plain version `mmt4d_gemv_plain` only on the CPU.
+tensors and takes the plain version `mmt4d_gemv_plain` only on the CPU.  In
+bf16 it is the packed GEMM's skinny body at M1 = 1 (csrc/packed_skinny.cuh),
+with the K split of `mmt4d.mmt4d_plan`.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from repro_torch.core.encoding import GEMV_MAX_ROWS
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
-from repro_torch.kernels.mmt4d import check_packed
+from repro_torch.kernels.mmt4d import check_packed, launch_args, mmt4d_plan
 
 
 def mmt4d_gemv_plain(lhs4: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
@@ -32,7 +34,7 @@ def mmt4d_gemv_plain(lhs4: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
 def _kernel():
     return build.entry(
         "mmt4d_gemv", "mmt4d_gemv",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
     )
 
 
@@ -49,8 +51,12 @@ def mmt4d_gemv(lhs4: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
     n1, _, n0, _ = rhs4.shape
     lhs4, rhs4 = build.aligned(lhs4), build.aligned(rhs4)
     out4 = torch.empty((1, n1, m0, n0), dtype=torch.float32, device=lhs4.device)
+    splits, part, cnt = 1, None, None
+    if lhs4.dtype == torch.bfloat16:
+        _, _, _, splits, part, cnt = launch_args(lhs4, n1, mmt4d_plan(1, m0, n1, k1))
     err = _kernel()(lhs4.data_ptr(), rhs4.data_ptr(), out4.data_ptr(), m0, n1, k1,
-                    build.dtype_code(lhs4.dtype), build.stream_ptr(lhs4.device))
+                    build.dtype_code(lhs4.dtype), splits, part, cnt,
+                    build.stream_ptr(lhs4.device))
     build.check(err, "mmt4d_gemv", "mmt4d_gemv launch")
     mmt4d_gemv.launches += 1
     return out4

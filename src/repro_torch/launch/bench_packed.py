@@ -1,0 +1,141 @@
+"""Device time of the packed GEMM, the packed GEMV and the prefill GEMM at the
+serving shapes.
+
+  PYTHONPATH=src python -m repro_torch.launch.bench_packed [--label NAME] [--sweep]
+
+Times, in bf16 against the Llama-3.2-1B projections K x N = 2048 x 2048,
+2048 x 512, 2048 x 8192 and 8192 x 2048 (the shapes of chip_smoke.py's
+phase 2): `mmt4d` at 16, 20 and 256 rows packed in M0 = 8 blocks and 2048
+rows in M0 = 128 slabs, `mmt4d_gemv` at 1, 4 and 8 rows, and
+`fused_pack_mmt4d` at 16, 512 and 2048 rows, each beside torch.matmul on
+the unpacked weight at the same rows.  Three numbers a shape, each the
+median of --reps repeats (as launch/bench_prefill.py):
+
+  event_ms   CUDA events around one call after a 256 MB write that leaves
+             the 50 MB L2 cold (chip_smoke.py's Timer): what phase 2 reports;
+  kernel_ms  the device kernels' own duration by torch.profiler, L2 cold;
+  warm_ms    CUDA events over back-to-back calls, L2 warm.
+
+Every kernel row also carries a checksum of its output's bytes, so two
+checkouts' kernels can be compared bit for bit: the module calls only the
+wrappers' public signatures, so run this file by path with PYTHONPATH set to
+another checkout's src/ to time that tree.  --sweep (this tree's plan only)
+adds the packed GEMM at 64, 128 and 256 rows (M0 = 8) under each body, and
+the skinny body's K split at grid targets of 132, 264 and 528 blocks.
+Prints one line a shape and one JSON line; writes
+chiprun_out/bench_packed-<label>.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+
+import torch
+
+from repro_torch.launch.bench_prefill import _event_ms, _kernel_ms
+
+KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
+
+
+def checksum(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def cases(dev, gen, sweep: bool) -> list:
+    """(name, fn, checked) of every timed call: the kernels (checked: their
+    output's checksum is printed) and their library calls."""
+    from repro_torch.kernels import fused_pack_mmt4d, mmt4d, mmt4d_gemv, ref
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    out = []
+    for k, n in KN:
+        w_t = rnd(n, k, scale=k**-0.5)
+        rhs4 = ref.pack(w_t, (128, 128))
+        lhs = {m: rnd(m, k) for m in (1, 4, 8, 16, 20, 256, 512, 2048)}
+        for m in sorted(lhs):
+            key = f"M={m} K={k} N={n}"
+            x = lhs[m]
+            if m <= 8:
+                out.append((f"mmt4d_gemv {key}", lambda a=ref.pack(x, (m, 128)), r=rhs4:
+                            mmt4d_gemv.mmt4d_gemv(a, r), True))
+            if m in (16, 20, 256, 2048):
+                m0 = 128 if m == 2048 else 8
+                out.append((f"mmt4d {key}", lambda a=ref.pack(x, (m0, 128)), r=rhs4:
+                            mmt4d.mmt4d(a, r), True))
+            if m in (16, 512, 2048):
+                out.append((f"fused_pack_mmt4d {key}", lambda a=x, r=rhs4:
+                            fused_pack_mmt4d.fused_pack_mmt4d(a, r), True))
+            out.append((f"matmul {key}", lambda a=x, w=w_t: torch.matmul(a, w.t()), False))
+        if sweep:
+            k1, n1 = k // 128, n // 128
+            for m in (64, 128, 256):
+                lhs4 = ref.pack(rnd(m, k), (8, 128))
+                wide = ("wide",) + fused_pack_mmt4d.gemm_tile_plan(m, n1)
+                out.append((f"mmt4d wide {wide[1]}x{wide[2]} M={m} K={k} N={n}",
+                            lambda a=lhs4, r=rhs4, p=wide: mmt4d.mmt4d(a, r, plan=p), True))
+                for target in (132, 264, 528):
+                    x_, _, z = mmt4d.skinny_grid(m // 8, 8, n1, 1)
+                    splits = min(k1, -(-target // (x_ * z)))
+                    plan = ("skinny", mmt4d.SKINNY_BN, splits)
+                    out.append((f"mmt4d skinny target={target} splits={splits} M={m} K={k} N={n}",
+                                lambda a=lhs4, r=rhs4, p=plan: mmt4d.mmt4d(a, r, plan=p), True))
+            for m in (4, 20):
+                m0 = min(m, 8)
+                lhs4 = ref.pack(rnd(m, k), (m0, 128))
+                x_, _, z = mmt4d.skinny_grid(lhs4.shape[0], m0, n1, 1)
+                for target in (132, 264, 528):
+                    splits = min(k1, -(-target // (x_ * z)))
+                    plan = ("skinny", mmt4d.SKINNY_BN, splits)
+                    out.append((f"mmt4d skinny target={target} splits={splits} M={m} K={k} N={n}",
+                                lambda a=lhs4, r=rhs4, p=plan: mmt4d.mmt4d(a, r, plan=p), True))
+    return out
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", default="this")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sweep", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_packed needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    rows = {}
+    for name, fn, checked in cases(dev, gen, args.sweep):
+        for _ in range(3):
+            fn()
+        ev = [_event_ms(fn, flush, 10) for _ in range(args.reps)]
+        kern = [_kernel_ms(fn, flush) for _ in range(args.reps)]
+        warm = [_event_ms(fn, None, 20) for _ in range(args.reps)]
+        kern = [x for x in kern if x is not None]
+        r = rows[name] = dict(event_ms=statistics.median(ev),
+                              kernel_ms=statistics.median(kern) if kern else None,
+                              warm_ms=statistics.median(warm))
+        if checked:
+            r["checksum"] = checksum(fn())
+        km = "not measured" if r["kernel_ms"] is None else f"{r['kernel_ms']:.4f}"
+        print(f"[bench] {args.label:8s} {name:58s} event {r['event_ms']:.4f}  kernel {km}  "
+              f"warm {r['warm_ms']:.4f} ms  {r.get('checksum', '')}", flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    out = dict(label=args.label, card=card.strip(), rows=rows)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", f"bench_packed-{args.label}.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(dict(label=args.label, card=out["card"])))
+    return out
+
+
+if __name__ == "__main__":
+    main()

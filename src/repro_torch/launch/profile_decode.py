@@ -1,11 +1,14 @@
 """Where a decode (or prefill) step's time goes on the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_decode [--prefill]
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode [--prefill] [--slots N]
 
-Serves four requests of the full-width bf16 Llama-3.2-1B (random weights from
---seed; 4 slots, max_seq 1024, block 16, the serving path chip_smoke.py
-drives), lets prefill and the first decode step run, then records --steps
-decode steps under torch.profiler.  Prints the host wall time per step, the
+Serves --slots (default 4) requests of the full-width bf16 Llama-3.2-1B
+(random weights from --seed; as many slots, max_seq 1024, block 16, the
+serving path chip_smoke.py drives), lets prefill and the first decode step
+run, then records --steps decode steps under torch.profiler.  With more
+slots than the decode GEMV takes rows (8), the projections route by the
+registry ("auto", as chip_smoke.py's slots16 run): a 16-slot decode step
+runs the packed GEMM (`mmt4d`).  Prints the host wall time per step, the
 device busy time per step (sum of kernel durations: one stream, so kernels
 do not overlap), the idle share, kernel launches per step, and device time
 by kernel name.  Writes the table to chiprun_out/profile_decode.json.
@@ -13,11 +16,12 @@ by kernel name.  Writes the table to chiprun_out/profile_decode.json.
 --kv-quant kv8 | kv4 profiles a quantized KV pool (quantize-on-write and the
 decode kernel's int8 / nibble path); --sample temperature samples every
 request at --temperature (the sampler's elementwise ops and the copy of the
-temperatures join each step).  --prefill profiles the step that admits four
-fresh --prompt-len (default 512) prompts instead: one batched 4 x 512 =
-2048-row prefill (and the first decode of the four slots), --steps times,
-each after the previous requests have drained (a warm-up batch runs first,
-outside the profile); it writes chiprun_out/profile_prefill.json.
+temperatures join each step).  --prefill profiles the step that admits
+--slots (four) fresh --prompt-len (default 512) prompts instead: one
+batched 4 x 512 = 2048-row prefill (and the first decode of the four
+slots), --steps times, each after the previous requests have drained (a
+warm-up batch runs first, outside the profile); it writes
+chiprun_out/profile_prefill.json.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prompt-len", type=int, default=None,
                     help="tokens a prompt (default 300; 512 with --prefill)")
+    ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prefill", action="store_true",
                     help="profile the step that runs a batched prefill")
     ap.add_argument("--out", default=None)
@@ -62,18 +67,19 @@ def main(argv: list[str] | None = None) -> dict:
     dev = T.resolve_device("cuda")
     cfg = registry.get_config("llama3.2-1b")
     weight_quant = {v: k for k, v in QUANT_KEYS.items()}[args.quant]
-    enc = EncodingConfig(backend="fused", attn_backend="auto", weight_quant=weight_quant,
+    backend = "fused" if args.slots <= encoding.GEMV_MAX_ROWS else "auto"
+    enc = EncodingConfig(backend=backend, attn_backend="auto", weight_quant=weight_quant,
                          quant_group=args.quant_group)
     params = T.model_init(cfg, enc, seed=args.seed, device=dev)
     eng = engine_lib.Engine(params, cfg, enc,
-                            config=EngineConfig(slots=4, max_seq=1024, block_size=16,
+                            config=EngineConfig(slots=args.slots, max_seq=1024, block_size=16,
                                                 kv_quant=args.kv_quant, sample=args.sample),
                             device=dev)
     rng = np.random.RandomState(args.seed)
     uid = itertools.count()
 
-    def submit(max_new):  # four fresh prompts: no prefix-cache hits
-        for _ in range(4):
+    def submit(max_new):  # one fresh prompt a slot: no prefix-cache hits
+        for _ in range(args.slots):
             prompt = rng.randint(1, cfg.vocab_size, prompt_len).astype(np.int32)
             eng.submit(engine_lib.Request(uid=next(uid), prompt=prompt, max_new_tokens=max_new,
                                           temperature=args.temperature))
@@ -122,6 +128,7 @@ def main(argv: list[str] | None = None) -> dict:
         "quant": args.quant,
         "kv_quant": args.kv_quant,
         "sample": args.sample,
+        "slots": args.slots,
         "steps": args.steps,
         "host_ms_per_step": step_ms,
         "device_busy_ms_per_step": busy_ms,
@@ -133,7 +140,8 @@ def main(argv: list[str] | None = None) -> dict:
             key=lambda r: -r["ms_per_step"],
         ),
     }
-    print(f"[profile] {out['card']} ({args.quant}, {args.kv_quant}, {args.sample}): "
+    print(f"[profile] {out['card']} ({args.quant}, {args.kv_quant}, {args.sample}, "
+          f"{args.slots} slots): "
           f"{args.steps} {kind} steps, host {step_ms:.3f} ms/step, "
           f"device busy {busy_ms:.3f} ms/step, idle share {out['device_idle_share']:.3f}, "
           f"{out['kernel_launches_per_step']:.0f} kernel launches/step")

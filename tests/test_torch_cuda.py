@@ -18,7 +18,10 @@ they keep the attention tolerances; through an identity page table the two
 kernels agree bit for bit, and flash prefill (the same body over K/V as a
 dense cache) agrees with dense decode at pos = q_offset bit for bit.  The
 bf16 prefill GEMM sums each output in a fixed order: a repeat call gives
-the same bits.  The pack and unpack kernels copy bytes: equal
+the same bits.  So do the packed GEMM and GEMV, whose skinny body merges
+its K splits in split order, and the packed GEMM on its wide body runs the
+prefill GEMM's pipeline: unpack(mmt4d(pack(x))) equals fused_pack_mmt4d(x)
+bit for bit where the two plans pick one tile.  The pack and unpack kernels copy bytes: equal
 bit for bit.  batch_mmt4d sums the same exact products in another order
 (rtol 1e-5, atol 1e-4).  The sampler's integer bits, and so its uniforms,
 are the same on the card and the CPU."""
@@ -126,29 +129,97 @@ def test_fused_pack_mmt4d_repeats_bit_for_bit(dev, dtype):
         assert torch.equal(fused_pack_mmt4d.fused_pack_mmt4d(lhs, rhs4), got)
 
 
+# (M1, M0) of the packed GEMM's row cases: one row block of 1-8 rows; 16,
+# 20 and 24 (both pack as 3 blocks), 64 and 65 rows at M0 = 8 (skinny up
+# to 64, wide past it); an M0 of 5 (skinny only); 256 and 1040 rows (mixed
+# windows); one, two and three prefill slabs of M0 = 128.
+_PACKED_ROWS = ([(1, m0) for m0 in range(1, 9)] + [(2, 8), (3, 8), (8, 8), (9, 8), (2, 5)]
+                + [(32, 8), (130, 8), (1, 128), (2, 128), (3, 128)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m1,m0", [(1, 8), (3, 8), (2, 5), (1, 128), (3, 128), (130, 8)])
-def test_mmt4d_kernel(dev, dtype, m1, m0):
-    """Packed GEMM: decode row blocks (M0 = 5, 8; 130 blocks = 1040 rows, a
-    mixed window) and prefill slabs (M0 = 128)."""
-    lhs4 = _rand(dev, dtype, m1, 3, m0, 128, seed=m1 * m0)
-    rhs4 = _rand(dev, dtype, 4, 3, 128, 128, scale=384**-0.5)
+@pytest.mark.parametrize("n1", [1, 4, 16])
+@pytest.mark.parametrize("k1", [3, 16, 64])
+@pytest.mark.parametrize("m1,m0", _PACKED_ROWS)
+def test_mmt4d_kernel(dev, dtype, k1, n1, m1, m0):
+    """Packed GEMM at decode row blocks, mixed windows and prefill slabs;
+    K1 = 16 and 64, so the skinny body really splits K (up to one split a
+    K tile) and the wide body walks long K; one launch a call; a repeat call
+    gives the same bits (splits merged in split order, no atomics on data)."""
+    k = k1 * 128
+    lhs4 = _rand(dev, dtype, m1, k1, m0, 128, seed=m1 * m0 + k1)
+    rhs4 = _rand(dev, dtype, n1, k1, 128, 128, scale=k**-0.5, seed=n1 + k1)
     before = mmt4d.mmt4d.launches
     got = mmt4d.mmt4d(lhs4, rhs4)
     assert mmt4d.mmt4d.launches == before + 1
     torch.testing.assert_close(got, mmt4d.mmt4d_plain(lhs4, rhs4), **_tol(dtype, True))
+    assert torch.equal(mmt4d.mmt4d(lhs4, rhs4), got)
+    assert mmt4d.mmt4d.launches == before + 2
+
+
+@pytest.mark.parametrize("m1,m0", [(20, 5), (30, 7), (11, 6), (25, 3), (9, 7)])
+def test_mmt4d_skinny_row_groups(dev, m1, m0):
+    """An M0 the wide body's box cannot land (3, 5, 6, 7) stays on the
+    skinny body past 64 rows, which then runs groups of G = 64 // M0 row
+    blocks along the grid's third axis."""
+    assert mmt4d.mmt4d_plan(m1, m0, 4, 16)[0] == "skinny"
+    lhs4 = _rand(dev, torch.bfloat16, m1, 16, m0, 128, seed=m1 * m0)
+    rhs4 = _rand(dev, torch.bfloat16, 4, 16, 128, 128, scale=2048**-0.5, seed=3)
+    got = mmt4d.mmt4d(lhs4, rhs4)
+    torch.testing.assert_close(got, mmt4d.mmt4d_plain(lhs4, rhs4), **_tol(torch.bfloat16, True))
+
+
+@pytest.mark.parametrize("m1", [8, 16, 32])
+@pytest.mark.parametrize("splits", [1, 3, 16])
+def test_mmt4d_either_body(dev, m1, splits):
+    """64, 128 and 256 rows at M0 = 8 under both bodies (the crossover
+    bench_packed measures): forced skinny plans at 1, 3 and 16 splits and
+    the wide plan agree with the plain version and, both summing exact bf16
+    products in f32, with each other to the same tolerance."""
+    lhs4 = _rand(dev, torch.bfloat16, m1, 16, 8, 128, seed=m1)
+    rhs4 = _rand(dev, torch.bfloat16, 16, 16, 128, 128, scale=2048**-0.5, seed=5)
+    want = mmt4d.mmt4d_plain(lhs4, rhs4)
+    skinny = mmt4d.mmt4d(lhs4, rhs4, plan=("skinny", mmt4d.SKINNY_BN, splits))
+    wide = mmt4d.mmt4d(lhs4, rhs4, plan=("wide",) + fused_pack_mmt4d.gemm_tile_plan(m1 * 8, 16))
+    torch.testing.assert_close(skinny, want, **_tol(torch.bfloat16, True))
+    torch.testing.assert_close(wide, want, **_tol(torch.bfloat16, True))
+    torch.testing.assert_close(skinny, wide, **_tol(torch.bfloat16, True))
+
+
+@pytest.mark.parametrize("m,m0,n1,k1", [
+    (2048, 128, 64, 16), (2048, 128, 4, 16), (512, 128, 16, 16), (2048, 128, 16, 64),
+    (256, 8, 64, 16), (1040, 8, 16, 16), (600, 8, 16, 3), (1000, 8, 64, 2)])
+def test_packed_wide_equals_prefill_gemm(dev, m, m0, n1, k1):
+    """unpack(mmt4d(pack(x))) == fused_pack_mmt4d(x) bit for bit wherever
+    the two plans pick the same tile: one pipeline, one order of sums."""
+    k = k1 * 128
+    x = _rand(dev, torch.bfloat16, m, k, seed=m)
+    rhs4 = _rand(dev, torch.bfloat16, n1, k1, 128, 128, scale=k**-0.5, seed=n1)
+    lhs4 = pack.pack(x, (m0, 128))
+    plan = mmt4d.mmt4d_plan(lhs4.shape[0], m0, n1, k1)
+    assert plan[0] == "wide"
+    assert plan[1:] == fused_pack_mmt4d.gemm_tile_plan(m, n1)
+    got = pack.unpack(mmt4d.mmt4d(lhs4, rhs4), (m, n1 * 128))
+    assert torch.equal(got, fused_pack_mmt4d.fused_pack_mmt4d(x, rhs4))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m0", [1, 4, 8])
-def test_mmt4d_gemv_kernel(dev, dtype, m0):
-    lhs4 = _rand(dev, dtype, 1, 3, m0, 128, seed=m0)
-    rhs4 = _rand(dev, dtype, 4, 3, 128, 128, scale=384**-0.5)
+@pytest.mark.parametrize("n1", [1, 4, 16])
+@pytest.mark.parametrize("k1", [3, 16, 64])
+@pytest.mark.parametrize("m0", list(range(1, 9)))
+def test_mmt4d_gemv_kernel(dev, dtype, k1, n1, m0):
+    """The packed GEMV (bf16: the skinny body at M1 = 1), K1 = 16 and 64
+    splitting K: one launch a call, repeat calls equal bit for bit."""
+    k = k1 * 128
+    lhs4 = _rand(dev, dtype, 1, k1, m0, 128, seed=m0 + k1)
+    rhs4 = _rand(dev, dtype, n1, k1, 128, 128, scale=k**-0.5, seed=n1 + k1)
     before = mmt4d_gemv.mmt4d_gemv.launches
     got = mmt4d_gemv.mmt4d_gemv(lhs4, rhs4)
     assert mmt4d_gemv.mmt4d_gemv.launches == before + 1
     torch.testing.assert_close(got, mmt4d_gemv.mmt4d_gemv_plain(lhs4, rhs4),
                                **_tol(dtype, True))
+    assert torch.equal(mmt4d_gemv.mmt4d_gemv(lhs4, rhs4), got)
+    assert mmt4d_gemv.mmt4d_gemv.launches == before + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
