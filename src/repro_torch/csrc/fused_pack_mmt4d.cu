@@ -104,16 +104,11 @@ extern "C" int fused_pack_mmt4d(const void* lhs, const void* rhs4, void* out, in
   if (m < 1 || n1 < 1 || k1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   float* o = static_cast<float*>(out);
   if (dtype == DTYPE_BF16) {
-    if (!((bm == 128 && (bn == 128 || bn == 64)) || (bm == 64 && bn == 64)))
-      return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap tm_lhs;
-    cudaError_t e = encode_map(&tm_lhs, lhs, m, static_cast<uint64_t>(k1) * T0, bm);
+    const cudaError_t e = encode_map<bf16>(&tm_lhs, lhs, m, static_cast<uint64_t>(k1) * T0, bm);
     if (e != cudaSuccess) return static_cast<int>(e);
     const PlainRows p{o, m, n1 * T0};
-    if (bm == 128 && bn == 128) e = launch_wgmma<128, 128>(tm_lhs, rhs4, p, n1, k1, s);
-    if (bm == 128 && bn == 64) e = launch_wgmma<128, 64>(tm_lhs, rhs4, p, n1, k1, s);
-    if (bm == 64 && bn == 64) e = launch_wgmma<64, 64>(tm_lhs, rhs4, p, n1, k1, s);
-    return static_cast<int>(e);
+    return static_cast<int>(launch_wgmma_tile<bf16>(bm, bn, tm_lhs, rhs4, p, n1, k1, Scales{}, s));
   }
   if (dtype == DTYPE_F32) {
     const dim3 grid(n1 * (T0 / FB), (m + FB - 1) / FB);

@@ -1,7 +1,8 @@
-// The bf16 TMA + wgmma GEMM pipeline shared by the prefill GEMM
-// (fused_pack_mmt4d.cu, kernel 3) and the packed GEMM's wide windows
-// (mmt4d.cu, kernel 4), templated on the block tile and on a policy P that
-// says where lhs comes from and where the output goes.
+// The TMA + wgmma GEMM pipeline shared by the prefill GEMM
+// (fused_pack_mmt4d.cu, kernel 3) and the packed GEMMs' wide windows
+// (mmt4d.cu, kernel 4, bf16; mmt4d_q8.cu, kernel 6, int8), templated on the
+// operand type, the block tile and a policy P that says where lhs comes
+// from and where the output goes.
 //
 //   out (rows, N1*128) f32 = lhs (rows, K1*128) x W^T,
 //   W[n, k] = rhs4[n/128][k/128][n%128][k%128]  (the packed weight)
@@ -10,30 +11,37 @@
 //   - A warp-specialised block: one producer warp, BM/64 consumer
 //     warpgroups.  Both operands are K-major (lhs rows are contiguous in K;
 //     a packed 128 x 128 weight tile is [n][k] with k contiguous), the
-//     layout wgmma takes untransposed.
-//   - Loads: TMA copies 64-wide K slabs of lhs (the policy's map, a
-//     (64, BM) slab of rows) and of the weight (a 2-D map over rhs4 viewed
-//     as (N1*K1*128, 128), box (64, BN): the slab of packed tile (nt, kt) at
-//     row (nt*K1 + kt)*128 + n_off, column 0 or 64), 128B-swizzled, into a
-//     ring of 3-6 shared-memory stages (two blocks fit on an SM) with a full
-//     and an empty mbarrier each.  TMA zero-fills rows past the edge.
+//     layout wgmma takes untransposed (int8 wgmma takes no other).
+//   - Loads: TMA copies 128-byte K slabs (64 bf16 or 128 int8 elements) of
+//     lhs (the policy's map, a (BM, 128-byte) slab of rows) and of the
+//     weight (a 2-D map over rhs4 viewed as (N1*K1*128, 128), box (slab,
+//     BN): the slab of packed tile (nt, kt) at row (nt*K1 + kt)*128 +
+//     n_off), 128B-swizzled, into a ring of 3-6 shared-memory stages (two
+//     blocks fit on an SM) with a full and an empty mbarrier each.  A
+//     stage is the same bytes in either type: half a packed K tile in
+//     bf16, a whole one in int8.  TMA zero-fills rows past the edge.
 //   - Products: each consumer warpgroup owns 64 rows of the BM x BN tile and
-//     issues wgmma.mma_async m64nBNk16 (bf16 in, f32 accumulate in
-//     registers), four per stage; it commits a stage's group, retires the
-//     previous one (wait_group 1) and only then releases that stage.
+//     issues wgmma.mma_async m64nBNk16 (bf16 in, f32 accumulate) or
+//     m64nBNk32 (s8 in, s32 accumulate) in registers, four per stage: both
+//     consume 32 bytes of K a row, so the descriptors advance alike.  It
+//     commits a stage's group, retires the previous one (wait_group 1) and
+//     only then releases that stage.
 //   - Each block walks all of K in a fixed order: a repeat call gives the
-//     same bits.
-//   - Epilogue: the f32 tile goes through shared memory (the drained
-//     stages) and leaves as 16-byte stores along each row's BN columns,
-//     which the policy places (P::row); rows >= P::rows are never stored.
+//     same bits (int8: the integer sum is exact in any order).
+//   - Epilogue: the tile goes through shared memory (the drained stages) as
+//     f32 (int8: float(acc), one rounding) and leaves as 16-byte stores
+//     along each row's BN columns, which the policy places (P::row); rows
+//     >= P::rows are never stored.  int8 applies the scale epilogue on the
+//     way out: (float(acc) * s_a[row]) * s_w[col], the JAX order.
 //
 // Policies: PlainRows (kernel 3) reads lhs (M, K) through a 2-D map, box
-// (64, BM), and stores plain (M, N) rows.  PackedRows (kernel 4) reads lhs4
-// (M1, K1, M0, 128) through a rank-4 map whose box (64, min(M0, BM), 1,
-// max(1, BM/M0)) lands the same swizzled (BM, 64) slab of flattened rows
-// r = m1*M0 + m0 (M0 divides BM, or BM divides M0), and stores into the
-// packed (M1, N1, M0, 128) output: a row's BN columns lie in one packed N
-// tile, contiguous.  Internal linkage throughout (see tma.cuh).
+// (slab, BM), and stores plain (M, N) rows.  PackedRows (kernels 4, 6)
+// reads lhs4 (M1, K1, M0, 128) through a rank-4 map whose box (slab,
+// min(M0, BM), 1, max(1, BM/M0)) lands the same swizzled (BM, slab) tile
+// of flattened rows r = m1*M0 + m0 (M0 divides BM, or BM divides M0), and
+// stores into the packed (M1, N1, M0, 128) output: a row's BN columns lie
+// in one packed N tile, contiguous.  Internal linkage throughout (see
+// tma.cuh).
 #pragma once
 
 #include "tma.cuh"
@@ -44,8 +52,8 @@ template <int BM, int BN>
 struct GemmGeo {
   static constexpr int CWG = BM / 64;             // consumer warpgroups
   static constexpr int THREADS = CWG * 128 + 32;  // and one producer warp
-  static constexpr int A_BYTES = BM * TMA_BK * 2;  // one stage of lhs
-  static constexpr int B_BYTES = BN * TMA_BK * 2;  // one stage of the weight
+  static constexpr int A_BYTES = BM * 128;        // one stage of lhs: BM 128-byte box rows
+  static constexpr int B_BYTES = BN * 128;        // one stage of the weight
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   // As many stages as leave room for two blocks on an SM (one block's
   // epilogue then overlaps the other's products): 3 at 128 x 128, 4 at
@@ -60,7 +68,8 @@ struct GemmGeo {
 
 // wgmma shared-memory descriptor of a K-major, 128B-swizzled operand whose
 // rows are 128 bytes: 8-row groups 1024 bytes apart (SBO), LBO unused (1).
-// Advancing K by 16 elements adds 32 bytes, i.e. 2, to the address field.
+// Advancing K by one 32-byte step (16 bf16 or 32 int8 elements) adds 2 to
+// the address field.
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   return (static_cast<uint64_t>(smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
          (1ull << 62);
@@ -124,6 +133,53 @@ __device__ __forceinline__ void wgmma_tile(float* d, uint64_t da, uint64_t db) {
   }
 }
 
+// Keep the compiler from moving reads of an accumulator above the last
+// wait_group.
+__device__ __forceinline__ void pin(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+__device__ __forceinline__ void pin(int& x) { asm volatile("" : "+r"(x)::"memory"); }
+
+#define WG_OUT8(i)                                                                       \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// acc (64 x 64 s32, the same fragment layout as f32) += A (64 x 32) B^T
+// (64 x 32), both s8 K-major in 128B-swizzled shared memory.
+__device__ __forceinline__ void wgmma_n64(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// acc (64 x 128 s32) += A (64 x 32) B^T (128 x 32), s8 K-major.
+__device__ __forceinline__ void wgmma_n128(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24), WG_OUT8(32), WG_OUT8(40),
+        WG_OUT8(48), WG_OUT8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+#undef WG_OUT8
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(int* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 128) {
+    wgmma_n128(d, da, db);
+  } else {
+    wgmma_n64(d, da, db);
+  }
+}
+
 
 // ---- policies ----------------------------------------------------------------
 
@@ -131,9 +187,11 @@ struct PlainRows {
   float* out;
   int rows;  // M
   int n;     // N = N1 * 128
+  // The (box_k, BM) box of K elements k0 .. of the block whose first row
+  // is m_base.
   __device__ __forceinline__ void load_lhs(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                           int it, int m_base) const {
-    tma_load(dst, map, bar, it * TMA_BK, m_base);
+                                           int k0, int kt, int m_base) const {
+    tma_load(dst, map, bar, kt * TMA_T0 + k0, m_base);
   }
   __device__ __forceinline__ float* row(int gm, int n_base) const {
     return out + static_cast<size_t>(gm) * n + n_base;
@@ -145,13 +203,13 @@ struct PackedRows {
   int rows;  // M1 * M0
   int m0;
   int n1;
-  // K step `it` of the block whose first row is m_base (a multiple of BM):
-  // packed tile kt = it / 2, its K half it % 2; rows from row block
-  // m_base / M0, at m0 = m_base % M0 (nonzero only when BM < M0).
+  // K elements k0 .. of packed tile kt, for the block whose first row is
+  // m_base (a multiple of BM): rows from row block m_base / M0, at m0 =
+  // m_base % M0 (nonzero only when BM < M0).
   __device__ __forceinline__ void load_lhs(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                           int it, int m_base) const {
+                                           int k0, int kt, int m_base) const {
     const int b1 = m_base / m0;
-    tma_load4(dst, map, bar, (it & 1) * TMA_BK, m_base - b1 * m0, it >> 1, b1);
+    tma_load4(dst, map, bar, k0, m_base - b1 * m0, kt, b1);
   }
   __device__ __forceinline__ float* row(int gm, int n_base) const {
     const int b1 = gm / m0;
@@ -160,21 +218,26 @@ struct PackedRows {
   }
 };
 
-template <int BM, int BN, class P>
+template <typename T, int BM, int BN, class P>
 __global__ void __launch_bounds__(GemmGeo<BM, BN>::THREADS)
-gemm_bf16_kernel(const __grid_constant__ CUtensorMap tm_lhs,
-                 const __grid_constant__ CUtensorMap tm_rhs, const P p, int n1, int k1) {
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_lhs,
+                  const __grid_constant__ CUtensorMap tm_rhs, const P p, int n1, int k1,
+                  const Scales sc) {
   using G = GemmGeo<BM, BN>;
+  using Acc = typename TmaElem<T>::Acc;
+  constexpr int BOXES = tile_boxes<T>;          // K steps a packed tile: 2 bf16, 1 int8
+  constexpr int SHIFT = BOXES == 2 ? 1 : 0;
+  static_assert(BOXES == 1 << SHIFT, "one or two boxes a tile");
   extern __shared__ unsigned char smem_raw[];
   constexpr int STAGES = G::STAGES;
   __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ __align__(8) uint64_t empty[STAGES];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* sa = smem;                        // [STAGES][BM][64] bf16, swizzled
-  unsigned char* sb = smem + STAGES * G::A_BYTES;  // [STAGES][BN][64] bf16, swizzled
+  unsigned char* sa = smem;                        // [STAGES][BM][128 bytes], swizzled
+  unsigned char* sb = smem + STAGES * G::A_BYTES;  // [STAGES][BN][128 bytes], swizzled
   const int n_base = blockIdx.x * BN;
   const int m_base = blockIdx.y * BM;
-  const int n_k = 2 * k1;  // 64-wide K steps
+  const int n_k = BOXES * k1;  // 128-byte K steps
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -194,11 +257,12 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tm_lhs,
       const int row0 = (n_base / TMA_T0) * k1 * TMA_T0 + n_base % TMA_T0;
       for (int it = 0; it < n_k; ++it) {
         const int s = it % STAGES;
+        const int k0 = (it & (BOXES - 1)) * box_k<T>;
+        const int kt = it >> SHIFT;
         if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
         mbar_arrive_tx(&full[s], G::STAGE_BYTES);
-        p.load_lhs(sa + s * G::A_BYTES, &tm_lhs, &full[s], it, m_base);
-        tma_load(sb + s * G::B_BYTES, &tm_rhs, &full[s], (it & 1) * TMA_BK,
-                 row0 + (it >> 1) * TMA_T0);
+        p.load_lhs(sa + s * G::A_BYTES, &tm_lhs, &full[s], k0, kt, m_base);
+        tma_load(sb + s * G::B_BYTES, &tm_rhs, &full[s], k0, row0 + kt * TMA_T0);
       }
     }
     return;
@@ -206,24 +270,24 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tm_lhs,
 
   // ---- consumers: warpgroup wg owns tile rows 64 wg .. 64 wg + 63
   const int wg = warp >> 2;
-  float acc[BN / 2];
+  Acc acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
   for (int it = 0; it < n_k; ++it) {
     const int s = it % STAGES;
     mbar_wait(&full[s], (it / STAGES) & 1);
-    const uint64_t da = sw128_desc(sa + s * G::A_BYTES + wg * 64 * TMA_BK * 2);
+    const uint64_t da = sw128_desc(sa + s * G::A_BYTES + wg * 64 * 128);
     const uint64_t db = sw128_desc(sb + s * G::B_BYTES);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TMA_BK / 16; ++kk) wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk);
+    for (int kk = 0; kk < 4; ++kk) wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk);  // 32 bytes of K each
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: release it
     if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
   }
   wgmma_wait<0>();
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+  for (int i = 0; i < BN / 2; ++i) pin(acc[i]);
 
   // ---- epilogue: every consumer is past its last product, so the stages
   // are free; each warpgroup stages its 64 rows and stores them row-wise.
@@ -233,9 +297,10 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tm_lhs,
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int c = j * 8 + 2 * (lane & 3);
-    *reinterpret_cast<float2*>(cs + wr * G::LDC + c) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(cs + wr * G::LDC + c) =
+        make_float2(static_cast<float>(acc[4 * j]), static_cast<float>(acc[4 * j + 1]));
     *reinterpret_cast<float2*>(cs + (wr + 8) * G::LDC + c) =
-        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        make_float2(static_cast<float>(acc[4 * j + 2]), static_cast<float>(acc[4 * j + 3]));
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
   constexpr int C4 = BN / 4;  // float4s a row
@@ -245,28 +310,39 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tm_lhs,
     const int c = (e % C4) * 4;
     const int gm = m_base + wg * 64 + r;
     if (gm < p.rows) {
-      *reinterpret_cast<float4*>(p.row(gm, n_base) + c) =
-          *reinterpret_cast<const float4*>(cs + r * G::LDC + c);
+      float4 v = *reinterpret_cast<const float4*>(cs + r * G::LDC + c);
+      if constexpr (sizeof(T) == 1) v = scale4(v, sc.s_a[gm], sc.s_w + n_base + c);
+      *reinterpret_cast<float4*>(p.row(gm, n_base) + c) = v;
     }
   }
 }
 
 // Launch the (BM, BN) kernel over `rows` rows: the weight's map comes from
 // the cache, lhs's map from the caller.
-template <int BM, int BN, class P>
+template <typename T, int BM, int BN, class P>
 cudaError_t launch_wgmma(const CUtensorMap& tm_lhs, const void* rhs4, const P& p, int n1, int k1,
-                         cudaStream_t s) {
+                         const Scales& sc, cudaStream_t s) {
   using G = GemmGeo<BM, BN>;
   CUtensorMap tm_rhs;
-  cudaError_t e = weight_map(&tm_rhs, rhs4, n1, k1, BN);
+  cudaError_t e = weight_map<T>(&tm_rhs, rhs4, n1, k1, BN);
   if (e != cudaSuccess) return e;
-  auto kern = gemm_bf16_kernel<BM, BN, P>;
+  auto kern = gemm_wgmma_kernel<T, BM, BN, P>;
   static unsigned long long opted = 0;  // devices whose shared-memory limit is raised
   e = opt_in_smem(kern, G::SMEM, opted);
   if (e != cudaSuccess) return e;
   const dim3 grid(n1 * TMA_T0 / BN, (p.rows + BM - 1) / BM);
-  kern<<<grid, G::THREADS, G::SMEM, s>>>(tm_lhs, tm_rhs, p, n1, k1);
+  kern<<<grid, G::THREADS, G::SMEM, s>>>(tm_lhs, tm_rhs, p, n1, k1, sc);
   return cudaGetLastError();
+}
+
+// The tile (bm, bn) of the host's plan: 128 x 128, 128 x 64 or 64 x 64.
+template <typename T, class P>
+cudaError_t launch_wgmma_tile(int bm, int bn, const CUtensorMap& tm_lhs, const void* rhs4,
+                              const P& p, int n1, int k1, const Scales& sc, cudaStream_t s) {
+  if (bm == 128 && bn == 128) return launch_wgmma<T, 128, 128>(tm_lhs, rhs4, p, n1, k1, sc, s);
+  if (bm == 128 && bn == 64) return launch_wgmma<T, 128, 64>(tm_lhs, rhs4, p, n1, k1, sc, s);
+  if (bm == 64 && bn == 64) return launch_wgmma<T, 64, 64>(tm_lhs, rhs4, p, n1, k1, sc, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

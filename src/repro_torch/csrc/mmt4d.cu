@@ -124,22 +124,18 @@ extern "C" int mmt4d(const void* lhs4, const void* rhs4, void* out4, int m1, int
   const int rows = m1 * m0;
   float* o = static_cast<float*>(out4);
   if (dtype == DTYPE_BF16 && !wide) {
-    return static_cast<int>(launch_skinny(lhs4, rhs4, o, m1, m0, n1, k1, splits,
-                                          static_cast<float*>(part), static_cast<int*>(cnt), s));
+    return static_cast<int>(launch_skinny<bf16>(lhs4, rhs4, o, m1, m0, n1, k1, splits, part,
+                                                static_cast<int*>(cnt), Scales{}, s));
   }
   if (dtype == DTYPE_BF16) {
     // The rank-4 box must land whole row blocks or whole slabs of one.
-    if (!((bm == 128 && (bn == 128 || bn == 64)) || (bm == 64 && bn == 64)) ||
-        (bm % m0 != 0 && m0 % bm != 0))
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (bm % m0 != 0 && m0 % bm != 0) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap tm_lhs;
-    cudaError_t e = encode_packed_rows(&tm_lhs, lhs4, m1, m0, k1, std::min(m0, bm), std::max(1, bm / m0));
+    cudaError_t e = encode_packed_rows<bf16>(&tm_lhs, lhs4, m1, m0, k1, std::min(m0, bm),
+                                             std::max(1, bm / m0));
     if (e != cudaSuccess) return static_cast<int>(e);
     const PackedRows p{o, rows, m0, n1};
-    if (bm == 128 && bn == 128) e = launch_wgmma<128, 128>(tm_lhs, rhs4, p, n1, k1, s);
-    if (bm == 128 && bn == 64) e = launch_wgmma<128, 64>(tm_lhs, rhs4, p, n1, k1, s);
-    if (bm == 64 && bn == 64) e = launch_wgmma<64, 64>(tm_lhs, rhs4, p, n1, k1, s);
-    return static_cast<int>(e);
+    return static_cast<int>(launch_wgmma_tile<bf16>(bm, bn, tm_lhs, rhs4, p, n1, k1, Scales{}, s));
   }
   if (dtype == DTYPE_F32) {
     const dim3 grid(n1 * (T0 / BN), (rows + BR - 1) / BR);

@@ -102,9 +102,9 @@ extern "C" int mmt4d_gemv(const void* lhs4, const void* rhs4, void* out4, int m0
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n1 < 1 || k1 < 1 || m0 < 1 || m0 > 8) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DTYPE_BF16)
-    return static_cast<int>(launch_skinny(lhs4, rhs4, static_cast<float*>(out4), 1, m0, n1, k1,
-                                          splits, static_cast<float*>(part),
-                                          static_cast<int*>(cnt), s));
+    return static_cast<int>(launch_skinny<bf16>(lhs4, rhs4, static_cast<float*>(out4), 1, m0, n1,
+                                                k1, splits, part, static_cast<int*>(cnt),
+                                                Scales{}, s));
   if (dtype == DTYPE_F32) return launch_f32(lhs4, rhs4, out4, m0, n1, k1, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,9 @@
 // TMA copies, mbarriers and tensor maps: the pieces the TMA-fed GEMM
-// bodies share (gemm_wgmma.cuh, packed_skinny.cuh).
+// bodies share (gemm_wgmma.cuh, packed_skinny.cuh), for bf16 and int8
+// operands.  Every box row is 128 bytes, one 128B-swizzle row: 64 bf16 or
+// 128 int8 K elements, so a packed 128 x 128 tile is two boxes wide in
+// bf16 and one in int8, and the bodies' fragment and descriptor addressing
+// is the same byte for byte.
 //
 // Everything here has internal linkage (an unnamed namespace): each kernel
 // library gets its own copy of the function-local statics (the driver entry
@@ -19,7 +23,25 @@
 namespace {
 
 constexpr int TMA_T0 = 128;  // the packed weight tile (N0 = K0)
-constexpr int TMA_BK = 64;   // a box's K width: 128 bytes of bf16, one 128B-swizzle row
+
+// Per operand type: the tensor map's data type, a box row's K elements, the
+// boxes across one packed K tile, and the products' accumulator type.
+template <typename T>
+struct TmaElem;
+template <>
+struct TmaElem<bf16> {
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  using Acc = float;
+};
+template <>
+struct TmaElem<int8_t> {
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // raw bytes
+  using Acc = int;
+};
+template <typename T>
+constexpr int box_k = 128 / static_cast<int>(sizeof(T));
+template <typename T>
+constexpr int tile_boxes = TMA_T0 / box_k<T>;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -82,6 +104,20 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uin
       : "memory");
 }
 
+// The operands of the int8 scale epilogue of both GEMM bodies: s_a per
+// flattened row, s_w per output column, f32 (null in bf16).
+struct Scales {
+  const float* s_a;
+  const float* s_w;
+};
+
+// (float(acc) * s_a) * s_w for four consecutive columns from n: each
+// product rounded in turn, as the plain version computes it.
+__device__ __forceinline__ float4 scale4(float4 v, float s_a, const float* s_w) {
+  return make_float4((v.x * s_a) * s_w[0], (v.y * s_a) * s_w[1], (v.z * s_a) * s_w[2],
+                     (v.w * s_a) * s_w[3]);
+}
+
 // ---- host: tensor maps ------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -105,49 +141,54 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 map of `rank` dims (sizes innermost first, byte strides of dims
-// 1.. rank-1), box `box` (box[0] = 64: 128 bytes), 128B-swizzled; boxes
-// reaching past an edge read zeros there.
-cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                        const cuuint64_t* strides, const cuuint32_t* box) {
+// A map of `rank` dims of T (sizes innermost first, byte strides of dims
+// 1.. rank-1), box `box` (box[0] = box_k<T>: 128 bytes), 128B-swizzled;
+// boxes reaching past an edge read zeros there.
+template <typename T>
+cudaError_t encode_tiled_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                             const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, TmaElem<T>::MAP, rank, const_cast<void*>(base), dims, strides, box,
+                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A 2-D bf16 map over `rows` rows of `cols` contiguous elements, box (64
+// A 2-D map over `rows` rows of `cols` contiguous elements, box (box_k<T>
 // columns, box_rows rows).
+template <typename T>
 cudaError_t encode_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
                        uint32_t box_rows) {
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {TMA_BK, box_rows};
-  return encode_bf16(map, base, 2, dims, strides, box);
+  const cuuint64_t strides[1] = {cols * sizeof(T)};
+  const cuuint32_t box[2] = {box_k<T>, box_rows};
+  return encode_tiled_map<T>(map, base, 2, dims, strides, box);
 }
 
-// A rank-4 map over packed rows lhs4 (M1, K1, M0, 128), box (64, box_m0, 1,
-// box_m1): a box lands box_m1 * box_m0 packed rows r = m1 * M0 + m0 (m0
-// inner) of one 64-wide K slab as consecutive 128-byte rows, the layout of
-// the 2-D map's (64, rows) box.  Row blocks past M1 read zeros.
+// A rank-4 map over packed rows lhs4 (M1, K1, M0, 128), box (box_k<T>,
+// box_m0, 1, box_m1): a box lands box_m1 * box_m0 packed rows r = m1 * M0
+// + m0 (m0 inner) of one 128-byte K slab as consecutive 128-byte rows, the
+// layout of the 2-D map's (box_k<T>, rows) box.  Row blocks past M1 read
+// zeros.
+template <typename T>
 cudaError_t encode_packed_rows(CUtensorMap* map, const void* lhs4, int m1, int m0, int k1,
                                uint32_t box_m0, uint32_t box_m1) {
   const cuuint64_t dims[4] = {TMA_T0, static_cast<cuuint64_t>(m0), static_cast<cuuint64_t>(k1),
                               static_cast<cuuint64_t>(m1)};
-  const cuuint64_t row = TMA_T0 * 2;
+  const cuuint64_t row = TMA_T0 * sizeof(T);
   const cuuint64_t strides[3] = {row, row * m0, row * m0 * k1};
-  const cuuint32_t box[4] = {TMA_BK, box_m0, 1, box_m1};
-  return encode_bf16(map, lhs4, 4, dims, strides, box);
+  const cuuint32_t box[4] = {box_k<T>, box_m0, 1, box_m1};
+  return encode_tiled_map<T>(map, lhs4, 4, dims, strides, box);
 }
 
 // The packed weight's map: rhs4 (N1, K1, 128, 128) viewed as (N1*K1*128,
-// 128), box (64, bn): packed tile (nt, kt) starts at row (nt*K1 + kt)*128.
-// Encoded once per (pointer, shape, bn): a map holds only these, so a
-// cached one is right whatever tensor lives there now.
+// 128), box (box_k<T>, bn): packed tile (nt, kt) starts at row (nt*K1 +
+// kt)*128.  Encoded once per (pointer, shape, bn), in a cache of its own
+// per T: a map holds only these, so a cached one is right whatever tensor
+// of T lives there now.
+template <typename T>
 cudaError_t weight_map(CUtensorMap* map, const void* rhs4, int n1, int k1, int bn) {
   static std::mutex mu;
   static std::map<std::tuple<const void*, int, int, int>, CUtensorMap> cache;
@@ -158,8 +199,8 @@ cudaError_t weight_map(CUtensorMap* map, const void* rhs4, int n1, int k1, int b
     *map = it->second;
     return cudaSuccess;
   }
-  const cudaError_t e = encode_map(map, rhs4, static_cast<uint64_t>(n1) * k1 * TMA_T0, TMA_T0,
-                                   static_cast<uint32_t>(bn));
+  const cudaError_t e = encode_map<T>(map, rhs4, static_cast<uint64_t>(n1) * k1 * TMA_T0, TMA_T0,
+                                      static_cast<uint32_t>(bn));
   if (e != cudaSuccess) return e;
   if (cache.size() >= 4096) cache.clear();
   cache.emplace(key, *map);

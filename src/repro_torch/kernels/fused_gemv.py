@@ -7,7 +7,10 @@ the kernel (counterpart of repro/kernels/fused_gemv.py: fused_gemv_pallas).
 
 CUDA source: csrc/fused_gemv.cu (what bounds it and how it is laid out is
 noted there).  `fused_gemv` launches the kernel for CUDA tensors and takes
-the plain version `fused_gemv_plain` only for tensors on the CPU.
+the plain version `fused_gemv_plain` only for tensors on the CPU.  In bf16
+it is the packed GEMV's skinny body (csrc/packed_skinny.cuh) entered with
+plain rows, with the K split of `mmt4d.mmt4d_plan` at one row block of M
+rows (`mmt4d.skinny_plain_loads` mirrors its TMA boxes).
 
 `fused_gemv_q8` is the w8a8 decode GEMV (counterpart of
 fused_gemv_q8_pallas): int8 rows x the packed int8 weight, int32 sum, then
@@ -24,19 +27,8 @@ import torch
 from repro_torch.core.encoding import GEMV_MAX_ROWS
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
-
-
-def check_operands(lhs: torch.Tensor, rhs4: torch.Tensor) -> None:
-    """Shape/type contract shared by the GEMV and GEMM wrappers."""
-    if lhs.dim() != 2 or rhs4.dim() != 4:
-        raise ValueError(f"want lhs (M, K) and rhs4 (N1, K1, N0, K0), got "
-                         f"{tuple(lhs.shape)} and {tuple(rhs4.shape)}")
-    n1, k1, n0, k0 = rhs4.shape
-    if lhs.shape[1] != k1 * k0:
-        raise ValueError(f"lhs K {lhs.shape[1]} != packed K {k1 * k0}")
-    if lhs.dtype != rhs4.dtype or lhs.device != rhs4.device:
-        raise ValueError(f"operands differ: {lhs.dtype}@{lhs.device} vs "
-                         f"{rhs4.dtype}@{rhs4.device}")
+from repro_torch.kernels.fused_pack_mmt4d import check_operands
+from repro_torch.kernels.mmt4d import launch_args, mmt4d_plan
 
 
 def fused_gemv_plain(lhs: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
@@ -49,7 +41,7 @@ def fused_gemv_plain(lhs: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
 def _kernel():
     return build.entry(
         "fused_gemv", "fused_gemv",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
     )
 
 
@@ -68,8 +60,13 @@ def fused_gemv(lhs: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
                          f"pack tiles, got M={m}, tile=({n0}, {k0})")
     lhs, rhs4 = build.aligned(lhs), build.aligned(rhs4)
     out = torch.empty((m, n1 * n0), dtype=torch.float32, device=lhs.device)
+    splits, part, cnt = 1, None, None
+    if lhs.dtype == torch.bfloat16:
+        _, _, _, splits, part, cnt = launch_args(lhs.device, 1, m, n1, k1,
+                                                 mmt4d_plan(1, m, n1, k1))
     err = _kernel()(lhs.data_ptr(), rhs4.data_ptr(), out.data_ptr(), m, n1, k1,
-                    build.dtype_code(lhs.dtype), build.stream_ptr(lhs.device))
+                    build.dtype_code(lhs.dtype), splits, part, cnt,
+                    build.stream_ptr(lhs.device))
     build.check(err, "fused_gemv", "fused_gemv launch")
     fused_gemv.launches += 1
     return out

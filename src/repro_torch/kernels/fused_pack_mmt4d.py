@@ -24,7 +24,19 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused_gemv import check_operands
+
+
+def check_operands(lhs: torch.Tensor, rhs4: torch.Tensor) -> None:
+    """Shape/type contract shared by the GEMV and GEMM wrappers."""
+    if lhs.dim() != 2 or rhs4.dim() != 4:
+        raise ValueError(f"want lhs (M, K) and rhs4 (N1, K1, N0, K0), got "
+                         f"{tuple(lhs.shape)} and {tuple(rhs4.shape)}")
+    n1, k1, n0, k0 = rhs4.shape
+    if lhs.shape[1] != k1 * k0:
+        raise ValueError(f"lhs K {lhs.shape[1]} != packed K {k1 * k0}")
+    if lhs.dtype != rhs4.dtype or lhs.device != rhs4.device:
+        raise ValueError(f"operands differ: {lhs.dtype}@{lhs.device} vs "
+                         f"{rhs4.dtype}@{rhs4.device}")
 
 
 def fused_pack_mmt4d_plain(lhs: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:

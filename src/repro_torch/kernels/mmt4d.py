@@ -9,11 +9,13 @@ there).  `mmt4d` launches the kernel for CUDA tensors and takes the plain
 version `mmt4d_plain` (= ref.mmt4d) only for tensors on the CPU.
 
 The bf16 kernel runs one of two bodies, by `mmt4d_plan`: the skinny split-K
-body (csrc/packed_skinny.cuh; the packed GEMV's too) for few rows, or the
-TMA + wgmma pipeline (csrc/gemm_wgmma.cuh, the prefill GEMM's) for wide
-windows.  The plan and the addresses each body's TMA copies read are
-mirrored here (`skinny_split_range`, `skinny_block_loads`, `wide_lhs_box`,
-`wide_lhs_origin`) so the CPU tests can hold them.
+body (csrc/packed_skinny.cuh; the packed GEMV's, the plain-row decode
+GEMV's and the int8 GEMM's too) for few rows, or the TMA + wgmma pipeline
+(csrc/gemm_wgmma.cuh, the prefill GEMM's and the int8 GEMM's) for wide
+windows.  The plans and the addresses each body's TMA copies read are
+mirrored here (`skinny_split_range`, `skinny_block_loads`,
+`skinny_plain_loads`, `wide_lhs_box`, `wide_lhs_origin`; `itemsize` 2 for
+bf16, 1 for int8) so the CPU tests can hold them.
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ SKINNY_MAX_ROWS = 64
 # Blocks the skinny grid's K split aims at: one per SM of the H100 (132
 # beat 264 and 528 at every measured shape: a split costs a merge).
 SKINNY_TARGET = GEMM_WAVE
+# The plain-row entry's box over lhs (M <= 8, K), (K, M) extents innermost
+# first: 64 bf16 columns of the rows padded to 8 (TMA reads the rows past M
+# as zeros).
+SKINNY_PLAIN_BOX = (GEMM_K_STEP, 8)
 # M0s whose row blocks the wide body's rank-4 box lands whole (M0 divides
 # the 64- and 128-row tiles) or in whole slabs (the tiles divide M0).
 WIDE_M0 = (1, 2, 4, 8, PACK_TILE)
@@ -84,7 +90,9 @@ def skinny_grid(m1: int, m0: int, n1: int, splits: int) -> tuple[int, int, int]:
 
 @functools.cache
 def mmt4d_plan(m1: int, m0: int, n1: int, k1: int) -> tuple[str, int, int]:
-    """The bf16 kernel's plan at lhs4 (M1, K1, M0, 128) and N = n1 * 128:
+    """The bf16 and int8 kernels' plan at lhs4 (M1, K1, M0, 128) and N =
+    n1 * 128 (int8 takes the same bodies, tiles and crossover: the int8
+    sweep in PERF.md, section 6):
     ("wide", BM, BN) -- the wgmma pipeline with the prefill GEMM's tile at
     these rows -- for M0 = 128, and for more than SKINNY_MAX_ROWS rows at an
     M0 its box can land where that tile's grid fills one wave; else
@@ -109,40 +117,61 @@ def skinny_split_range(split: int, splits: int, k1: int) -> tuple[int, int]:
     return split * k1 // splits, (split + 1) * k1 // splits
 
 
+def box_k(itemsize: int) -> int:
+    """K elements of a TMA box row: 128 bytes (64 bf16, 128 int8)."""
+    return 128 // itemsize
+
+
 def skinny_block_loads(bx: int, split: int, bz: int, i: int, m1: int, m0: int,
-                       splits: int, k1: int):
+                       splits: int, k1: int, itemsize: int = 2):
     """The TMA box origins skinny block (bx, split, bz) loads at its i-th K
-    tile: the two weight boxes (64, 32) in rhs4 viewed as (N1*K1*128, 128)
-    as (column, row), and the two row boxes (64, M0, 1, G) in lhs4 as (k0,
-    m0, k1, m1) coordinates, innermost first."""
+    tile: the weight boxes (box_k, 32) in rhs4 viewed as (N1*K1*128, 128)
+    as (column, row), and the row boxes (box_k, M0, 1, G) in lhs4 as (k0,
+    m0, k1, m1) coordinates, innermost first; a packed K tile is two boxes
+    in bf16, one in int8."""
     g, _ = skinny_groups(m1, m0)
     n_base = bx * SKINNY_BN
     kt = skinny_split_range(split, splits, k1)[0] + i
     row = (n_base // PACK_TILE) * k1 * PACK_TILE + n_base % PACK_TILE + kt * PACK_TILE
-    weight = ((0, row), (GEMM_K_STEP, row))
-    rows = ((0, 0, kt, bz * g), (GEMM_K_STEP, 0, kt, bz * g))
-    return weight, rows
+    k0s = range(0, PACK_TILE, box_k(itemsize))
+    return (tuple((k0, row) for k0 in k0s),
+            tuple((k0, 0, kt, bz * g) for k0 in k0s))
 
 
-def wide_lhs_box(m0: int, bm: int) -> tuple[int, int, int, int]:
+def skinny_plain_loads(bx: int, split: int, i: int, m: int, splits: int, k1: int):
+    """The TMA box origins of plain-row skinny block (bx, split) at its i-th
+    K tile: the weight boxes as `skinny_block_loads` (one row block of M
+    rows has the same grid), and the two row boxes SKINNY_PLAIN_BOX in lhs
+    (M, K) as (column, row)."""
+    weight, _ = skinny_block_loads(bx, split, 0, i, 1, m, splits, k1)
+    kt = skinny_split_range(split, splits, k1)[0] + i
+    return weight, ((kt * PACK_TILE, 0), (kt * PACK_TILE + GEMM_K_STEP, 0))
+
+
+def wide_lhs_box(m0: int, bm: int, itemsize: int = 2) -> tuple[int, int, int, int]:
     """The wide body's rank-4 box over lhs4, (K0, M0, K1, M1) extents
-    innermost first: a (bm, 64) slab of flattened rows."""
-    return GEMM_K_STEP, min(m0, bm), 1, max(1, bm // m0)
+    innermost first: a (bm, box_k) slab of flattened rows."""
+    return box_k(itemsize), min(m0, bm), 1, max(1, bm // m0)
 
 
-def wide_lhs_origin(by: int, step: int, m0: int, bm: int) -> tuple[int, int, int, int]:
-    """The origin of block row `by`'s lhs box at K step `step` (0 .. 2*K1 -
-    1), as the kernel's PackedRows policy computes it."""
+def wide_lhs_origin(by: int, step: int, m0: int, bm: int,
+                    itemsize: int = 2) -> tuple[int, int, int, int]:
+    """The origin of block row `by`'s lhs box at K step `step` (0 ..
+    K1 * boxes - 1: two boxes a packed tile in bf16, one in int8), as the
+    kernel's PackedRows policy computes it."""
+    boxes = PACK_TILE // box_k(itemsize)
     m_base = by * bm
     b1 = m_base // m0
-    return (step & 1) * GEMM_K_STEP, m_base - b1 * m0, step >> 1, b1
+    return (step % boxes) * box_k(itemsize), m_base - b1 * m0, step // boxes, b1
 
 
 # ---- scratch ----------------------------------------------------------------------
 
-# Per device: the skinny body's f32 partials and its arrival counters (zero
-# between launches: the last block of a tile resets its own), grown to the
-# largest size asked for.
+# Per device: the skinny body's partials (f32, or int32 in the same words
+# for int8) and its arrival counters (zero between launches: the last block
+# of a tile resets its own), grown to the largest size asked for.  Every
+# skinny launch on the device's stream shares them: one launch ends before
+# the next begins.
 _scratch: dict = {}
 
 
@@ -162,16 +191,16 @@ def skinny_scratch(device: torch.device, m1: int, m0: int, n1: int, splits: int)
     return part, cnt
 
 
-def launch_args(lhs4: torch.Tensor, n1: int, plan) -> tuple:
+def launch_args(device: torch.device, m1: int, m0: int, n1: int, k1: int, plan) -> tuple:
     """The kernel's plan arguments (wide, bm, bn, splits, part, cnt) for
-    bf16 lhs4 under `plan`; part and cnt are the scratch's addresses (the
-    cache keeps the tensors alive), None when the launch does not split."""
-    m1, k1, m0, _ = lhs4.shape
+    lhs4 (M1, K1, M0, 128) under `plan`; part and cnt are the scratch's
+    addresses (the cache keeps the tensors alive), None when the launch
+    does not split."""
     if plan[0] == "wide":
         return 1, plan[1], plan[2], 1, None, None
     if plan[1] != SKINNY_BN or not 1 <= plan[2] <= k1:
         raise ValueError(f"skinny plan takes BN={SKINNY_BN} and 1..{k1} splits, got {plan}")
-    part, cnt = skinny_scratch(lhs4.device, m1, m0, n1, plan[2])
+    part, cnt = skinny_scratch(device, m1, m0, n1, plan[2])
     if part is None:
         return 0, 0, 0, plan[2], None, None
     return 0, 0, 0, plan[2], part.data_ptr(), cnt.data_ptr()
@@ -201,7 +230,7 @@ def mmt4d(lhs4: torch.Tensor, rhs4: torch.Tensor, plan=None) -> torch.Tensor:
     wide, bm, bn, splits, part, cnt = 0, 0, 0, 1, None, None
     if lhs4.dtype == torch.bfloat16:
         wide, bm, bn, splits, part, cnt = launch_args(
-            lhs4, n1, plan or mmt4d_plan(m1, m0, n1, k1))
+            lhs4.device, m1, m0, n1, k1, plan or mmt4d_plan(m1, m0, n1, k1))
     err = _kernel()(lhs4.data_ptr(), rhs4.data_ptr(), out4.data_ptr(), m1, m0, n1, k1,
                     build.dtype_code(lhs4.dtype), wide, bm, bn, splits, part, cnt,
                     build.stream_ptr(lhs4.device))

@@ -53,7 +53,8 @@ def mmt4d_gemv(lhs4: torch.Tensor, rhs4: torch.Tensor) -> torch.Tensor:
     out4 = torch.empty((1, n1, m0, n0), dtype=torch.float32, device=lhs4.device)
     splits, part, cnt = 1, None, None
     if lhs4.dtype == torch.bfloat16:
-        _, _, _, splits, part, cnt = launch_args(lhs4, n1, mmt4d_plan(1, m0, n1, k1))
+        _, _, _, splits, part, cnt = launch_args(lhs4.device, 1, m0, n1, k1,
+                                                 mmt4d_plan(1, m0, n1, k1))
     err = _kernel()(lhs4.data_ptr(), rhs4.data_ptr(), out4.data_ptr(), m0, n1, k1,
                     build.dtype_code(lhs4.dtype), splits, part, cnt,
                     build.stream_ptr(lhs4.device))

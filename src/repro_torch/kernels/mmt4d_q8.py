@@ -11,6 +11,9 @@ mmt4d_q8_pallas).
 CUDA source: csrc/mmt4d_q8.cu (what bounds it and how it is laid out is
 noted there).  `mmt4d_q8` launches the kernel for CUDA tensors and takes the
 plain version `mmt4d_q8_plain` (= ref.mmt4d_q8) only for tensors on the CPU.
+The kernel runs the bf16 packed GEMM's two bodies in int8 (the skinny
+split-K body for few rows, the TMA + wgmma pipeline for wide windows), by
+`mmt4d.mmt4d_plan`.
 """
 
 from __future__ import annotations
@@ -48,15 +51,16 @@ def check_packed_scales(lhs4: torch.Tensor, rhs4: torch.Tensor, s_a: torch.Tenso
 def _kernel():
     return build.entry(
         "mmt4d_q8", "mmt4d_q8",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3,
     )
 
 
 def mmt4d_q8(lhs4_q: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Tensor,
-             s_w: torch.Tensor) -> torch.Tensor:
+             s_w: torch.Tensor, plan=None) -> torch.Tensor:
     """Packed int8 lhs4_q x packed int8 rhs4_q -> packed (M1, N1, M0, N0)
     f32 with the scale epilogue.  Plain version on the CPU; on a CUDA tensor
-    the kernel runs or this raises."""
+    the kernel runs or this raises.  `plan` overrides `mmt4d_plan`, for
+    measuring either body."""
     n1, _, n0, _ = rhs4_q.shape
     check_packed_scales(lhs4_q, rhs4_q, s_a, s_w, s_w_shape=(n1, n0), s_w_dtype=torch.float32)
     if lhs4_q.device.type == "cpu":
@@ -68,8 +72,11 @@ def mmt4d_q8(lhs4_q: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Tensor,
     lhs4_q, rhs4_q = build.aligned(lhs4_q), build.aligned(rhs4_q)
     s_a, s_w = s_a.contiguous(), s_w.contiguous()
     out4 = torch.empty((m1, n1, m0, n0), dtype=torch.float32, device=lhs4_q.device)
+    wide, bm, bn, splits, part, cnt = mmt4d_lib.launch_args(
+        lhs4_q.device, m1, m0, n1, k1, plan or mmt4d_lib.mmt4d_plan(m1, m0, n1, k1))
     err = _kernel()(lhs4_q.data_ptr(), rhs4_q.data_ptr(), s_a.data_ptr(), s_w.data_ptr(),
-                    out4.data_ptr(), m1, m0, n1, k1, build.stream_ptr(lhs4_q.device))
+                    out4.data_ptr(), m1, m0, n1, k1, wide, bm, bn, splits, part, cnt,
+                    build.stream_ptr(lhs4_q.device))
     build.check(err, "mmt4d_q8", "mmt4d_q8 launch")
     mmt4d_q8.launches += 1
     return out4

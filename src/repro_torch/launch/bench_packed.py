@@ -1,28 +1,34 @@
-"""Device time of the packed GEMM, the packed GEMV and the prefill GEMM at the
-serving shapes.
+"""Device time of the packed GEMMs, the packed and plain-row GEMVs and the
+prefill GEMM at the serving shapes.
 
   PYTHONPATH=src python -m repro_torch.launch.bench_packed [--label NAME] [--sweep]
 
-Times, in bf16 against the Llama-3.2-1B projections K x N = 2048 x 2048,
-2048 x 512, 2048 x 8192 and 8192 x 2048 (the shapes of chip_smoke.py's
-phase 2): `mmt4d` at 16, 20 and 256 rows packed in M0 = 8 blocks and 2048
-rows in M0 = 128 slabs, `mmt4d_gemv` at 1, 4 and 8 rows, and
-`fused_pack_mmt4d` at 16, 512 and 2048 rows, each beside torch.matmul on
-the unpacked weight at the same rows.  Three numbers a shape, each the
-median of --reps repeats (as launch/bench_prefill.py):
+Times, against the Llama-3.2-1B projections K x N = 2048 x 2048, 2048 x
+512, 2048 x 8192 and 8192 x 2048 (the shapes of chip_smoke.py's phase 2),
+in bf16: `mmt4d` at 16, 20 and 256 rows packed in M0 = 8 blocks and 2048
+rows in M0 = 128 slabs, `mmt4d_gemv` and `fused_gemv` at 1, 4 and 8 rows,
+and `fused_pack_mmt4d` at 16, 512 and 2048 rows, each beside torch.matmul
+on the unpacked weight at the same rows; in int8 (w8a8): `mmt4d_q8` at the
+packed GEMM's rows, beside torch._int_mm plus the scale epilogue (rows
+padded to 32 where there are 16 or fewer: _int_mm takes more than 16).
+Four numbers a shape, each the median of --reps repeats (as
+launch/bench_prefill.py):
 
   event_ms   CUDA events around one call after a 256 MB write that leaves
              the 50 MB L2 cold (chip_smoke.py's Timer): what phase 2 reports;
   kernel_ms  the device kernels' own duration by torch.profiler, L2 cold;
-  warm_ms    CUDA events over back-to-back calls, L2 warm.
+  warm_ms    CUDA events over back-to-back calls, L2 warm;
+  host_us    host time a call over back-to-back calls, the device not
+             waited for: the wrapper's own cost (checks, plan, tensor map,
+             ctypes) as a decode step pays it.
 
 Every kernel row also carries a checksum of its output's bytes, so two
 checkouts' kernels can be compared bit for bit: the module calls only the
 wrappers' public signatures, so run this file by path with PYTHONPATH set to
-another checkout's src/ to time that tree.  --sweep (this tree's plan only)
-adds the packed GEMM at 64, 128 and 256 rows (M0 = 8) under each body, and
-the skinny body's K split at grid targets of 132, 264 and 528 blocks.
-Prints one line a shape and one JSON line; writes
+another checkout's src/ to time that tree.  --sweep (this tree's plans only)
+adds the bf16 and int8 packed GEMMs at 64, 128 and 256 rows (M0 = 8) under
+each body, and the skinny body's K split at grid targets of 132, 264 and
+528 blocks.  Prints one line a shape and one JSON line; writes
 chiprun_out/bench_packed-<label>.json.
 """
 
@@ -34,6 +40,7 @@ import json
 import os
 import statistics
 import subprocess
+import time
 
 import torch
 
@@ -46,16 +53,34 @@ def checksum(t: torch.Tensor) -> str:
     return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def _skinny_plans(m1: int, m0: int, n1: int, k1: int) -> list:
+    """Skinny plans at the K splits that bring the grid to 132, 264 and 528
+    blocks."""
+    from repro_torch.kernels import mmt4d
+
+    x, _, z = mmt4d.skinny_grid(m1, m0, n1, 1)
+    splits = [min(k1, -(-target // (x * z))) for target in (132, 264, 528)]
+    return [(target, ("skinny", mmt4d.SKINNY_BN, s)) for target, s in zip((132, 264, 528), splits)]
+
+
 def cases(dev, gen, sweep: bool) -> list:
     """(name, fn, checked) of every timed call: the kernels (checked: their
     output's checksum is printed) and their library calls."""
-    from repro_torch.kernels import fused_pack_mmt4d, mmt4d, mmt4d_gemv, ref
+    from repro_torch.kernels import (fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv, mmt4d_q8,
+                                     ref)
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
 
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def scales(*shape):
+        return (0.5 + torch.rand(shape, generator=gen, device=dev)) * 1e-2
+
     out = []
     for k, n in KN:
+        k1, n1 = k // 128, n // 128
         w_t = rnd(n, k, scale=k**-0.5)
         rhs4 = ref.pack(w_t, (128, 128))
         lhs = {m: rnd(m, k) for m in (1, 4, 8, 16, 20, 256, 512, 2048)}
@@ -65,6 +90,8 @@ def cases(dev, gen, sweep: bool) -> list:
             if m <= 8:
                 out.append((f"mmt4d_gemv {key}", lambda a=ref.pack(x, (m, 128)), r=rhs4:
                             mmt4d_gemv.mmt4d_gemv(a, r), True))
+                out.append((f"fused_gemv {key}", lambda a=x, r=rhs4:
+                            fused_gemv.fused_gemv(a, r), True))
             if m in (16, 20, 256, 2048):
                 m0 = 128 if m == 2048 else 8
                 out.append((f"mmt4d {key}", lambda a=ref.pack(x, (m0, 128)), r=rhs4:
@@ -73,29 +100,64 @@ def cases(dev, gen, sweep: bool) -> list:
                 out.append((f"fused_pack_mmt4d {key}", lambda a=x, r=rhs4:
                             fused_pack_mmt4d.fused_pack_mmt4d(a, r), True))
             out.append((f"matmul {key}", lambda a=x, w=w_t: torch.matmul(a, w.t()), False))
+        # int8: the packed GEMM beside _int_mm + the epilogue on the same values
+        w_q = int8(n, k)
+        rhs4_q, s_w = ref.pack(w_q, (128, 128)), scales(n1, 128)
+        for m in (16, 20, 256, 2048):
+            key = f"M={m} K={k} N={n}"
+            m0 = 128 if m == 2048 else 8
+            xq, s_a = int8(m, k), scales(m)
+            lhs4 = ref.pack(xq, (m0, 128))
+            rows = lhs4.shape[0] * m0
+            sa2 = torch.nn.functional.pad(s_a, (0, rows - m)).reshape(-1, m0)
+            out.append((f"mmt4d_q8 {key}", lambda a=lhs4, r=rhs4_q, sa=sa2, sw=s_w:
+                        mmt4d_q8.mmt4d_q8(a, r, sa, sw), True))
+            xp = torch.nn.functional.pad(xq, (0, 0, 0, 32 - m)) if m <= 16 else xq
+            out.append((f"int_mm {key}", lambda a=xp, w=w_q.t(), sa=s_a, sw=s_w.reshape(-1), m=m:
+                        (torch._int_mm(a, w)[:m].float() * sa[:, None]) * sw, False))
         if sweep:
-            k1, n1 = k // 128, n // 128
             for m in (64, 128, 256):
                 lhs4 = ref.pack(rnd(m, k), (8, 128))
+                lhs4_q, sa2 = ref.pack(int8(m, k), (8, 128)), scales(m // 8, 8)
                 wide = ("wide",) + fused_pack_mmt4d.gemm_tile_plan(m, n1)
-                out.append((f"mmt4d wide {wide[1]}x{wide[2]} M={m} K={k} N={n}",
+                key = f"M={m} K={k} N={n}"
+                out.append((f"mmt4d wide {wide[1]}x{wide[2]} {key}",
                             lambda a=lhs4, r=rhs4, p=wide: mmt4d.mmt4d(a, r, plan=p), True))
-                for target in (132, 264, 528):
-                    x_, _, z = mmt4d.skinny_grid(m // 8, 8, n1, 1)
-                    splits = min(k1, -(-target // (x_ * z)))
-                    plan = ("skinny", mmt4d.SKINNY_BN, splits)
-                    out.append((f"mmt4d skinny target={target} splits={splits} M={m} K={k} N={n}",
+                out.append((f"mmt4d_q8 wide {wide[1]}x{wide[2]} {key}",
+                            lambda a=lhs4_q, r=rhs4_q, sa=sa2, sw=s_w, p=wide:
+                            mmt4d_q8.mmt4d_q8(a, r, sa, sw, plan=p), True))
+                for target, plan in _skinny_plans(m // 8, 8, n1, k1):
+                    name = f"skinny target={target} splits={plan[2]} {key}"
+                    out.append((f"mmt4d {name}",
                                 lambda a=lhs4, r=rhs4, p=plan: mmt4d.mmt4d(a, r, plan=p), True))
+                    out.append((f"mmt4d_q8 {name}",
+                                lambda a=lhs4_q, r=rhs4_q, sa=sa2, sw=s_w, p=plan:
+                                mmt4d_q8.mmt4d_q8(a, r, sa, sw, plan=p), True))
             for m in (4, 20):
                 m0 = min(m, 8)
                 lhs4 = ref.pack(rnd(m, k), (m0, 128))
-                x_, _, z = mmt4d.skinny_grid(lhs4.shape[0], m0, n1, 1)
-                for target in (132, 264, 528):
-                    splits = min(k1, -(-target // (x_ * z)))
-                    plan = ("skinny", mmt4d.SKINNY_BN, splits)
-                    out.append((f"mmt4d skinny target={target} splits={splits} M={m} K={k} N={n}",
+                lhs4_q = ref.pack(int8(m, k), (m0, 128))
+                sa2 = scales(lhs4_q.shape[0], m0)
+                for target, plan in _skinny_plans(lhs4.shape[0], m0, n1, k1):
+                    name = f"skinny target={target} splits={plan[2]} M={m} K={k} N={n}"
+                    out.append((f"mmt4d {name}",
                                 lambda a=lhs4, r=rhs4, p=plan: mmt4d.mmt4d(a, r, plan=p), True))
+                    out.append((f"mmt4d_q8 {name}",
+                                lambda a=lhs4_q, r=rhs4_q, sa=sa2, sw=s_w, p=plan:
+                                mmt4d_q8.mmt4d_q8(a, r, sa, sw, plan=p), True))
     return out
+
+
+def _host_us(fn, calls: int = 50) -> float:
+    """Host microseconds a call over `calls` back-to-back calls, the device
+    not waited for inside the window."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -118,15 +180,17 @@ def main(argv: list[str] | None = None) -> dict:
         ev = [_event_ms(fn, flush, 10) for _ in range(args.reps)]
         kern = [_kernel_ms(fn, flush) for _ in range(args.reps)]
         warm = [_event_ms(fn, None, 20) for _ in range(args.reps)]
+        host = [_host_us(fn) for _ in range(args.reps)]
         kern = [x for x in kern if x is not None]
         r = rows[name] = dict(event_ms=statistics.median(ev),
                               kernel_ms=statistics.median(kern) if kern else None,
-                              warm_ms=statistics.median(warm))
+                              warm_ms=statistics.median(warm), host_us=statistics.median(host))
         if checked:
             r["checksum"] = checksum(fn())
         km = "not measured" if r["kernel_ms"] is None else f"{r['kernel_ms']:.4f}"
         print(f"[bench] {args.label:8s} {name:58s} event {r['event_ms']:.4f}  kernel {km}  "
-              f"warm {r['warm_ms']:.4f} ms  {r.get('checksum', '')}", flush=True)
+              f"warm {r['warm_ms']:.4f} ms  host {r['host_us']:.1f} us  "
+              f"{r.get('checksum', '')}", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     out = dict(label=args.label, card=card.strip(), rows=rows)

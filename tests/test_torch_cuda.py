@@ -21,7 +21,10 @@ bf16 prefill GEMM sums each output in a fixed order: a repeat call gives
 the same bits.  So do the packed GEMM and GEMV, whose skinny body merges
 its K splits in split order, and the packed GEMM on its wide body runs the
 prefill GEMM's pipeline: unpack(mmt4d(pack(x))) equals fused_pack_mmt4d(x)
-bit for bit where the two plans pick one tile.  The pack and unpack kernels copy bytes: equal
+bit for bit where the two plans pick one tile.  The bf16 decode GEMV runs
+the skinny body on plain rows: 1e-4, and a repeat call the same bits.  The
+int8 GEMM on either body sums integers exactly: equal to its plain version
+bit for bit.  The pack and unpack kernels copy bytes: equal
 bit for bit.  batch_mmt4d sums the same exact products in another order
 (rtol 1e-5, atol 1e-4).  The sampler's integer bits, and so its uniforms,
 are the same on the card and the CPU."""
@@ -80,6 +83,44 @@ def test_fused_gemv_kernel(dev, dtype, m):
     got = fused_gemv.fused_gemv(lhs, rhs4)
     assert fused_gemv.fused_gemv.launches == before + 1
     torch.testing.assert_close(got, fused_gemv.fused_gemv_plain(lhs, rhs4), **_tol(dtype, True))
+
+
+def _counters_zero() -> bool:
+    """The skinny body's arrival counters are back at 0 after a launch."""
+    torch.cuda.synchronize()
+    return all(int(cnt.abs().sum()) == 0 for _, cnt in mmt4d._scratch.values())
+
+
+@pytest.mark.parametrize("n1,k1", [(4, 16), (16, 64), (1, 3)])
+@pytest.mark.parametrize("m", list(range(1, 9)))
+def test_fused_gemv_bf16_skinny_splits(dev, m, n1, k1):
+    """bf16 fused_gemv on the skinny body with plain rows: M = 1..8 at the
+    plan's K split (9, 9 and 3 here), one launch a call, repeat calls equal
+    bit for bit, counters reset by each launch."""
+    splits = mmt4d.mmt4d_plan(1, m, n1, k1)[2]
+    assert splits > 1
+    k = k1 * 128
+    rhs4 = _rand(dev, torch.bfloat16, n1, k1, 128, 128, scale=k**-0.5, seed=n1 + k1)
+    lhs = _rand(dev, torch.bfloat16, m, k, seed=m + k1)
+    before = fused_gemv.fused_gemv.launches
+    got = fused_gemv.fused_gemv(lhs, rhs4)
+    assert fused_gemv.fused_gemv.launches == before + 1
+    torch.testing.assert_close(got, fused_gemv.fused_gemv_plain(lhs, rhs4),
+                               **_tol(torch.bfloat16, True))
+    assert _counters_zero()
+    assert torch.equal(fused_gemv.fused_gemv(lhs, rhs4), got)
+    assert fused_gemv.fused_gemv.launches == before + 2 and _counters_zero()
+
+
+def test_fused_gemv_takes_an_unaligned_view(dev):
+    """A row view that starts off a 16-byte boundary (a TMA base must not)
+    goes through build.aligned."""
+    rhs4 = _rand(dev, torch.bfloat16, 4, 16, 128, 128, scale=2048**-0.5)
+    buf = _rand(dev, torch.bfloat16, 4 * 2048 + 1, seed=3)
+    lhs = buf[1:].view(4, 2048)
+    assert lhs.data_ptr() % 16 != 0
+    torch.testing.assert_close(fused_gemv.fused_gemv(lhs, rhs4),
+                               fused_gemv.fused_gemv_plain(lhs, rhs4), **_tol(torch.bfloat16, True))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -538,6 +579,47 @@ def test_mmt4d_q8_kernel(dev, m1, m0):
     got = mmt4d_q8.mmt4d_q8(lhs4, rhs4, s_a, s_w)
     assert mmt4d_q8.mmt4d_q8.launches == before + 1
     assert torch.equal(got, mmt4d_q8.mmt4d_q8_plain(lhs4, rhs4, s_a, s_w))
+
+
+@pytest.mark.parametrize("n1,k1", [(16, 16), (16, 64), (4, 16), (64, 16)])
+@pytest.mark.parametrize("rows,m0", [(16, 8), (20, 8), (64, 8), (256, 8), (2048, 8), (2048, 128)])
+def test_mmt4d_q8_either_body(dev, rows, m0, n1, k1):
+    """The int8 GEMM with the plan forced: the skinny body at 1 and 3
+    splits (M0 <= 64) and the wide body at the prefill GEMM's tile, each
+    equal to the plain version bit for bit (exact integer sums, the same
+    epilogue), a repeat call too, counters reset by each launch."""
+    m1 = -(-rows // m0)
+    lhs4, rhs4 = _int8(dev, m1, k1, m0, 128, seed=rows + k1), _int8(dev, n1, k1, 128, 128, seed=n1)
+    s_a, s_w = _scales(dev, m1, m0, seed=2), _scales(dev, n1, 128, seed=3)
+    want = mmt4d_q8.mmt4d_q8_plain(lhs4, rhs4, s_a, s_w)
+    plans = [("wide",) + fused_pack_mmt4d.gemm_tile_plan(m1 * m0, n1)]
+    if m0 <= 64:
+        plans += [("skinny", mmt4d.SKINNY_BN, 1), ("skinny", mmt4d.SKINNY_BN, 3)]
+    for plan in plans:
+        before = mmt4d_q8.mmt4d_q8.launches
+        got = mmt4d_q8.mmt4d_q8(lhs4, rhs4, s_a, s_w, plan=plan)
+        assert mmt4d_q8.mmt4d_q8.launches == before + 1
+        assert torch.equal(got, want), plan
+        assert _counters_zero()
+        assert torch.equal(mmt4d_q8.mmt4d_q8(lhs4, rhs4, s_a, s_w, plan=plan), got)
+
+
+def test_mmt4d_q8_sums_past_f32(dev):
+    """All operands 127 at K = 8192 (|sum| = 132128768 > 2^24) and operands
+    from [100, 127] on the skinny body at its plan's split: int32 partials
+    keep the sums exact, so the output equals the plain version bit for
+    bit."""
+    m1, k1, n1 = 3, 64, 4
+    s_a, s_w = _scales(dev, m1, 8, seed=2), _scales(dev, n1, 128, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    cases = [(torch.full((m1, k1, 8, 128), 127, dtype=torch.int8, device=dev),
+              torch.full((n1, k1, 128, 128), 127, dtype=torch.int8, device=dev)),
+             tuple(torch.randint(100, 128, shape, generator=g, device=dev, dtype=torch.int8)
+                   for shape in ((m1, k1, 8, 128), (n1, k1, 128, 128)))]
+    assert mmt4d.mmt4d_plan(m1, 8, n1, k1)[:2] == ("skinny", mmt4d.SKINNY_BN)
+    for lhs4, rhs4 in cases:
+        got = mmt4d_q8.mmt4d_q8(lhs4, rhs4, s_a, s_w)
+        assert torch.equal(got, mmt4d_q8.mmt4d_q8_plain(lhs4, rhs4, s_a, s_w))
 
 
 @pytest.mark.parametrize("group", [16, 32])

@@ -20,6 +20,13 @@
   products summed in another order (per K tile, per warp, per split) over
   up to K = 8192 unit-scale terms, whose rounding differences stay near
   1e-6.
+- The plain-row entry of the same body (the bf16 decode GEMV,
+  kernels/fused_gemv.py): `skinny_plain_loads` lands each row of lhs (M, K)
+  exactly once per output slice, rows past M zero, at M = 1..8 and every
+  split count up to K1; its mirror, at the plan's split and others, against
+  `fused_gemv_plain` and JAX fused_gemv_pallas in interpret mode, bf16
+  values held in f32 (their products are exact in f32), tolerance 1e-4 as
+  above.
 """
 
 import numpy as np
@@ -28,8 +35,10 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.kernels import fused_gemv as jfused_gemv
 from repro.kernels import mmt4d as jmmt4d
 from repro.kernels import mmt4d_gemv as jmmt4d_gemv
+from repro_torch.kernels import fused_gemv
 from repro_torch.kernels import fused_pack_mmt4d as gemm
 from repro_torch.kernels import mmt4d as M
 from repro_torch.kernels import ref
@@ -270,3 +279,104 @@ def test_skinny_mirror_row_groups(m1, m0):
     lhs4, rhs4 = _operands(m1, m1 * m0, m0, 1, 3)
     assert M.mmt4d_plan(m1, m0, 1, 3)[0] == "skinny"
     torch.testing.assert_close(_skinny_mirror(lhs4, rhs4, 2), M.mmt4d_plain(lhs4, rhs4), **TOL)
+
+
+# ---- the plain-row entry (the bf16 decode GEMV) ----------------------------------
+
+
+def _box2(x: torch.Tensor, origin, box) -> torch.Tensor:
+    """What a 2-D TMA box over x (M, K) lands: extents `box` = (columns,
+    rows) at `origin` = (column, row); past an edge zeros (-1 for index
+    tensors)."""
+    c0, r0 = origin
+    ec, er = box
+    fill = -1 if x.dtype == torch.int64 else 0
+    out = torch.full((er, ec), fill, dtype=x.dtype)
+    sub = x[r0:r0 + er, c0:c0 + ec]
+    out[:sub.shape[0], :sub.shape[1]] = sub
+    return out
+
+
+@pytest.mark.parametrize("m", list(range(1, 9)))
+def test_plain_boxes_land_each_row_once(m):
+    """Per 32-column slice, the row boxes over all splits and K tiles load
+    every element of lhs (M, K) exactly once, as (8, 64) boxes whose rows
+    past M are zeros; the weight boxes are the packed entry's, the slice's
+    rows of W."""
+    n1, k1 = 2, 5
+    box = M.SKINNY_PLAIN_BOX
+    idx = torch.arange(m * k1 * 128).reshape(m, k1 * 128)
+    widx = torch.arange(n1 * k1 * 128 * 128).reshape(n1 * k1 * 128, 128)
+    w_of = ref.unpack(widx.reshape(n1, k1, 128, 128), (n1 * 128, k1 * 128))
+    assert M.mmt4d_plan(1, m, n1, k1)[2] == k1  # the plan splits every K tile here
+    for splits in range(1, k1 + 1):
+        gx, gy, gz = M.skinny_grid(1, m, n1, splits)
+        assert gz == 1
+        for bx in range(gx):
+            seen = []
+            for split in range(gy):
+                lo, hi = M.skinny_split_range(split, splits, k1)
+                for i in range(hi - lo):
+                    (wa, wb), rows = M.skinny_plain_loads(bx, split, i, m, splits, k1)
+                    assert (wa, wb) == M.skinny_block_loads(bx, split, 0, i, 1, m, splits, k1)[0]
+                    for o in rows:
+                        got = _box2(idx, o, box)
+                        assert got.shape == (8, 64) and (got[m:] == -1).all()
+                        seen.append(got[got >= 0])
+                    w = torch.cat([widx[wa[1]:wa[1] + 32, wa[0]:wa[0] + 64],
+                                   widx[wb[1]:wb[1] + 32, wb[0]:wb[0] + 64]], dim=1)
+                    kt = lo + i
+                    assert torch.equal(w, w_of[bx * 32:(bx + 1) * 32, kt * 128:(kt + 1) * 128])
+            assert (torch.bincount(torch.cat(seen), minlength=idx.numel()) == 1).all()
+
+
+def _skinny_plain_mirror(x: torch.Tensor, rhs4: torch.Tensor, splits: int, warps: int = 4):
+    """The plain-row entry in Python: the packed mirror's order of sums
+    (K tiles round-robin over `warps`, warp order, split order) on (8, 64)
+    row boxes of x (M, K), each row's 32 columns stored at out[m, n ..]
+    (rows past M never stored: left NaN, so a missed store shows)."""
+    m, _ = x.shape
+    n1, k1 = rhs4.shape[:2]
+    box = M.SKINNY_PLAIN_BOX
+    view = rhs4.reshape(n1 * k1 * 128, 128)
+    out = torch.full((m, n1 * 128), float("nan"))
+    gx, gy, _ = M.skinny_grid(1, m, n1, splits)
+    for bx in range(gx):
+        total = None
+        for split in range(gy):
+            lo, hi = M.skinny_split_range(split, splits, k1)
+            acc = [torch.zeros(M.SKINNY_BN, box[1]) for _ in range(warps)]
+            for i in range(hi - lo):
+                (wa, wb), (ra, rb) = M.skinny_plain_loads(bx, split, i, m, splits, k1)
+                w = torch.cat([view[wa[1]:wa[1] + 32, wa[0]:wa[0] + 64],
+                               view[wb[1]:wb[1] + 32, wb[0]:wb[0] + 64]], dim=1)
+                a = torch.cat([_box2(x, ra, box), _box2(x, rb, box)], dim=1)
+                acc[i % warps] += w @ a.t()
+            part = acc[0]
+            for w_acc in acc[1:]:
+                part = part + w_acc
+            total = part if total is None else total + part
+        out[:, bx * M.SKINNY_BN:(bx + 1) * M.SKINNY_BN] = total[:, :m].t()
+    return out
+
+
+@pytest.mark.parametrize("k1", [16, 64])
+@pytest.mark.parametrize("m", list(range(1, 9)))
+def test_plain_mirror_matches_fused_gemv(m, k1):
+    """The decode GEMV on plain rows: the body's sums at the plan's split
+    and at 1 and K1 splits against fused_gemv_plain and JAX's
+    fused_gemv_pallas (interpret), on bf16 values."""
+    n1 = 2
+    rng = np.random.RandomState(100 * m + k1)
+    x = torch.from_numpy(rng.randn(m, k1 * 128).astype(np.float32))
+    w = torch.from_numpy((rng.randn(n1, k1, 128, 128) * (k1 * 128) ** -0.5).astype(np.float32))
+    x, w = x.bfloat16().float(), w.bfloat16().float()
+    plain = fused_gemv.fused_gemv_plain(x, w)
+    want = jfused_gemv.fused_gemv_pallas(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
+                                         bn1=1, interpret=True)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), **TOL)
+    plan = M.mmt4d_plan(1, m, n1, k1)
+    assert plan[0] == "skinny" and plan[2] > 1
+    for splits in sorted({plan[2], 1, k1}):
+        got = _skinny_plain_mirror(x, w, splits)
+        torch.testing.assert_close(got, plain, **TOL)
