@@ -20,7 +20,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
              bound computed from the shapes; then the four quantized-weight
              kernels (w8a8: fused_gemv_q8, mmt4d_q8, equal to their plain
              versions bit for bit; w4a8 at group 16 and 32: fused_gemv_q4,
-             mmt4d_q4, within 3e-5 of the largest output) at GEMV rows 1, 4,
+             fused_gemv_q4 within 3e-5 of the largest output, mmt4d_q4
+             within it and equal bit for bit) at GEMV rows 1, 4,
              8 and GEMM rows 16, 20, 256 (M0 = 8) and 2048 (M0 = 128), the
              yardstick torch._int_mm plus the scale epilogue for int8 (rows
              padded to 32 where it needs more than 16) and none for int4
@@ -35,7 +36,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
              the weight packs of load, the packed routes' activation packs
              and their output unpacks, bit for bit, permute().contiguous()
              as the yardstick; batch_mmt4d (no serving path calls it) at an
-             attention scores and a context shape in f32 and bf16, einsum as
+             attention scores and a context shape and at 64 x 64 output
+             tiles (M0 = N0 = 64) in f32 and bf16, einsum as
              the yardstick; and the sampler: its (4, 128256) bits, uniforms
              and sampled rows on the card equal to the CPU's for three keys,
              a chi-square test of its frequencies, its launches and
@@ -417,9 +419,13 @@ def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
 
-    def check(name, key, fn, plain, *, tol_rel, library_ms, bytes_moved, flops, iters, **extra):
+    def check(name, key, fn, plain, *, tol_rel, library_ms, bytes_moved, flops, iters,
+              exact=False, **extra):
         got, want = fn(), plain()
         err = (got - want).abs().max().item()
+        if exact and not torch.equal(got, want):
+            raise AssertionError(f"{name} {key}: not equal to its plain version bit for bit "
+                                 f"(max abs error {err})")
         add_row(results, target, name, key, err=err, tol=tol_rel * want.abs().max().item(),
                 ms=timer.ms(fn), plain_ms=timer.ms(plain, iters=iters), library_ms=library_ms,
                 bytes_moved=bytes_moved, flops=flops, dname="int8", **extra)
@@ -482,7 +488,7 @@ def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
                 check("mmt4d_q4", f"w4a8 g{g} M={m} K={k} N={n}",
                       lambda: mmt4d_q4.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, g),
                       lambda: mmt4d_q4.mmt4d_q4_plain(lhs4, rhs4_p, sa2, s_w4, g),
-                      tol_rel=3e-5, library_ms=None,
+                      tol_rel=3e-5, library_ms=None, exact=True,
                       bytes_moved=rows * k + n * k // 2 + n * (k // g) * 2 + rows * 4
                       + rows * n * 4,
                       flops=2 * rows * n * k, iters=iters,
@@ -662,8 +668,9 @@ def check_pack_kernels(torch, dev, target, timer, results: dict) -> None:
     library yardstick is the permute(...).contiguous() copy on the padded
     operand (the pad is made outside the timing); the bound counts each
     byte the function must read and write once.  Then batch_mmt4d at an
-    attention scores shape and a context shape, f32 and bf16, against its
-    plain version, torch.einsum timed as the yardstick."""
+    attention scores shape, a context shape and 64 x 64 output tiles, f32
+    and bf16, against its plain version, torch.einsum timed as the
+    yardstick."""
     from repro_torch.kernels import batch_mmt4d, pack
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -707,7 +714,8 @@ def check_pack_kernels(torch, dev, target, timer, results: dict) -> None:
     for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         s = 2 if dname == "bf16" else 4
         for label, (b, m1, n1, k1, m0, n0, k0) in (("scores", (128, 8, 8, 1, 16, 16, 64)),
-                                                   ("context", (128, 8, 4, 2, 16, 16, 64))):
+                                                   ("context", (128, 8, 4, 2, 16, 16, 64)),
+                                                   ("tile64", (32, 2, 2, 2, 64, 64, 64))):
             lhs = data(dtype, b, m1, k1, m0, k0)
             rhs = data(dtype, b, n1, k1, n0, k0)
             got = batch_mmt4d.batch_mmt4d(lhs, rhs)

@@ -15,8 +15,9 @@
 // What bounds it on the H100: bytes at decode (0.625 weight bytes per
 // element at group 16: the nibbles and the bf16 scales, streamed once),
 // operations at prefill.  The TPU kernels dequantize each tile to f32 and
-// contract in f32.  Here the per-group integer sum comes first: __dp4a takes
-// four int8 products into an int32, and the group's sum (|sum| < 2^15) times
+// contract in f32.  Here the per-group integer sum comes first (the GEMV:
+// __dp4a takes four int8 products into an int32; the GEMM: an s8 tensor-core
+// step per group), and the group's sum (|sum| <= 2^15) times
 // its bf16 scale (8 significant bits) is exact.  Those terms are summed in
 // float64, where the sum is exact as long as a row's group scales span less
 // than a factor 2^21 (far wider than any weight row's), and rounded to f32
@@ -26,7 +27,7 @@
 // sum's rounding.  The float64 adds are one per group and row-column pair,
 // off the byte-bound path of the decode GEMV.
 //
-// Nibbles to int8: a 32-bit word of packed bytes holds 8 K elements; its low
+// The GEMV's nibbles to int8: a 32-bit word of packed bytes holds 8 K elements; its low
 // nibbles (elements 0, 2, 4, 6) and high nibbles (1, 3, 5, 7) each become 4
 // sign-extended bytes with one mask, one xor and one per-byte subtract
 // (__vsub4).  The activations are staged in shared memory in the matching
@@ -39,16 +40,42 @@
 // load.  The int8 rows are staged in shared memory one K chunk at a time.
 // M is a template parameter; rows are never padded.
 //
-// mmt4d_q4 (packed rows, any M0 in 1..8 or 128): each block owns a 64-row x
-// 64-column output tile over flattened packed rows (the bf16 GEMM's tiling,
-// csrc/mmt4d.cu) and loops over all of K.  Per K0 tile it stages the 64 rows'
-// activations, the 64 columns' nibbles and their scales (as f32) in shared
-// memory; 256 threads each own 4 rows x 4 columns (columns tx + 16 j, so the
-// column reads hit distinct banks) and keep an int32 sum per group and a
-// float64 sum over groups.  This runs on the CUDA cores: a tensor-core version
-// (mma.sync s8 with a per-group rescale of the accumulator fragment, or
-// wgmma) is later work.
-#include "common.cuh"
+// mmt4d_q4 (packed rows, any M0 in 1..8 or 128): the skinny split-K body
+// of the bf16 and int8 packed GEMMs (packed_skinny.cuh), instantiated for
+// the nibble weight (Nib4<G>), for every row count; the host's plan
+// (kernels/mmt4d_q4.py: q4_plan) picks the block width and the K split.
+//   - Loads.  The weight through a 2-D TMA map over rhs4_p viewed as
+//     (N1*K1*128, 64) u8: a K tile row is 64 bytes, one 64B-swizzled box
+//     row, so a stage's weight is half the int8 body's.  The block's 16 or
+//     64 weight rows' scales of one K tile are one contiguous run of
+//     rows * 128/G bf16 (256 B for 16 rows at g16; a g32 row has only 8 B,
+//     below a TMA box row's 16), landed whole by a bulk copy in the same
+//     stage.  The int8 rows through the int8 body's rank-4 map, one box a K
+//     tile: row groups of whole row blocks up to 64 rows (M0 <= 8), or, at
+//     the prefill's M0 = 128, 64-row slabs of one row block (SkSlabRows).
+//   - Products.  mma.sync s8 with the weight as the A side (16 w: the
+//     nibble in the high half of its byte) and the rows' int8 fragments
+//     unchanged: one m16n8k32 per group at g32, one m16n8k16 per group at
+//     g16, each starting a fresh int32 fragment, rescaled into float64
+//     accumulators with one DFMA a term (packed_skinny.cuh, "the int4
+//     products").  Not wgmma: its k32 s8 step straddles two groups at g16,
+//     and its asynchronous accumulation leaves no per-group int32 sum to
+//     rescale.
+//   - Blocks.  A warp owns 16 output columns (one m16 fragment: half the
+//     bf16 / int8 body's 32, so its 4 * NT f64 accumulators, 8 * NT
+//     registers, leave room for two blocks an SM at 64 rows).  16-column
+//     blocks whose four warps split the K tiles (decode windows, and wide
+//     windows whose 64-column grid would not fill a wave), or 64-column
+//     blocks of four warps on every K tile (wide windows: the rows are
+//     re-read from L2 a quarter as often); the plan's sweep is in PERF.md.  Split partials are f64 in
+//     the wrapper's scratch, merged in split order by the last block, the
+//     epilogue float(sum) * s_a once.
+// What bounds it: bytes at decode (0.625 weight bytes an element at g16),
+// the f64 rescale at prefill: one DFMA per (row, column, group), 2048 x
+// 2048 x 512 ~ 2.1e9 at K = 8192 g16, ~0.13 ms at the H100's ~17e12 DFMA/s
+// (about 4x the int8 tensor-core bound), half that at g32; measured 4-5x
+// that floor (PERF.md, section 7: why is open).
+#include "packed_skinny.cuh"
 
 namespace {
 
@@ -154,111 +181,6 @@ fused_gemv_q4_kernel(const int8_t* __restrict__ lhs, const uint8_t* __restrict__
   }
 }
 
-// ---- packed GEMM --------------------------------------------------------------------
-constexpr int BR = 64;   // packed rows per block
-constexpr int BN = 64;   // output columns per block (half a packed N tile)
-
-template <int G>
-__global__ void __launch_bounds__(256)
-mmt4d_q4_kernel(const int8_t* __restrict__ lhs4, const uint8_t* __restrict__ rhs4,
-                const float* __restrict__ s_a, const bf16* __restrict__ s_w4,
-                float* __restrict__ out4, int rows, int m0, int n1, int k1) {
-  constexpr int GPT = T0 / G;   // groups per tile row
-  constexpr int CPG = G / 8;    // 8-element chunks per group
-  __shared__ int As[BR][2 * (T0 / 8) + 1];   // 16 chunks x {even, odd} words per row
-  __shared__ int Bs[BN][T0P / 4 + 1];        // 16 nibble words per column
-  __shared__ float Ss[BN][GPT + 1];
-  const int n_base = blockIdx.x * BN;
-  const int nt = n_base / T0;
-  const int nb0 = n_base % T0;
-  const int r_base = blockIdx.y * BR;
-  const int tx = threadIdx.x & 15;   // columns tx + 16 j
-  const int ty = threadIdx.x >> 4;   // rows ty * 4 + i
-
-  double acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
-
-  for (int kt = 0; kt < k1; ++kt) {
-    for (int p = threadIdx.x; p < BR * (T0 / 8); p += blockDim.x) {
-      const int r = p / (T0 / 8);
-      const int c = p % (T0 / 8);
-      const int gr = r_base + r;
-      uint2 v = make_uint2(0u, 0u);
-      if (gr < rows) {
-        const int a1 = gr / m0;
-        const int a0 = gr - a1 * m0;
-        v = deinterleave8(*reinterpret_cast<const uint2*>(
-            lhs4 + (((size_t)a1 * k1 + kt) * m0 + a0) * T0 + c * 8));
-      }
-      As[r][2 * c] = static_cast<int>(v.x);
-      As[r][2 * c + 1] = static_cast<int>(v.y);
-    }
-    const size_t tile_row0 = ((size_t)nt * k1 + kt) * T0 + nb0;
-    for (int p = threadIdx.x; p < BN * (T0P / 16); p += blockDim.x) {
-      const int col = p / (T0P / 16);
-      const int q = p % (T0P / 16);
-      const uint4 w = *reinterpret_cast<const uint4*>(rhs4 + (tile_row0 + col) * T0P + q * 16);
-      Bs[col][4 * q] = static_cast<int>(w.x);
-      Bs[col][4 * q + 1] = static_cast<int>(w.y);
-      Bs[col][4 * q + 2] = static_cast<int>(w.z);
-      Bs[col][4 * q + 3] = static_cast<int>(w.w);
-    }
-    for (int p = threadIdx.x; p < BN * GPT; p += blockDim.x) {
-      const int col = p / GPT;
-      const int g = p % GPT;
-      Ss[col][g] = __bfloat162float(s_w4[(tile_row0 + col) * GPT + g]);
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int g = 0; g < GPT; ++g) {
-      int s[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0;
-#pragma unroll
-      for (int c = g * CPG; c < (g + 1) * CPG; ++c) {
-        int lo[4], hi[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) expand_nibbles(static_cast<unsigned>(Bs[tx + 16 * j][c]), lo[j], hi[j]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int ae = As[ty * 4 + i][2 * c];
-          const int ao = As[ty * 4 + i][2 * c + 1];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = __dp4a(lo[j], ae, s[i][j]);
-            s[i][j] = __dp4a(hi[j], ao, s[i][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const double sc = Ss[tx + 16 * j][g];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += static_cast<double>(s[i][j]) * sc;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = r_base + ty * 4 + i;
-    if (gr < rows) {
-      const int a1 = gr / m0;
-      const int a0 = gr - a1 * m0;
-      float* o = out4 + (((size_t)a1 * n1 + nt) * m0 + a0) * T0 + nb0;
-      const float sa = s_a[gr];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[tx + 16 * j] = static_cast<float>(acc[i][j]) * sa;
-    }
-  }
-}
-
 template <int G>
 int launch_gemv(const void* lhs, const void* rhs4, const void* s_a, const void* s_w4, void* out,
                 int m, int n1, int k1, cudaStream_t stream) {
@@ -279,16 +201,56 @@ int launch_gemv(const void* lhs, const void* rhs4, const void* s_a, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The packed GEMM on the skinny body, a block `bn` output columns wide: 16
+// (the four consumer warps split the K tiles of one 16-column slice) or 64
+// (every warp walks every K tile for its own 16 columns; a block of 57-64
+// rows).  K in `splits` ranges; with splits > 1, `part` holds tiles *
+// splits * SK_ROWS * bn doubles and `cnt` tiles zeroed ints, tiles = (N1*128
+// / bn) * row groups (kernels/mmt4d_q4.py mirrors this).  Row groups:
+// ceil(M1 / G) of G = min(M1, 64 / M0) row blocks, or M1 * M0 / 64 slabs of
+// one row block when M0 > 64.
 template <int G>
 int launch_gemm(const void* lhs4, const void* rhs4, const void* s_a, const void* s_w4,
-                void* out4, int m1, int m0, int n1, int k1, cudaStream_t stream) {
-  const int rows = m1 * m0;
-  const dim3 grid(n1 * (T0 / BN), (rows + BR - 1) / BR);
-  mmt4d_q4_kernel<G><<<grid, 256, 0, stream>>>(
-      static_cast<const int8_t*>(lhs4), static_cast<const uint8_t*>(rhs4),
-      static_cast<const float*>(s_a), static_cast<const bf16*>(s_w4), static_cast<float*>(out4),
-      rows, m0, n1, k1);
-  return static_cast<int>(cudaGetLastError());
+                void* out4, int m1, int m0, int n1, int k1, int bn, int splits, void* part,
+                int* cnt, cudaStream_t stream) {
+  constexpr int NARROW = 16, WIDE = 64, NT8 = SK_ROWS / 8;
+  if (m1 < 1 || m0 < 1 || (m0 > SK_ROWS && m0 % SK_ROWS != 0) || (bn != NARROW && bn != WIDE) ||
+      !skinny_plan_ok(n1, k1, splits, part, cnt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using W = Nib4<G>;
+  const bool slabs = m0 > SK_ROWS;
+  const int g = slabs ? 1 : std::min(m1, SK_ROWS / m0);
+  const int nt = slabs ? NT8 : (g * m0 + 7) / 8;  // 8-row groups a block holds
+  if (bn == WIDE && nt != NT8) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_lhs, tm_rhs;
+  cudaError_t e = weight_map<int8_t>(&tm_rhs, rhs4, n1, k1, bn, T0P);
+  if (e == cudaSuccess)
+    e = encode_packed_rows<int8_t>(&tm_lhs, lhs4, m1, m0, k1, slabs ? SK_ROWS : m0, g);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  float* o = static_cast<float*>(out4);
+  const SkinnyArgs a{part, cnt, k1, splits, Scales{static_cast<const float*>(s_a), nullptr},
+                     static_cast<const bf16*>(s_w4)};
+  const int gx = n1 * T0 / bn;
+  if (slabs) {
+    const SkSlabRows p{o, m1 * m0, m0, n1, SK_ROWS};
+    const dim3 grid(gx, splits, m1 * (m0 / SK_ROWS));
+    return static_cast<int>(
+        bn == WIDE ? launch_skinny_nt<W, NT8, SkSlabRows, SK_CW, 1>(tm_lhs, tm_rhs, p, a, grid, stream)
+                   : launch_skinny_nt<W, NT8, SkSlabRows, 1, 1>(tm_lhs, tm_rhs, p, a, grid, stream));
+  }
+  const SkPackedRows p{o, m1 * m0, m0, n1, g};
+  const dim3 grid(gx, splits, (m1 + g - 1) / g);
+  if (bn == WIDE)
+    return static_cast<int>(
+        launch_skinny_nt<W, NT8, SkPackedRows, SK_CW, 1>(tm_lhs, tm_rhs, p, a, grid, stream));
+  switch (nt) {
+#define CASE(NT) \
+  case NT:       \
+    return static_cast<int>(launch_skinny_nt<W, NT, SkPackedRows, 1, 1>(tm_lhs, tm_rhs, p, a, grid, stream));
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -302,11 +264,16 @@ extern "C" int fused_gemv_q4(const void* lhs, const void* rhs4, const void* s_a,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// bn, splits, part, cnt: the plan's block width (16 or 64 columns) and K
+// split, and the wrapper's scratch when splits > 1.
 extern "C" int mmt4d_q4(const void* lhs4, const void* rhs4, const void* s_a, const void* s_w4,
-                        void* out4, int m1, int m0, int n1, int k1, int group, void* stream) {
+                        void* out4, int m1, int m0, int n1, int k1, int group, int bn, int splits,
+                        void* part, void* cnt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m1 < 1 || m0 < 1 || n1 < 1 || k1 < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (group == 16) return launch_gemm<16>(lhs4, rhs4, s_a, s_w4, out4, m1, m0, n1, k1, s);
-  if (group == 32) return launch_gemm<32>(lhs4, rhs4, s_a, s_w4, out4, m1, m0, n1, k1, s);
+  int* c = static_cast<int*>(cnt);
+  if (group == 16)
+    return launch_gemm<16>(lhs4, rhs4, s_a, s_w4, out4, m1, m0, n1, k1, bn, splits, part, c, s);
+  if (group == 32)
+    return launch_gemm<32>(lhs4, rhs4, s_a, s_w4, out4, m1, m0, n1, k1, bn, splits, part, c, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

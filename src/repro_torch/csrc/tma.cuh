@@ -82,6 +82,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   } while (!done);
 }
 
+// A flat run of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from global to shared memory by the bulk copy engine, completing its
+// bytes on `bar`: no tensor map, for runs too narrow for a box row.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // TMA: the box of a 2-D `map` at (c0 innermost, c1) into shared memory,
 // completing its bytes on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
@@ -142,16 +153,18 @@ EncodeTiled encode_tiled() {
 }
 
 // A map of `rank` dims of T (sizes innermost first, byte strides of dims
-// 1.. rank-1), box `box` (box[0] = box_k<T>: 128 bytes), 128B-swizzled;
-// boxes reaching past an edge read zeros there.
+// 1.. rank-1), box `box` (box[0] = box_k<T>: 128 bytes), 128B-swizzled
+// (or `swizzle`, whose span a box row must fill); boxes reaching past an
+// edge read zeros there.
 template <typename T>
 cudaError_t encode_tiled_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                             const cuuint64_t* strides, const cuuint32_t* box) {
+                             const cuuint64_t* strides, const cuuint32_t* box,
+                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, TmaElem<T>::MAP, rank, const_cast<void*>(base), dims, strides, box,
-                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -185,22 +198,33 @@ cudaError_t encode_packed_rows(CUtensorMap* map, const void* lhs4, int m1, int m
 
 // The packed weight's map: rhs4 (N1, K1, 128, 128) viewed as (N1*K1*128,
 // 128), box (box_k<T>, bn): packed tile (nt, kt) starts at row (nt*K1 +
-// kt)*128.  Encoded once per (pointer, shape, bn), in a cache of its own
-// per T: a map holds only these, so a cached one is right whatever tensor
-// of T lives there now.
+// kt)*128.  With row_bytes = 64 (T = int8: int4 nibbles, two a byte) the
+// rows are 64 bytes, boxed whole and 64B-swizzled.  Encoded once per
+// (pointer, shape, bn, row_bytes), in a cache of its own per T: a map holds
+// only these, so a cached one is right whatever tensor of T lives there now.
 template <typename T>
-cudaError_t weight_map(CUtensorMap* map, const void* rhs4, int n1, int k1, int bn) {
+cudaError_t weight_map(CUtensorMap* map, const void* rhs4, int n1, int k1, int bn,
+                       int row_bytes = 128) {
   static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, int>, CUtensorMap> cache;
-  const auto key = std::make_tuple(rhs4, n1, k1, bn);
+  static std::map<std::tuple<const void*, int, int, int, int>, CUtensorMap> cache;
+  const auto key = std::make_tuple(rhs4, n1, k1, bn, row_bytes);
   std::lock_guard<std::mutex> lock(mu);
   const auto it = cache.find(key);
   if (it != cache.end()) {
     *map = it->second;
     return cudaSuccess;
   }
-  const cudaError_t e = encode_map<T>(map, rhs4, static_cast<uint64_t>(n1) * k1 * TMA_T0, TMA_T0,
-                                      static_cast<uint32_t>(bn));
+  const uint64_t rows = static_cast<uint64_t>(n1) * k1 * TMA_T0;
+  cudaError_t e;
+  if (row_bytes == 128) {
+    e = encode_map<T>(map, rhs4, rows, TMA_T0, static_cast<uint32_t>(bn));
+  } else {
+    const cuuint64_t dims[2] = {row_bytes / sizeof(T), rows};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(row_bytes / sizeof(T)),
+                               static_cast<cuuint32_t>(bn)};
+    e = encode_tiled_map<T>(map, rhs4, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
+  }
   if (e != cudaSuccess) return e;
   if (cache.size() >= 4096) cache.clear();
   cache.emplace(key, *map);

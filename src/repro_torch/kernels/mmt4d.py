@@ -15,7 +15,8 @@ GEMV's and the int8 GEMM's too) for few rows, or the TMA + wgmma pipeline
 windows.  The plans and the addresses each body's TMA copies read are
 mirrored here (`skinny_split_range`, `skinny_block_loads`,
 `skinny_plain_loads`, `wide_lhs_box`, `wide_lhs_origin`; `itemsize` 2 for
-bf16, 1 for int8) so the CPU tests can hold them.
+bf16, 1 for int8; `slab_lhs_box`, `slab_lhs_origin` for the int4 GEMM's
+prefill slabs) so the CPU tests can hold them.
 """
 
 from __future__ import annotations
@@ -148,6 +149,21 @@ def skinny_plain_loads(bx: int, split: int, i: int, m: int, splits: int, k1: int
     return weight, ((kt * PACK_TILE, 0), (kt * PACK_TILE + GEMM_K_STEP, 0))
 
 
+def slab_lhs_box(slab: int) -> tuple[int, int, int, int]:
+    """The rank-4 box over int8 lhs4 (M1, K1, M0, 128) of a skinny block
+    that holds one slab of `slab` rows of a row block (M0 > SKINNY_ROWS: the
+    prefill's M0 = 128; csrc/packed_skinny.cuh: SkSlabRows), (K0, M0, K1,
+    M1) extents innermost first: one 128-byte box a packed K tile."""
+    return PACK_TILE, slab, 1, 1
+
+
+def slab_lhs_origin(bz: int, kt: int, m0: int, slab: int) -> tuple[int, int, int, int]:
+    """The origin of slab block row `bz`'s box at packed K tile `kt`, as
+    SkSlabRows computes it: bz = m1 * (M0 / slab) + the slab."""
+    per = m0 // slab
+    return 0, (bz % per) * slab, kt, bz // per
+
+
 def wide_lhs_box(m0: int, bm: int, itemsize: int = 2) -> tuple[int, int, int, int]:
     """The wide body's rank-4 box over lhs4, (K0, M0, K1, M1) extents
     innermost first: a (bm, box_k) slab of flattened rows."""
@@ -175,20 +191,26 @@ def wide_lhs_origin(by: int, step: int, m0: int, bm: int,
 _scratch: dict = {}
 
 
+def scratch(device: torch.device, tiles: int, part_words: int):
+    """(part, cnt) of at least `part_words` 4-byte words and `tiles` zeroed
+    counters, shared by every skinny launch on `device` (f64 partials take
+    two words each)."""
+    part, cnt = _scratch.get(device, (None, None))
+    if part is None or part.numel() < part_words:
+        part = torch.empty(part_words, dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < tiles:
+        cnt = torch.zeros(tiles, dtype=torch.int32, device=device)
+    _scratch[device] = (part, cnt)
+    return part, cnt
+
+
 def skinny_scratch(device: torch.device, m1: int, m0: int, n1: int, splits: int):
     """(part, cnt) for a skinny launch, or (None, None) when it does not split."""
     if splits == 1:
         return None, None
     x, _, z = skinny_grid(m1, m0, n1, splits)
     tiles = x * z
-    n_part = tiles * splits * SKINNY_ROWS * SKINNY_BN
-    part, cnt = _scratch.get(device, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(n_part, dtype=torch.float32, device=device)
-    if cnt is None or cnt.numel() < tiles:
-        cnt = torch.zeros(tiles, dtype=torch.int32, device=device)
-    _scratch[device] = (part, cnt)
-    return part, cnt
+    return scratch(device, tiles, tiles * splits * SKINNY_ROWS * SKINNY_BN)
 
 
 def launch_args(device: torch.device, m1: int, m0: int, n1: int, k1: int, plan) -> tuple:

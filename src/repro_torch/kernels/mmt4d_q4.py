@@ -22,6 +22,12 @@ csrc/mmt4d_q4.cu (what bounds it and how it is laid out is noted there).
 The wrappers launch the kernels for CUDA tensors and take the plain versions
 (`fused_gemv_q4_plain`, `mmt4d_q4_plain` = ref.mmt4d_q4) only for tensors
 on the CPU.
+
+`mmt4d_q4` runs the packed GEMMs' skinny split-K body
+(csrc/packed_skinny.cuh) on the nibble weight, for every row count, by
+`q4_plan`; the plan and the addresses its TMA and bulk copies read are
+mirrored here (`q4_groups`, `q4_grid`, `q4_block_loads`) so the CPU tests
+can hold them.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from repro_torch.core.encoding import GEMV_MAX_ROWS, PACK_TILE
 from repro_torch.kernels import build
 from repro_torch.kernels import mmt4d as mmt4d_lib
 from repro_torch.kernels import ref
+from repro_torch.kernels.fused_pack_mmt4d import GEMM_WAVE
 from repro_torch.kernels.mmt4d_q8 import check_packed_scales
 
 KERNEL_GROUPS = (16, 32)
@@ -122,19 +129,103 @@ def fused_gemv_q4(lhs_q: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
 fused_gemv_q4.launches = 0
 
 
+# ---- the packed GEMM's plan and the addresses its copies read ----------------------
+
+Q4_ROWS = mmt4d_lib.SKINNY_ROWS  # rows a block holds at most (64-row slabs at M0 = 128)
+# Block widths: Q4_BN columns whose four consumer warps split the K tiles
+# (any rows), or Q4_WIDE_BN columns, a warp per 16 on every K tile (blocks
+# of 57-64 rows); a warp owns 16 columns either way.
+Q4_BN = 16
+Q4_WIDE_BN = 64
+# Blocks the K split aims at: one per SM of the H100 (132 tied or beat 264
+# and 528 at the decode shapes of the sweep).
+Q4_TARGET = GEMM_WAVE
+
+
+def q4_warps(bn: int) -> tuple[int, int]:
+    """(consumer warps across N, columns a warp owns) of a bn-column block."""
+    return (1, bn) if bn == Q4_BN else (4, bn // 4)
+
+
+def q4_groups(m1: int, m0: int) -> tuple[int, int]:
+    """(rows a block holds, row groups): G = min(M1, 64 // M0) whole row
+    blocks, ceil(M1 / G) groups; at M0 > 64, 64-row slabs of one row block,
+    M1 * M0 / 64 of them."""
+    if m0 > Q4_ROWS:
+        return Q4_ROWS, m1 * (m0 // Q4_ROWS)
+    g = min(m1, Q4_ROWS // m0)
+    return g * m0, -(-m1 // g)
+
+
+def q4_grid(m1: int, m0: int, n1: int, bn: int, splits: int) -> tuple[int, int, int]:
+    """The grid (x: bn-column N slices, y: K splits, z: row groups)."""
+    return n1 * PACK_TILE // bn, splits, q4_groups(m1, m0)[1]
+
+
+@functools.cache
+def q4_plan(m1: int, m0: int, n1: int, k1: int) -> tuple[str, int, int]:
+    """("skinny", BN, splits) for lhs4 (M1, K1, M0, 128) and N = n1 * 128:
+    64-column blocks (a warp per 16 columns, every warp on every K tile)
+    where a block holds more than 56 rows and their grid fills a wave, else
+    16-column blocks (the four warps split the K tiles); then the least K
+    split that brings the grid to Q4_TARGET blocks, at most one a K tile
+    (the sweep in PERF.md, section 6: 16-column blocks beat 32 at every
+    decode shape, 64 beat 128 at every wide one)."""
+    rows, groups = q4_groups(m1, m0)
+    wide = rows > Q4_ROWS - 8 and n1 * PACK_TILE // Q4_WIDE_BN * groups >= GEMM_WAVE
+    bn = Q4_WIDE_BN if wide else Q4_BN
+    x, _, z = q4_grid(m1, m0, n1, bn, 1)
+    return "skinny", bn, min(k1, -(-Q4_TARGET // (x * z)))
+
+
+def q4_block_loads(bx: int, split: int, bz: int, i: int, m1: int, m0: int, k1: int,
+                   bn: int, splits: int, group: int):
+    """What block (bx, split, bz) copies at its i-th K tile: the weight box
+    (64, bn) in rhs4_p viewed as (N1*K1*128, 64) as (column, row); the scale
+    run as (first element, elements) of s_w4 flattened; the rows box origin
+    in lhs4 as (k0, m0, k1, m1), innermost first (box (128, M0, 1, G), or
+    mmt4d.slab_lhs_box at M0 > 64)."""
+    n_base = bx * bn
+    kt = mmt4d_lib.skinny_split_range(split, splits, k1)[0] + i
+    row = (n_base // PACK_TILE) * k1 * PACK_TILE + n_base % PACK_TILE + kt * PACK_TILE
+    gpt = PACK_TILE // group
+    if m0 > Q4_ROWS:
+        rows = mmt4d_lib.slab_lhs_origin(bz, kt, m0, Q4_ROWS)
+    else:
+        rows = (0, 0, kt, bz * min(m1, Q4_ROWS // m0))
+    return (0, row), (row * gpt, bn * gpt), rows
+
+
+def q4_launch_args(device: torch.device, m1: int, m0: int, n1: int, k1: int, plan) -> tuple:
+    """(bn, splits, part, cnt) for the kernel under `plan`, with the f64
+    partials' scratch (two words a partial) when the launch splits."""
+    _, bn, splits = plan
+    rows, _ = q4_groups(m1, m0)
+    if (plan[0] != "skinny" or bn not in (Q4_BN, Q4_WIDE_BN) or not 1 <= splits <= k1
+            or (bn == Q4_WIDE_BN and rows <= Q4_ROWS - 8)):
+        raise ValueError(f"mmt4d_q4 takes ('skinny', {Q4_BN} (or {Q4_WIDE_BN} for blocks of "
+                         f"57-64 rows), 1..{k1} splits), got {plan}")
+    if splits == 1:
+        return bn, 1, None, None
+    x, _, z = q4_grid(m1, m0, n1, bn, splits)
+    part, cnt = mmt4d_lib.scratch(device, x * z, x * z * splits * Q4_ROWS * bn * 2)
+    return bn, splits, part.data_ptr(), cnt.data_ptr()
+
+
 @functools.cache
 def _gemm_kernel():
     return build.entry(
         "mmt4d_q4", "mmt4d_q4",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3,
     )
 
 
 def mmt4d_q4(lhs4_q: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
-             s_w4: torch.Tensor, group: int = ref.Q4_GROUP) -> torch.Tensor:
+             s_w4: torch.Tensor, group: int = ref.Q4_GROUP, plan=None) -> torch.Tensor:
     """Packed int8 lhs4_q x the nibble-packed weight -> packed (M1, N1, M0,
     N0) f32.  Plain version on the CPU; on a CUDA tensor the kernel runs or
-    this raises."""
+    this raises.  `plan` overrides `q4_plan`, for measuring other blocks
+    and splits."""
     _check_weight(rhs4_p, group)
     if lhs4_q.dim() != 4:
         raise ValueError(f"want lhs4_q (M1, K1, M0, K0), got {tuple(lhs4_q.shape)}")
@@ -152,10 +243,12 @@ def mmt4d_q4(lhs4_q: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
         raise ValueError(f"mmt4d_q4 takes M0 in 1..{GEMV_MAX_ROWS} or {PACK_TILE} and bf16 "
                          f"scales, got M0={m0}, {s_w4.dtype}")
     lhs4_q, rhs4_p = build.aligned(lhs4_q), build.aligned(rhs4_p)
-    s_a, s_w4 = s_a.contiguous(), s_w4.contiguous()
+    s_a, s_w4 = s_a.contiguous(), build.aligned(s_w4)
     out4 = torch.empty((m1, n1, m0, n0), dtype=torch.float32, device=lhs4_q.device)
+    bn, splits, part, cnt = q4_launch_args(lhs4_q.device, m1, m0, n1, k1,
+                                           plan or q4_plan(m1, m0, n1, k1))
     err = _gemm_kernel()(lhs4_q.data_ptr(), rhs4_p.data_ptr(), s_a.data_ptr(), s_w4.data_ptr(),
-                         out4.data_ptr(), m1, m0, n1, k1, group,
+                         out4.data_ptr(), m1, m0, n1, k1, group, bn, splits, part, cnt,
                          build.stream_ptr(lhs4_q.device))
     build.check(err, "mmt4d_q4", "mmt4d_q4 launch")
     mmt4d_q4.launches += 1

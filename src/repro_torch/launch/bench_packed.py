@@ -2,6 +2,7 @@
 prefill GEMM at the serving shapes.
 
   PYTHONPATH=src python -m repro_torch.launch.bench_packed [--label NAME] [--sweep]
+      [--match PREFIX,...]
 
 Times, against the Llama-3.2-1B projections K x N = 2048 x 2048, 2048 x
 512, 2048 x 8192 and 8192 x 2048 (the shapes of chip_smoke.py's phase 2),
@@ -10,7 +11,11 @@ rows in M0 = 128 slabs, `mmt4d_gemv` and `fused_gemv` at 1, 4 and 8 rows,
 and `fused_pack_mmt4d` at 16, 512 and 2048 rows, each beside torch.matmul
 on the unpacked weight at the same rows; in int8 (w8a8): `mmt4d_q8` at the
 packed GEMM's rows, beside torch._int_mm plus the scale epilogue (rows
-padded to 32 where there are 16 or fewer: _int_mm takes more than 16).
+padded to 32 where there are 16 or fewer: _int_mm takes more than 16); in
+int4 (w4a8, groups 16 and 32): `mmt4d_q4` at the packed GEMM's rows and
+`fused_gemv_q4` at 1, 4 and 8 rows (no PyTorch call computes int4 x int8);
+and `batch_mmt4d` at chip_smoke.py's attention shapes in f32 and bf16,
+beside torch.einsum.
 Four numbers a shape, each the median of --reps repeats (as
 launch/bench_prefill.py):
 
@@ -27,8 +32,9 @@ checkouts' kernels can be compared bit for bit: the module calls only the
 wrappers' public signatures, so run this file by path with PYTHONPATH set to
 another checkout's src/ to time that tree.  --sweep (this tree's plans only)
 adds the bf16 and int8 packed GEMMs at 64, 128 and 256 rows (M0 = 8) under
-each body, and the skinny body's K split at grid targets of 132, 264 and
-528 blocks.  Prints one line a shape and one JSON line; writes
+each body, the skinny body's K split at grid targets of 132, 264 and 528
+blocks, and `mmt4d_q4` at 16, 20, 256 and 2048 rows under both block
+widths (16 and 64 columns) at those targets.  Prints one line a shape and one JSON line; writes
 chiprun_out/bench_packed-<label>.json.
 """
 
@@ -63,11 +69,28 @@ def _skinny_plans(m1: int, m0: int, n1: int, k1: int) -> list:
     return [(target, ("skinny", mmt4d.SKINNY_BN, s)) for target, s in zip((132, 264, 528), splits)]
 
 
+def _q4_plans(m1: int, m0: int, n1: int, k1: int) -> list:
+    """int4 plans (this tree's only): 16-column blocks, and 64-column ones
+    where a block holds 57-64 rows, at the K splits that bring the grid to
+    132, 264 and 528 blocks."""
+    from repro_torch.kernels import mmt4d_q4
+
+    bns = [mmt4d_q4.Q4_BN]
+    if mmt4d_q4.q4_groups(m1, m0)[0] > mmt4d_q4.Q4_ROWS - 8:
+        bns.append(mmt4d_q4.Q4_WIDE_BN)
+    out = []
+    for bn in bns:
+        x, _, z = mmt4d_q4.q4_grid(m1, m0, n1, bn, 1)
+        for target in (132, 264, 528):
+            out.append((target, ("skinny", bn, min(k1, -(-target // (x * z))))))
+    return out
+
+
 def cases(dev, gen, sweep: bool) -> list:
     """(name, fn, checked) of every timed call: the kernels (checked: their
     output's checksum is printed) and their library calls."""
-    from repro_torch.kernels import (fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv, mmt4d_q8,
-                                     ref)
+    from repro_torch.kernels import (batch_mmt4d, fused_gemv, fused_pack_mmt4d, mmt4d,
+                                     mmt4d_gemv, mmt4d_q4, mmt4d_q8, ref)
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
@@ -115,6 +138,28 @@ def cases(dev, gen, sweep: bool) -> list:
             xp = torch.nn.functional.pad(xq, (0, 0, 0, 32 - m)) if m <= 16 else xq
             out.append((f"int_mm {key}", lambda a=xp, w=w_q.t(), sa=s_a, sw=s_w.reshape(-1), m=m:
                         (torch._int_mm(a, w)[:m].float() * sa[:, None]) * sw, False))
+        # int4: nibbles, bf16 group scales, the same int8 rows
+        rhs4_p = torch.randint(0, 256, (n1, k1, 128, 64), generator=gen, device=dev,
+                               dtype=torch.uint8)
+        for group in (16, 32):
+            s_w4 = scales(n1, k1, 128, 128 // group).to(torch.bfloat16)
+            for m in (1, 4, 8):
+                xq, s_a = int8(m, k), scales(m, 1)
+                out.append((f"fused_gemv_q4 g{group} M={m} K={k} N={n}",
+                            lambda a=xq, r=rhs4_p, sa=s_a, sw=s_w4, g=group:
+                            mmt4d_q4.fused_gemv_q4(a, r, sa, sw, g), True))
+            for m in (16, 20, 256, 2048):
+                key = f"g{group} M={m} K={k} N={n}"
+                m0 = 128 if m == 2048 else 8
+                lhs4 = ref.pack(int8(m, k), (m0, 128))
+                sa2 = scales(lhs4.shape[0], m0)
+                out.append((f"mmt4d_q4 {key}", lambda a=lhs4, r=rhs4_p, sa=sa2, sw=s_w4, g=group:
+                            mmt4d_q4.mmt4d_q4(a, r, sa, sw, g), True))
+                if sweep:
+                    for target, plan in _q4_plans(lhs4.shape[0], m0, n1, k1):
+                        out.append((f"mmt4d_q4 bn={plan[1]} target={target} splits={plan[2]} "
+                                    f"{key}", lambda a=lhs4, r=rhs4_p, sa=sa2, sw=s_w4, g=group,
+                                    p=plan: mmt4d_q4.mmt4d_q4(a, r, sa, sw, g, plan=p), True))
         if sweep:
             for m in (64, 128, 256):
                 lhs4 = ref.pack(rnd(m, k), (8, 128))
@@ -145,6 +190,17 @@ def cases(dev, gen, sweep: bool) -> list:
                     out.append((f"mmt4d_q8 {name}",
                                 lambda a=lhs4_q, r=rhs4_q, sa=sa2, sw=s_w, p=plan:
                                 mmt4d_q8.mmt4d_q8(a, r, sa, sw, plan=p), True))
+    # batch_mmt4d at chip_smoke.py's phase-2 shapes, beside einsum
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, (b, m1, n1, k1, m0, n0, k0) in (("scores", (128, 8, 8, 1, 16, 16, 64)),
+                                                   ("context", (128, 8, 4, 2, 16, 16, 64)),
+                                                   ("tile64", (32, 2, 2, 2, 64, 64, 64))):
+            lhs = torch.randn((b, m1, k1, m0, k0), generator=gen, device=dev).to(dtype)
+            rhs = torch.randn((b, n1, k1, n0, k0), generator=gen, device=dev).to(dtype)
+            out.append((f"batch_mmt4d {dname} {label}", lambda a=lhs, r=rhs:
+                        batch_mmt4d.batch_mmt4d(a, r), True))
+            out.append((f"einsum {dname} {label}", lambda a=lhs, r=rhs:
+                        torch.einsum("zmkac,znkbc->zmnab", a, r), False))
     return out
 
 
@@ -166,6 +222,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--match", default="",
+                    help="time only the cases whose name starts with one of these "
+                         "comma-separated prefixes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_packed needs a CUDA device")
@@ -174,9 +233,16 @@ def main(argv: list[str] | None = None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     rows = {}
+    prefixes = tuple(p for p in args.match.split(",") if p)
     for name, fn, checked in cases(dev, gen, args.sweep):
-        for _ in range(3):
-            fn()
+        if prefixes and not name.startswith(prefixes):
+            continue
+        try:
+            for _ in range(3):
+                fn()
+        except ValueError as e:  # another tree's kernel that does not take this shape
+            print(f"[bench] {args.label:8s} {name:58s} refused: {e}", flush=True)
+            continue
         ev = [_event_ms(fn, flush, 10) for _ in range(args.reps)]
         kern = [_kernel_ms(fn, flush) for _ in range(args.reps)]
         warm = [_event_ms(fn, None, 20) for _ in range(args.reps)]

@@ -11,8 +11,10 @@ both versions (1e-4); attention outputs are rounded to the input dtype, so
 bf16 allows about one bf16 ulp (2e-2).  The int8 (w8a8) kernels sum integers
 exactly and apply the same f32 epilogue: equal bit for bit.  The int4 (w4a8)
 kernels sum exact terms in float64, as their plain versions do, and round
-once: held to 3e-5 of the largest output, the bar of chip_smoke.py (they
-agree bit for bit where a row's group scales span less than 2**21).  The
+once: the GEMV is held to 3e-5 of the largest output, the bar of
+chip_smoke.py; the GEMM (the skinny body) equal bit for bit under every
+plan, as the sums stay exact while a row's group scales span less than
+2**21.  The
 paged and dense decode kernels on kv8/kv4 caches dequantize exactly, so
 they keep the attention tolerances; through an identity page table the two
 kernels agree bit for bit, and flash prefill (the same body over K/V as a
@@ -26,7 +28,7 @@ the skinny body on plain rows: 1e-4, and a repeat call the same bits.  The
 int8 GEMM on either body sums integers exactly: equal to its plain version
 bit for bit.  The pack and unpack kernels copy bytes: equal
 bit for bit.  batch_mmt4d sums the same exact products in another order
-(rtol 1e-5, atol 1e-4).  The sampler's integer bits, and so its uniforms,
+(rtol 1e-5, atol 1e-4), at any tile shape (64 x 64 outputs, K0 = 13).  The sampler's integer bits, and so its uniforms,
 are the same on the card and the CPU."""
 
 import numpy as np
@@ -636,15 +638,52 @@ def test_fused_gemv_q4_kernel(dev, m, group, n1, k1):
 
 
 @pytest.mark.parametrize("group", [16, 32])
-@pytest.mark.parametrize("m1,m0", [(1, 8), (3, 8), (2, 5), (1, 128), (3, 128), (130, 8)])
+@pytest.mark.parametrize("m1,m0", [(1, 8), (3, 8), (2, 5), (8, 8), (1, 128), (3, 128), (130, 8)])
 def test_mmt4d_q4_kernel(dev, m1, m0, group):
-    lhs4, rhs4 = _int8(dev, m1, 3, m0, 128, seed=m1 * m0), _nibbles(dev, 4, 3, 128, 64, seed=1)
+    """The w4a8 GEMM on the skinny body at its plan and with the plan
+    forced: 16-column blocks at 1 and 3 K splits, and 64-column blocks at 1
+    and 2 where a block holds 57-64 rows; each equal to the plain version
+    bit for
+    bit (exact f64 sums), a repeat call too, counters reset by each
+    launch."""
+    n1, k1 = 4, 3
+    lhs4, rhs4 = _int8(dev, m1, k1, m0, 128, seed=m1 * m0), _nibbles(dev, n1, k1, 128, 64, seed=1)
     s_a = _scales(dev, m1, m0, seed=2)
-    s_w4 = _scales(dev, 4, 3, 128, 128 // group, seed=3, dtype=torch.bfloat16)
-    before = mmt4d_q4.mmt4d_q4.launches
-    got = mmt4d_q4.mmt4d_q4(lhs4, rhs4, s_a, s_w4, group)
-    assert mmt4d_q4.mmt4d_q4.launches == before + 1
-    _q4_close(got, mmt4d_q4.mmt4d_q4_plain(lhs4, rhs4, s_a, s_w4, group))
+    s_w4 = _scales(dev, n1, k1, 128, 128 // group, seed=3, dtype=torch.bfloat16)
+    want = mmt4d_q4.mmt4d_q4_plain(lhs4, rhs4, s_a, s_w4, group)
+    plans = [None, ("skinny", mmt4d_q4.Q4_BN, 1), ("skinny", mmt4d_q4.Q4_BN, 3)]
+    if mmt4d_q4.q4_groups(m1, m0)[0] > 56:
+        plans += [("skinny", mmt4d_q4.Q4_WIDE_BN, 1), ("skinny", mmt4d_q4.Q4_WIDE_BN, 2)]
+    for plan in plans:
+        before = mmt4d_q4.mmt4d_q4.launches
+        got = mmt4d_q4.mmt4d_q4(lhs4, rhs4, s_a, s_w4, group, plan=plan)
+        assert mmt4d_q4.mmt4d_q4.launches == before + 1
+        assert torch.equal(got, want), plan
+        assert _counters_zero()
+        assert torch.equal(mmt4d_q4.mmt4d_q4(lhs4, rhs4, s_a, s_w4, group, plan=plan), got)
+
+
+@pytest.mark.parametrize("group", [16, 32])
+def test_mmt4d_q4_extreme_sums_and_scales(dev, group):
+    """Every row -128 against every nibble -8: each group's sum is 1024 *
+    group (32768 at g32, where the f64 term's high word carries into its
+    exponent); and group scales spanning 2^-10 .. 2^10 in each weight row,
+    at K = 8192 split across blocks: still exact, so equal bit for bit."""
+    m1, k1, n1 = 3, 64, 4
+    s_a = _scales(dev, m1, 8, seed=2)
+    s_w4 = _scales(dev, n1, k1, 128, 128 // group, seed=3, dtype=torch.bfloat16)
+    lhs4 = torch.full((m1, k1, 8, 128), -128, dtype=torch.int8, device=dev)
+    rhs4 = torch.full((n1, k1, 128, 64), 0x88, dtype=torch.uint8, device=dev)
+    for plan in (None, ("skinny", mmt4d_q4.Q4_BN, 5)):
+        got = mmt4d_q4.mmt4d_q4(lhs4, rhs4, s_a, s_w4, group, plan=plan)
+        assert torch.equal(got, mmt4d_q4.mmt4d_q4_plain(lhs4, rhs4, s_a, s_w4, group))
+    g = torch.Generator(device=dev).manual_seed(5)
+    span = torch.randint(-10, 11, s_w4.shape, generator=g, device=dev).float().exp2()
+    wide = (s_w4.float() * span).to(torch.bfloat16)
+    lhs4, rhs4 = _int8(dev, m1, k1, 8, 128, seed=6), _nibbles(dev, n1, k1, 128, 64, seed=7)
+    for plan in (None, ("skinny", mmt4d_q4.Q4_BN, 7)):
+        got = mmt4d_q4.mmt4d_q4(lhs4, rhs4, s_a, wide, group, plan=plan)
+        assert torch.equal(got, mmt4d_q4.mmt4d_q4_plain(lhs4, rhs4, s_a, wide, group))
 
 
 @pytest.mark.parametrize("wq", ["int8", "int4"])
@@ -782,16 +821,19 @@ def test_pack_kernels_check_operands(dev):
         pack.pack(torch.zeros(4, 4, dtype=torch.float64, device=dev), (2, 2))
     with pytest.raises(ValueError, match="cannot give"):
         pack.unpack(torch.zeros(1, 1, 2, 2, device=dev), (3, 2))
-    with pytest.raises(ValueError, match="M0\\*N0"):
+    with pytest.raises(ValueError, match="K tiles differ"):
         batch_mmt4d.batch_mmt4d(torch.zeros(1, 1, 1, 64, 8, device=dev),
-                                torch.zeros(1, 1, 1, 64, 8, device=dev))
+                                torch.zeros(1, 1, 2, 64, 8, device=dev))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 2, 3, 16, 8, 8), (3, 4, 2, 8, 32, 16),
-                                   (128, 8, 1, 16, 16, 64), (128, 8, 2, 16, 16, 64)])
+                                   (128, 8, 1, 16, 16, 64), (128, 8, 2, 16, 16, 64),
+                                   (2, 2, 3, 64, 64, 40), (3, 3, 2, 5, 7, 13)])
 def test_batch_mmt4d_kernel(dev, dtype, shape):
-    """The JAX test's shapes and the attention score / context shapes."""
+    """The JAX test's shapes, the attention score / context shapes, a 64 x
+    64 output tile (past the old kernel's 1024 outputs a tile) and K0 = 13
+    (element copies: no 16-byte run)."""
     bsz, m1, k1, m0, n0, k0 = shape
     lhs = _rand(dev, dtype, bsz, m1, k1, m0, k0, seed=1)
     rhs = _rand(dev, dtype, bsz, m1 + 1, k1, n0, k0, seed=2)
