@@ -17,7 +17,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
              (torch.matmul on the unpacked weight, SDPA with the causal mask,
              and beside it at q_offset 0 SDPA's own is_causal prefill over
              the grouped heads), and the roofline
-             bound computed from the shapes; then the four quantized-weight
+             bound computed from the shapes; the packed GEMMs' plain-row
+             entries (mmt4d_rows, mmt4d_gemv_rows; mmt4d_q8_rows and
+             mmt4d_q4_rows below), which the packed routes call, at their
+             packed twins' shapes, each equal to the packed route (pack ->
+             packed kernel -> unpack, each a kernel) bit for bit and timed
+             beside it; then the four quantized-weight
              kernels (w8a8: fused_gemv_q8, mmt4d_q8, equal to their plain
              versions bit for bit; w4a8 at group 16 and 32: fused_gemv_q4,
              fused_gemv_q4 within 3e-5 of the largest output, mmt4d_q4
@@ -33,9 +38,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
              yardstick, and the paged kernel through an identity table
              against the dense kernel and against itself called again, bit
              for bit; then pack and unpack at
-             the weight packs of load, the packed routes' activation packs
-             and their output unpacks, bit for bit, permute().contiguous()
-             as the yardstick; batch_mmt4d (no serving path calls it) at an
+             the weight packs of load and at activation and output shapes
+             (which no serving path packs or unpacks any more: the
+             plain-row entries do it in their loads and stores), bit for
+             bit, permute().contiguous() as the yardstick; batch_mmt4d (no serving path calls it) at an
              attention scores and a context shape and at 64 x 64 output
              tiles (M0 = N0 = 64) in f32 and bf16, einsum as
              the yardstick; and the sampler: its (4, 128256) bits, uniforms
@@ -85,10 +91,12 @@ In phases 4 to 8 every kernel's launch count (per KV layout for the decode
 kernels), set to 0 before each run and read after it, must equal the
 dispatches that resolved to it (tallied here from each dispatch's rows,
 weight format, cache and KV layout, and the registry) x layers x (7
-projections or 1 attention; a packed projection kernel adds a pack and an
-unpack), and every kernel of the table but batch_mmt4d must have launched
-in these runs.  Every model made on the card must launch one weight pack
-per projection weight (two for int4: codes and scales).
+projections or 1 attention); pack and unpack must not launch at all (the
+packed projections run their GEMMs' plain-row entries), and every other
+kernel of the table but batch_mmt4d must have launched in these runs.
+Every model made on the card must launch one weight pack per projection
+weight (two for int4: codes and scales); the table's pack launches are
+those of the models of phases 4-8.
 
 The third line from the end is the kernel table as JSON, the next the card's
 name and power limit, and the last {"ok": true, "device": {...}}.  Details go
@@ -158,33 +166,37 @@ LAYOUT_ROWS = {
 }
 LAYOUT_NAMES = {v: k for k, v in LAYOUT_ROWS.items()}
 # The shape whose numbers stand for each kernel in the JSON line: the one the
-# serving runs (phases 4 and 5) give it most often, in bf16.
+# serving runs (phases 4 and 5) give it most often, in bf16 (the packed
+# GEMMs: their plain-row entries, which the serving runs call; pack: the
+# weight pack at load; unpack, which no serving path runs: its output
+# unpack of 4 decode rows).
 HEADLINE = {
     "fused_gemv": "bf16 M=4 K=2048 N=8192",
     "fused_pack_mmt4d": "bf16 M=2048 K=2048 N=8192",
     "flash_prefill_attention": "bf16 B=4 Sq=512 Sk=512 q_offset=0",
     "paged_decode_attention": "bf16 B=4 L=1",
-    "mmt4d": "bf16 M=20 K=2048 N=8192",
-    "mmt4d_gemv": "bf16 M=4 K=2048 N=8192",
+    "mmt4d": "bf16 rows M=20 K=2048 N=8192",
+    "mmt4d_gemv": "bf16 rows M=4 K=2048 N=8192",
     "fused_gemv_q8": "w8a8 M=4 K=2048 N=8192",
-    "mmt4d_q8": "w8a8 M=20 K=2048 N=8192",
+    "mmt4d_q8": "w8a8 rows M=20 K=2048 N=8192",
     "fused_gemv_q4": "w4a8 g16 M=4 K=2048 N=8192",
-    "mmt4d_q4": "w4a8 g16 M=20 K=2048 N=8192",
+    "mmt4d_q4": "w4a8 g16 rows M=20 K=2048 N=8192",
     "paged_decode_attention_kv8": "kv8 bf16 B=4 L=1",
     "paged_decode_attention_kv4": "kv4 bf16 B=4 L=1",
     "dense_decode_attention": "bf16 B=4 S_c=1024 L=1",
-    "pack": "bf16 (4, 2048) tile (4, 128)",
+    "pack": "bf16 (8192, 2048) tile (128, 128)",
     "unpack": "f32 (1, 64, 4, 128) -> (4, 8192)",
     "batch_mmt4d": "f32 scores (128, 8, 1, 16, 64) x (128, 8, 1, 16, 64)",
 }
-# batch_mmt4d is the one kernel no serving path launches: as in the JAX
-# package it completes the microkernel library (IREE's short-sequence
-# attention products); the model's attention runs the flash and decode
-# kernels.  Phase 2 checks it against its plain version.
-NOT_ON_SERVING_PATHS = ("batch_mmt4d",)
-# The packed projection kernels: a dispatch routed to one of them packs its
-# activation rows and unpacks its output through the pack kernels.
-PACKED_MATMULS = ("mmt4d", "mmt4d_gemv", "mmt4d_q8", "mmt4d_q4")
+# Kernels no serving run launches.  batch_mmt4d: as in the JAX package it
+# completes the microkernel library (IREE's short-sequence attention
+# products); the model's attention runs the flash and decode kernels.
+# unpack: the packed projections store plain rows from their GEMMs'
+# epilogues.  (pack runs at load, each model's weight packs, counted by
+# init_model.)  Phase 2 checks all three against their plain versions.
+NOT_ON_SERVING_PATHS = ("batch_mmt4d", "unpack")
+# Weight-pack launches of each model init_model made, in order.
+WEIGHT_PACKS: list[int] = []
 # The projection kernel each matmul backend resolves to, per weight format
 # (registry quant name): (at decode with at most GEMV_MAX_ROWS rows, else).
 MATMUL_KERNELS = {
@@ -251,13 +263,34 @@ def add_row(results: dict, target, name: str, key: str, *, err, tol, ms, plain_m
         raise AssertionError(f"{name} {key}: max abs error {err} exceeds {tol}")
 
 
+def rows_entry(torch, timer, results: dict, target, name: str, key: str, fn, plain, route, *,
+               tol: float, plain_iters: int, **kw) -> None:
+    """Record a packed GEMM's plain-row entry: `fn()` must equal `route()`
+    (the packed route, pack -> packed kernel -> unpack on the card) bit for
+    bit, and `plain()` within `tol` (0: bit for bit); the route's event time
+    is kept beside the entry's as `packed_route_ms`."""
+    got, want = fn(), route()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {key}: the plain-row entry differs from the packed "
+                             f"route (max abs {(got - want).abs().max().item()})")
+    ref_out = plain()
+    err = (got - ref_out).abs().max().item()
+    if tol == 0.0 and not torch.equal(got, ref_out):
+        raise AssertionError(f"{name} {key}: not equal to its plain version bit for bit "
+                             f"(max abs error {err})")
+    add_row(results, target, name, key, err=err, tol=tol, ms=timer.ms(fn),
+            plain_ms=timer.ms(plain, iters=plain_iters), packed_route_ms=timer.ms(route),
+            **kw)
+
+
 def check_kernels(torch, dev, target, timer, results: dict) -> None:
     """Phase 2: every kernel against its plain version at the main path's
     full-width shapes, both dtypes."""
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.kernels import attn, fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv, ref
+    from repro_torch.kernels import (attn, fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv,
+                                     pack, ref)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -266,6 +299,10 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
 
     def record(name, key, **kw):
         add_row(results, target, name, key, **kw)
+
+    def rows_check(name, key, fn, plain, route, *, tol, plain_iters, **kw):
+        rows_entry(torch, timer, results, target, name, key, fn, plain, route, tol=tol,
+                   plain_iters=plain_iters, **kw)
 
     dtypes = [("bf16", torch.bfloat16), ("f32", torch.float32)]
     kn = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
@@ -297,36 +334,60 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
                        library_ms=timer.ms(lambda: torch.matmul(x, w_t.t())),
                        bytes_moved=(m * k + n * k) * s + m * n * 4, flops=2 * m * n * k,
                        dname=dname)
-            # The packed kernels take the rows packed as ops does (ref.pack):
+            # The packed kernels take the rows packed as ops did (ref.pack):
             # one block of M0 = M rows for the GEMV; M0 = 8 row blocks for the
             # GEMM at verify (20 rows), 16-slot decode (16) and mixed (256)
             # windows, 128-row slabs at prefill.  Bytes and operations count
-            # the packed operands as given, pad rows included.
+            # the packed operands as given, pad rows included.  Beside each,
+            # the plain-row entry the ops path now calls on the same rows:
+            # equal to the packed route (pack -> kernel -> unpack, each a
+            # kernel, timed as `packed_route_ms`) bit for bit, bytes counting
+            # the M live rows.
             for m in (1, 4, 8):
                 x = rnd(m, k).to(dt)
                 lhs4 = ref.pack(x, (m, 128))
                 got = mmt4d_gemv.mmt4d_gemv(lhs4, rhs4)
                 want = mmt4d_gemv.mmt4d_gemv_plain(lhs4, rhs4)
+                lib_ms = timer.ms(lambda: torch.matmul(x, w_t.t()))
                 record("mmt4d_gemv", f"{dname} M={m} K={k} N={n}",
                        err=(got - want).abs().max().item(), tol=1e-3,
                        ms=timer.ms(lambda: mmt4d_gemv.mmt4d_gemv(lhs4, rhs4)),
                        plain_ms=timer.ms(lambda: mmt4d_gemv.mmt4d_gemv_plain(lhs4, rhs4)),
-                       library_ms=timer.ms(lambda: torch.matmul(x, w_t.t())),
+                       library_ms=lib_ms,
                        bytes_moved=(m * k + n * k) * s + m * n * 4, flops=2 * m * n * k,
                        dname=dname)
+
+                def route():
+                    return pack.unpack(mmt4d_gemv.mmt4d_gemv(pack.pack(x, (m, 128)), rhs4), (m, n))
+                rows_check("mmt4d_gemv", f"{dname} rows M={m} K={k} N={n}",
+                           lambda: mmt4d_gemv.mmt4d_gemv_rows(x, rhs4),
+                           lambda: mmt4d_gemv.mmt4d_gemv_rows_plain(x, rhs4), route,
+                           tol=1e-3, plain_iters=10, library_ms=lib_ms,
+                           bytes_moved=(m * k + n * k) * s + m * n * 4, flops=2 * m * n * k,
+                           dname=dname)
             for m, m0 in ((16, 8), (20, 8), (256, 8), (2048, 128)):
                 x = rnd(m, k).to(dt)
                 lhs4 = ref.pack(x, (m0, 128))
                 rows = lhs4.shape[0] * m0
                 got = mmt4d.mmt4d(lhs4, rhs4)
                 want = mmt4d.mmt4d_plain(lhs4, rhs4)
+                lib_ms = timer.ms(lambda: torch.matmul(x, w_t.t()))
                 record("mmt4d", f"{dname} M={m} K={k} N={n}",
                        err=(got - want).abs().max().item(), tol=1e-3,
                        ms=timer.ms(lambda: mmt4d.mmt4d(lhs4, rhs4)),
                        plain_ms=timer.ms(lambda: mmt4d.mmt4d_plain(lhs4, rhs4), iters=3),
-                       library_ms=timer.ms(lambda: torch.matmul(x, w_t.t())),
+                       library_ms=lib_ms,
                        bytes_moved=(rows * k + n * k) * s + rows * n * 4,
                        flops=2 * rows * n * k, dname=dname)
+
+                def route():
+                    return pack.unpack(mmt4d.mmt4d(pack.pack(x, (m0, 128)), rhs4), (m, n))
+                rows_check("mmt4d", f"{dname} rows M={m} K={k} N={n}",
+                           lambda: mmt4d.mmt4d_rows(x, rhs4, m0),
+                           lambda: mmt4d.mmt4d_rows_plain(x, rhs4, m0), route,
+                           tol=1e-3, plain_iters=3, library_ms=lib_ms,
+                           bytes_moved=(m * k + n * k) * s + m * n * 4, flops=2 * m * n * k,
+                           dname=dname)
             del w_t, rhs4
 
     b, h, kvh, d = 4, 32, 8, 64
@@ -407,12 +468,13 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
 
 def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
     """Phase 2, quantized weights: the four w8a8/w4a8 kernels against their
-    plain versions at the full-width projection shapes.  Weights are drawn
+    plain versions at the full-width projection shapes, and the packed
+    GEMMs' plain-row entries against their packed routes, bit for bit.  Weights are drawn
     in bf16 and quantized on the card as the model does (ops.pack_rhs_q8 /
     pack_rhs_q4); activation rows are bf16, quantized per row."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import fused_gemv, mmt4d_q4, mmt4d_q8, ops, ref
+    from repro_torch.kernels import fused_gemv, mmt4d_q4, mmt4d_q8, ops, pack, ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -477,22 +539,46 @@ def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
             rows = lhs4.shape[0] * m0  # pad rows included, as the kernels read them
             sa2 = F.pad(s_a, (0, rows - m)).reshape(-1, m0)
             iters = 3 if m == 2048 else 10
+            lib_ms = int_mm_ms(xq, w_q, s_a, s_w_flat)
             check("mmt4d_q8", f"w8a8 M={m} K={k} N={n}",
                   lambda: mmt4d_q8.mmt4d_q8(lhs4, rhs4_q, sa2, s_w),
                   lambda: mmt4d_q8.mmt4d_q8_plain(lhs4, rhs4_q, sa2, s_w),
-                  tol_rel=0.0, library_ms=int_mm_ms(xq, w_q, s_a, s_w_flat),
+                  tol_rel=0.0, library_ms=lib_ms,
                   bytes_moved=rows * k + n * k + rows * 4 + n * 4 + rows * n * 4,
                   flops=2 * rows * n * k, iters=iters, library_rows=32 if m <= 16 else m)
+            # The plain-row entry on the same rows: the packed route bit for
+            # bit, the plain version too; bytes count the M live rows.
+
+            def route():
+                return pack.unpack(mmt4d_q8.mmt4d_q8(pack.pack(xq, (m0, 128)), rhs4_q, sa2, s_w),
+                                   (m, n))
+            rows_entry(torch, timer, results, target, "mmt4d_q8", f"w8a8 rows M={m} K={k} N={n}",
+                       lambda: mmt4d_q8.mmt4d_q8_rows(xq, rhs4_q, s_a, s_w, m0),
+                       lambda: mmt4d_q8.mmt4d_q8_rows_plain(xq, rhs4_q, s_a, s_w, m0), route,
+                       tol=0.0, plain_iters=iters, library_ms=lib_ms,
+                       bytes_moved=m * k + n * k + m * 4 + n * 4 + m * n * 4,
+                       flops=2 * m * n * k, dname="int8", library_rows=32 if m <= 16 else m)
             for g in groups:
                 rhs4_p, s_w4 = q4[g]
+                deq_ms = timer.ms(lambda: torch.matmul(x, w_deq[g].t()))
                 check("mmt4d_q4", f"w4a8 g{g} M={m} K={k} N={n}",
                       lambda: mmt4d_q4.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, g),
                       lambda: mmt4d_q4.mmt4d_q4_plain(lhs4, rhs4_p, sa2, s_w4, g),
                       tol_rel=3e-5, library_ms=None, exact=True,
                       bytes_moved=rows * k + n * k // 2 + n * (k // g) * 2 + rows * 4
                       + rows * n * 4,
-                      flops=2 * rows * n * k, iters=iters,
-                      bf16_dequant_matmul_ms=timer.ms(lambda: torch.matmul(x, w_deq[g].t())))
+                      flops=2 * rows * n * k, iters=iters, bf16_dequant_matmul_ms=deq_ms)
+
+                def route():
+                    return pack.unpack(mmt4d_q4.mmt4d_q4(pack.pack(xq, (m0, 128)), rhs4_p, sa2,
+                                                         s_w4, g), (m, n))
+                rows_entry(torch, timer, results, target, "mmt4d_q4",
+                           f"w4a8 g{g} rows M={m} K={k} N={n}",
+                           lambda: mmt4d_q4.mmt4d_q4_rows(xq, rhs4_p, s_a, s_w4, g, m0),
+                           lambda: mmt4d_q4.mmt4d_q4_rows_plain(xq, rhs4_p, s_a, s_w4, g, m0),
+                           route, tol=0.0, plain_iters=iters, library_ms=None,
+                           bytes_moved=m * k + n * k // 2 + n * (k // g) * 2 + m * 4 + m * n * 4,
+                           flops=2 * m * n * k, dname="int8", bf16_dequant_matmul_ms=deq_ms)
         del rhs4_q, w_q, q4, w_deq
     torch.cuda.synchronize()
 
@@ -659,12 +745,14 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
 
 
 def check_pack_kernels(torch, dev, target, timer, results: dict) -> None:
-    """Phase 2, the pack and unpack kernels at the serving shapes, bit for
-    bit against ref.pack / ref.unpack: the weight packs at load ((8192,
-    2048) bf16 and int8 at (128, 128), the int4 scales (8192, 128) bf16 at
-    (128, 8)), the activation packs of the packed routes (4 decode rows at
-    M0 = 4, a 20-row int8 verify window at M0 = 8, 300 prefill rows at M0 =
-    128) and the output unpacks to (300, 8192) and (4, 8192) f32.  The
+    """Phase 2, the pack and unpack kernels, bit for bit against ref.pack /
+    ref.unpack: the weight packs at load ((8192, 2048) bf16 and int8 at
+    (128, 128), the int4 scales (8192, 128) bf16 at (128, 8)), and the
+    activation and output shapes of the packed routes, which the serving
+    paths no longer pack or unpack (4 decode rows at M0 = 4, a 20-row int8
+    verify window at M0 = 8, 300 prefill rows at M0 = 128; unpacks to (300,
+    8192) and (4, 8192) f32): the exports ops.pack_pallas and unpack_pallas
+    take them.  The
     library yardstick is the permute(...).contiguous() copy on the padded
     operand (the pad is made outside the timing); the bound counts each
     byte the function must read and write once.  Then batch_mmt4d at an
@@ -823,6 +911,7 @@ def init_model(cfg, enc, seed: int, dev):
                              f"tallied {want}")
     log(f"[init] {cfg.name} depth {cfg.num_layers} {enc.weight_quant} weights: {got} pack "
         f"launches == tallied")
+    WEIGHT_PACKS.append(got)
     return params
 
 
@@ -1174,7 +1263,8 @@ class DispatchTally:
     verify or mixed window), the weight format and the registry decide which
     kernel its 7 projections and its attention resolve to, as kernels/ops.py
     and models/layers.py route them; each adds layers launches per
-    projection; a packed projection kernel adds one pack and one unpack.
+    projection (a packed projection is one launch of its GEMM's plain-row
+    entry: no pack, no unpack, so their tallies stay 0).
     Each step's watchdog duration is kept under the kinds it dispatched
     (verify and mixed windows with their width L)."""
 
@@ -1218,8 +1308,6 @@ class DispatchTally:
             mm_kernel, at_kernel = routed(kind, rows)
             out = dispatch(kind, fn, *args)
             launched = [(mm_kernel, 7 * layers), (at_kernel, layers)]
-            if mm_kernel in PACKED_MATMULS:  # its rows packed, its output unpacked
-                launched += [("pack", 7 * layers), ("unpack", 7 * layers)]
             for kernel, n in launched:
                 if kernel is not None:
                     self.want[kernel] += n
@@ -1700,6 +1788,7 @@ def main() -> int:
     quant_forward_check(torch, dev, args.seed)
     kv_forward_check(torch, dev, args.seed)
     sampled_forward_check(torch, dev, args.seed)
+    loads = len(WEIGHT_PACKS)  # models made before the serving phases
     served = serve(torch, dev, args.seed)
     windows = serve_windows(torch, dev, args.seed)
     quant = serve_quantized(torch, dev, args.seed)
@@ -1709,6 +1798,9 @@ def main() -> int:
                 + sum(r["launches"][name] for r in (*windows.values(), *quant.values(),
                                                     *kv.values(), *sampled.values()))
                 for name in REPLACES}
+    if launches["pack"] or launches["unpack"]:
+        raise AssertionError(f"serving runs launched activation packs or unpacks: {launches}")
+    launches["pack"] = sum(WEIGHT_PACKS[loads:])  # the weight packs of the served models
     idle = [name for name, n in launches.items() if n == 0 and name not in NOT_ON_SERVING_PATHS]
     if idle:
         raise AssertionError(f"kernels never launched on the serving paths: {idle}")

@@ -34,8 +34,10 @@
 //     >= P::rows are never stored.  int8 applies the scale epilogue on the
 //     way out: (float(acc) * s_a[row]) * s_w[col], the JAX order.
 //
-// Policies: PlainRows (kernel 3) reads lhs (M, K) through a 2-D map, box
-// (slab, BM), and stores plain (M, N) rows.  PackedRows (kernels 4, 6)
+// Policies: PlainRows (kernel 3, and the plain-row entries of kernels 4
+// and 6) reads lhs (M, K) through a 2-D map, box (slab, BM), and stores
+// plain (M, N) rows; rows >= M are read as zeros and never stored, and
+// int8 reads s_a only for them.  PackedRows (kernels 4, 6)
 // reads lhs4 (M1, K1, M0, 128) through a rank-4 map whose box (slab,
 // min(M0, BM), 1, max(1, BM/M0)) lands the same swizzled (BM, slab) tile
 // of flattened rows r = m1*M0 + m0 (M0 divides BM, or BM divides M0), and

@@ -30,6 +30,14 @@
 //   f32: 64 x 64 output tiles over flattened (m1, m0) rows, 256 threads with
 //     a 4 x 4 register tile each, plain FMA (exact f32 products, no TF32:
 //     the f32 token identity of the serving checks needs them).
+// Two entries.  `mmt4d` takes and gives the packed layouts (the Pallas
+// kernel's contract).  `mmt4d_rows`, the one the ops path's packed route
+// calls, takes plain rows (M, K) and gives plain (M, N): the same plan at M1
+// = ceil(M / M0), its lhs boxes read from a 2-D map over the rows (the
+// skinny body's SkPlainRows, the wide body's PlainRows) and its epilogue
+// storing row r at out + r*N, so the activation pack and output unpack
+// cost no launch and no pass over memory.  Each row's sums run in the same
+// order, so it equals unpack(mmt4d(pack(x)))[:M] bit for bit.
 #include "gemm_wgmma.cuh"
 #include "packed_skinny.cuh"
 
@@ -56,6 +64,9 @@ __device__ __forceinline__ size_t out_offset(int r, int m0, int n1, int n) {
 // ---- f32: CUDA cores ------------------------------------------------------------
 constexpr int FBK = 16;
 
+// PLAIN: lhs (rows, K1*T0) and out (rows, N1*T0) plain rows, the same sums
+// in the same order as the packed layout's (the plain-row entry).
+template <bool PLAIN>
 __global__ void __launch_bounds__(256)
 mmt4d_f32_kernel(const float* __restrict__ lhs4, const float* __restrict__ rhs4,
                  float* __restrict__ out4, int rows, int m0, int n1, int k1) {
@@ -81,7 +92,9 @@ mmt4d_f32_kernel(const float* __restrict__ lhs4, const float* __restrict__ rhs4,
         const int r = i / FBK;
         const int c = i % FBK;
         const int gr = r_base + r;
-        As[c][r] = gr < rows ? lhs4[lhs_offset(gr, m0, k1, kt, k0 + c)] : 0.f;
+        const size_t off = PLAIN ? (size_t)gr * k1 * T0 + kt * T0 + k0 + c
+                                 : lhs_offset(gr, m0, k1, kt, k0 + c);
+        As[c][r] = gr < rows ? lhs4[off] : 0.f;
         Bs[c][r] = tile[(size_t)(nb0 + r) * T0 + k0 + c];
       }
       __syncthreads();
@@ -104,11 +117,22 @@ mmt4d_f32_kernel(const float* __restrict__ lhs4, const float* __restrict__ rhs4,
   for (int i = 0; i < 4; ++i) {
     const int gr = r_base + ty * 4 + i;
     if (gr < rows) {
-      float* o = out4 + out_offset(gr, m0, n1, n_base + tx * 4);
+      float* o = out4 + (PLAIN ? (size_t)gr * n1 * T0 + n_base + tx * 4
+                               : out_offset(gr, m0, n1, n_base + tx * 4));
 #pragma unroll
       for (int j = 0; j < 4; ++j) o[j] = acc[i][j];
     }
   }
+}
+
+template <bool PLAIN>
+int launch_f32(const void* lhs, const void* rhs4, float* out, int rows, int m0, int n1, int k1,
+               cudaStream_t s) {
+  const dim3 grid(n1 * (T0 / BN), (rows + BR - 1) / BR);
+  mmt4d_f32_kernel<PLAIN><<<grid, 256, 0, s>>>(static_cast<const float*>(lhs),
+                                               static_cast<const float*>(rhs4), out, rows, m0, n1,
+                                               k1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -137,11 +161,33 @@ extern "C" int mmt4d(const void* lhs4, const void* rhs4, void* out4, int m1, int
     const PackedRows p{o, rows, m0, n1};
     return static_cast<int>(launch_wgmma_tile<bf16>(bm, bn, tm_lhs, rhs4, p, n1, k1, Scales{}, s));
   }
-  if (dtype == DTYPE_F32) {
-    const dim3 grid(n1 * (T0 / BN), (rows + BR - 1) / BR);
-    mmt4d_f32_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(lhs4),
-                                          static_cast<const float*>(rhs4), o, rows, m0, n1, k1);
-    return static_cast<int>(cudaGetLastError());
+  if (dtype == DTYPE_F32) return launch_f32<false>(lhs4, rhs4, o, rows, m0, n1, k1, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plain-row entry: lhs (m, K1*128) -> out (m, N1*128) f32 under the plan
+// of the packed entry at lhs4 (ceil(m / m0), K1, m0, 128), whose result,
+// unpacked, it equals bit for bit: the activation pack is the TMA boxes'
+// addressing (the same rows land at the same shared-memory rows, zeros
+// past m), the output unpack the epilogue's (each row stored at out + row *
+// N; rows past m never stored).
+extern "C" int mmt4d_rows(const void* lhs, const void* rhs4, void* out, int m, int m0, int n1,
+                          int k1, int dtype, int wide, int bm, int bn, int splits, void* part,
+                          void* cnt, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 1 || m0 < 1 || n1 < 1 || k1 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  float* o = static_cast<float*>(out);
+  if (dtype == DTYPE_BF16 && !wide) {
+    return static_cast<int>(launch_skinny_rows<bf16>(lhs, rhs4, o, m, m0, n1, k1, splits, part,
+                                                     static_cast<int*>(cnt), Scales{}, s));
   }
+  if (dtype == DTYPE_BF16) {
+    CUtensorMap tm_lhs;
+    const cudaError_t e = plain_rows_map<bf16>(&tm_lhs, lhs, m, k1, bm);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const PlainRows p{o, m, n1 * T0};
+    return static_cast<int>(launch_wgmma_tile<bf16>(bm, bn, tm_lhs, rhs4, p, n1, k1, Scales{}, s));
+  }
+  if (dtype == DTYPE_F32) return launch_f32<true>(lhs, rhs4, o, m, m0, n1, k1, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,6 +23,8 @@
 //     the block; exact f32 products on CUDA cores (no TF32: the f32 token
 //     identity of the serving checks needs them).  M0 is a template
 //     parameter from 1 to 8, never padded.
+// `mmt4d_gemv_rows` is the plain-row entry the ops path's packed decode
+// route calls: plain rows (M <= 8, K) in, plain (M, N) out, the same sums.
 #include "packed_skinny.cuh"
 
 namespace {
@@ -31,10 +33,12 @@ constexpr int T0 = 128;   // N0 = K0
 constexpr int WARPS = 8;  // output columns per block
 constexpr int KC = 1024;  // K elements of the rows staged per pass
 
-template <int M>
+// PLAIN: lhs (M, K1*T0) and out (M, N1*T0) plain rows, the same sums in the
+// same order (the plain-row entry).
+template <int M, bool PLAIN>
 __global__ void __launch_bounds__(WARPS * 32)
 mmt4d_gemv_f32_kernel(const float* __restrict__ lhs4, const float* __restrict__ rhs4,
-                      float* __restrict__ out4, int k1) {
+                      float* __restrict__ out4, int n1, int k1) {
   __shared__ __align__(16) float xs[M][KC];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -53,7 +57,7 @@ mmt4d_gemv_f32_kernel(const float* __restrict__ lhs4, const float* __restrict__ 
     for (int i = threadIdx.x; i < M * kn; i += blockDim.x) {
       const int m = i / kn;
       const int k = kc + (i - m * kn);
-      xs[m][k - kc] = lhs4[((size_t)(k / T0) * M + m) * T0 + (k % T0)];
+      xs[m][k - kc] = lhs4[PLAIN ? (size_t)m * K + k : ((size_t)(k / T0) * M + m) * T0 + (k % T0)];
     }
     __syncthreads();
     const float* wrow = rhs4 + (((size_t)nt * k1 + kc / T0) * T0 + n0) * T0 + lane * 4;
@@ -72,10 +76,11 @@ mmt4d_gemv_f32_kernel(const float* __restrict__ lhs4, const float* __restrict__ 
 #pragma unroll
   for (int m = 0; m < M; ++m) {
     const float s = warp_sum(acc[m]);
-    if (lane == 0) out4[((size_t)nt * M + m) * T0 + n0] = s;
+    if (lane == 0) out4[PLAIN ? (size_t)m * n1 * T0 + n : ((size_t)nt * M + m) * T0 + n0] = s;
   }
 }
 
+template <bool PLAIN>
 int launch_f32(const void* lhs4, const void* rhs4, void* out4, int m0, int n1, int k1,
                cudaStream_t stream) {
   const dim3 grid(n1 * T0 / WARPS);
@@ -85,7 +90,7 @@ int launch_f32(const void* lhs4, const void* rhs4, void* out4, int m0, int n1, i
   float* o = static_cast<float*>(out4);
   switch (m0) {
 #define CASE(MM) \
-  case MM: mmt4d_gemv_f32_kernel<MM><<<grid, block, 0, stream>>>(a, w, o, k1); break;
+  case MM: mmt4d_gemv_f32_kernel<MM, PLAIN><<<grid, block, 0, stream>>>(a, w, o, n1, k1); break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -105,6 +110,23 @@ extern "C" int mmt4d_gemv(const void* lhs4, const void* rhs4, void* out4, int m0
     return static_cast<int>(launch_skinny<bf16>(lhs4, rhs4, static_cast<float*>(out4), 1, m0, n1,
                                                 k1, splits, part, static_cast<int*>(cnt),
                                                 Scales{}, s));
-  if (dtype == DTYPE_F32) return launch_f32(lhs4, rhs4, out4, m0, n1, k1, s);
+  if (dtype == DTYPE_F32) return launch_f32<false>(lhs4, rhs4, out4, m0, n1, k1, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plain-row entry: lhs (m, K1*128), m <= 8 -> out (m, N1*128) f32,
+// equal to the packed entry's unpacked result at one row block of M0 = m
+// bit for bit: in bf16 the same body, plan and order of sums entered with
+// plain rows (packed_skinny.cuh: launch_skinny_plain, the decode GEMV's
+// entry), in f32 the same kernel reading and storing plain rows.
+extern "C" int mmt4d_gemv_rows(const void* lhs, const void* rhs4, void* out, int m, int n1,
+                               int k1, int dtype, int splits, void* part, void* cnt,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n1 < 1 || k1 < 1 || m < 1 || m > 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DTYPE_BF16)
+    return static_cast<int>(launch_skinny_plain<bf16>(lhs, rhs4, static_cast<float*>(out), m, n1,
+                                                      k1, splits, part, static_cast<int*>(cnt), s));
+  if (dtype == DTYPE_F32) return launch_f32<true>(lhs, rhs4, out, m, n1, k1, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

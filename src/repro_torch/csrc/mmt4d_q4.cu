@@ -70,6 +70,10 @@
 //     re-read from L2 a quarter as often); the plan's sweep is in PERF.md.  Split partials are f64 in
 //     the wrapper's scratch, merged in split order by the last block, the
 //     epilogue float(sum) * s_a once.
+//   - Plain rows (`mmt4d_q4_rows`, the ops path's entry): the same plan
+//     and blocks with the rows read through a 2-D map over lhs (M, K) (a
+//     block's G * M0 rows, or its 64-row slab) and each row stored at out
+//     + r*N: the packed result unpacked, bit for bit, in one launch.
 // What bounds it: bytes at decode (0.625 weight bytes an element at g16),
 // the f64 rescale at prefill: one DFMA per (row, column, group), 2048 x
 // 2048 x 512 ~ 2.1e9 at K = 8192 g16, ~0.13 ms at the H100's ~17e12 DFMA/s
@@ -253,6 +257,47 @@ int launch_gemm(const void* lhs4, const void* rhs4, const void* s_a, const void*
   }
 }
 
+// The plain-row entry of launch_gemm: int8 lhs (m, K1*128), s_a (m,) ->
+// out (m, N1*128) under the packed twin's plan at M1 = ceil(m / m0).  Block
+// row group z holds plain rows [z * rows, (z + 1) * rows), the rows its
+// packed twin's block holds: G * m0 (G = min(M1, 64 / m0)), or a 64-row
+// slab at m0 = 128 (slab z of row block z / 2 is rows 64 z ..).  Rows past
+// m are read as zeros (TMA) and never stored.  The same blocks, K splits
+// and order of sums: equal to the packed result, unpacked, bit for bit.
+template <int G>
+int launch_gemm_rows(const void* lhs, const void* rhs4, const void* s_a, const void* s_w4,
+                     void* out, int m, int m0, int n1, int k1, int bn, int splits, void* part,
+                     int* cnt, cudaStream_t stream) {
+  constexpr int NARROW = 16, WIDE = 64, NT8 = SK_ROWS / 8;
+  if (m < 1 || m0 < 1 || (m0 > SK_ROWS && m0 % SK_ROWS != 0) || (bn != NARROW && bn != WIDE) ||
+      !skinny_plan_ok(n1, k1, splits, part, cnt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using W = Nib4<G>;
+  const int m1 = (m + m0 - 1) / m0;
+  const int rows = m0 > SK_ROWS ? SK_ROWS : std::min(m1, SK_ROWS / m0) * m0;
+  const int nt = (rows + 7) / 8;  // 8-row groups a block holds
+  if (bn == WIDE && nt != NT8) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_lhs, tm_rhs;
+  cudaError_t e = weight_map<int8_t>(&tm_rhs, rhs4, n1, k1, bn, T0P);
+  if (e == cudaSuccess) e = plain_rows_map<int8_t>(&tm_lhs, lhs, m, k1, rows);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const SkPlainRows p{static_cast<float*>(out), m, n1 * T0, rows};
+  const SkinnyArgs a{part, cnt, k1, splits, Scales{static_cast<const float*>(s_a), nullptr},
+                     static_cast<const bf16*>(s_w4)};
+  const dim3 grid(n1 * T0 / bn, splits, (m + rows - 1) / rows);
+  if (bn == WIDE)
+    return static_cast<int>(
+        launch_skinny_nt<W, NT8, SkPlainRows, SK_CW, 1>(tm_lhs, tm_rhs, p, a, grid, stream));
+  switch (nt) {
+#define CASE(NT) \
+  case NT:       \
+    return static_cast<int>(launch_skinny_nt<W, NT, SkPlainRows, 1, 1>(tm_lhs, tm_rhs, p, a, grid, stream));
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int fused_gemv_q4(const void* lhs, const void* rhs4, const void* s_a,
@@ -275,5 +320,20 @@ extern "C" int mmt4d_q4(const void* lhs4, const void* rhs4, const void* s_a, con
     return launch_gemm<16>(lhs4, rhs4, s_a, s_w4, out4, m1, m0, n1, k1, bn, splits, part, c, s);
   if (group == 32)
     return launch_gemm<32>(lhs4, rhs4, s_a, s_w4, out4, m1, m0, n1, k1, bn, splits, part, c, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plain-row entry of mmt4d_q4 (launch_gemm_rows): lhs (m, K1*128) int8,
+// s_a (m,) f32 -> out (m, N1*128) f32, under the plan (bn, splits) of the
+// packed entry at lhs4 (ceil(m / m0), K1, m0, 128).
+extern "C" int mmt4d_q4_rows(const void* lhs, const void* rhs4, const void* s_a,
+                             const void* s_w4, void* out, int m, int m0, int n1, int k1,
+                             int group, int bn, int splits, void* part, void* cnt, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* c = static_cast<int*>(cnt);
+  if (group == 16)
+    return launch_gemm_rows<16>(lhs, rhs4, s_a, s_w4, out, m, m0, n1, k1, bn, splits, part, c, s);
+  if (group == 32)
+    return launch_gemm_rows<32>(lhs, rhs4, s_a, s_w4, out, m, m0, n1, k1, bn, splits, part, c, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

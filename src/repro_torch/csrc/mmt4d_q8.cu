@@ -33,7 +33,8 @@
 //     pass.
 // The integer sum is exact in either body, and the epilogue is the JAX
 // order (float(acc) * s_a) * s_w, so the result equals the plain version
-// bit for bit.
+// bit for bit.  `mmt4d_q8_rows` is the plain-row entry (plain int8 rows and
+// s_a (M,) in, plain (M, N) out, the same plan: mmt4d.cu's mmt4d_rows).
 #include "gemm_wgmma.cuh"
 #include "packed_skinny.cuh"
 
@@ -58,5 +59,27 @@ extern "C" int mmt4d_q8(const void* lhs4, const void* rhs4, const void* s_a, con
                                                    std::max(1, bm / m0));
   if (e != cudaSuccess) return static_cast<int>(e);
   const PackedRows p{o, m1 * m0, m0, n1};
+  return static_cast<int>(launch_wgmma_tile<int8_t>(bm, bn, tm_lhs, rhs4, p, n1, k1, sc, s));
+}
+
+// The plain-row entry: int8 lhs (m, K1*128), s_a (m,) -> out (m, N1*128)
+// f32 under the plan of the packed entry at lhs4 (ceil(m / m0), K1, m0,
+// 128), equal to its unpacked result bit for bit (mmt4d.cu: mmt4d_rows); the
+// scale epilogue reads s_a only for rows < m.
+extern "C" int mmt4d_q8_rows(const void* lhs, const void* rhs4, const void* s_a, const void* s_w,
+                             void* out, int m, int m0, int n1, int k1, int wide, int bm, int bn,
+                             int splits, void* part, void* cnt, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 1 || m0 < 1 || n1 < 1 || k1 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  float* o = static_cast<float*>(out);
+  const Scales sc{static_cast<const float*>(s_a), static_cast<const float*>(s_w)};
+  if (!wide) {
+    return static_cast<int>(launch_skinny_rows<int8_t>(lhs, rhs4, o, m, m0, n1, k1, splits, part,
+                                                       static_cast<int*>(cnt), sc, s));
+  }
+  CUtensorMap tm_lhs;
+  const cudaError_t e = plain_rows_map<int8_t>(&tm_lhs, lhs, m, k1, bm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const PlainRows p{o, m, n1 * TMA_T0};
   return static_cast<int>(launch_wgmma_tile<int8_t>(bm, bn, tm_lhs, rhs4, p, n1, k1, sc, s));
 }

@@ -25,6 +25,9 @@
 // whole number of aligned 16-byte chunks (T1*E or C*E not a multiple of 16,
 // or a base not 16-byte aligned), a per-element path of the same map runs
 // instead.  A grid-stride loop over at most 32 blocks per SM covers any size.
+// On the serving path only the weight packs at load run here: the packed
+// GEMMs' plain-row entries pack the activation rows in their TMA loads and
+// unpack the output in their epilogue stores (mmt4d.cu: mmt4d_rows).
 #include "common.cuh"
 
 namespace {

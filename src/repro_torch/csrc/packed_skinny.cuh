@@ -8,7 +8,10 @@
 //
 //   packed rows: lhs4 (M1, K1, M0, 128) x rhs4 (N1, K1, 128, 128) -> out4 (M1, N1, M0, 128) f32,
 //     out4[m1, n1, m0, n0] = sum_{k1, k0} lhs4[m1, k1, m0, k0] * rhs4[n1, k1, n0, k0]
-//   plain rows:  lhs (M, K1*128) x rhs4 -> out (M, N1*128) f32, M <= 8
+//   plain rows:  lhs (M, K1*128) x rhs4 -> out (M, N1*128) f32: the decode
+//     GEMV (M <= 8), and the packed GEMMs' plain-row entries (any M, the
+//     packed twin's plan; the activation pack and output unpack are the
+//     TMA loads' and the epilogue's addressing)
 //   int8: the sum in int32, then (float(sum) * s_a[row]) * s_w[col].
 //   int4: per K group an int32 sum times the group's scale, summed in f64,
 //     then float(sum) * s_a[row].
@@ -38,9 +41,11 @@
 //     stage carries the group's rows of that K tile, by the rows policy:
 //     PackedRows through a rank-4 map over lhs4 whose box (slab, M0, 1, G)
 //     lands G row blocks as consecutive 128-byte rows (rows past M1 read
-//     zeros); PlainRows through a 2-D map over lhs (M <= 8, K) whose box
-//     (64, 8) lands the rows padded to 8 (rows past M read zeros).  Both
-//     are 128B-swizzled, so the fragment loads below are free of bank
+//     zeros); SkPlainRows through a 2-D map over lhs (M, K) whose box
+//     (slab, rows) lands the same rows from plain memory (rows past M read
+//     zeros): the row group's G * M0 rows, a slab's 64, or 8 for the
+//     decode GEMV.  A box of either kind lands the same bytes at the same
+//     shared-memory rows.  Both are 128B-swizzled, so the fragment loads below are free of bank
 //     conflicts.  A block reads its rows once per K tile, never per warp.
 //   - Products.  Tensor cores with the weight as the A operand (16 weight
 //     rows = 16 output columns) and the rows as the narrow B side:
@@ -66,8 +71,9 @@
 //     scale epilogue runs once, in the block that stores: the result equals
 //     the plain version bit for bit.  The wrappers allocate the scratch and
 //     the counters; the kernel allocates nothing.
-//   - Output.  A row's BN columns are contiguous in either layout: 16-byte
-//     stores.  Rows past the last are never stored.
+//   - Output.  A row's BN columns are contiguous in any layout (packed
+//     out4 or plain rows): 16-byte stores.  Rows past the last (M1 * M0
+//     packed, M plain) are never stored.
 // Internal linkage throughout (see tma.cuh).
 #pragma once
 
@@ -191,15 +197,19 @@ struct SkSlabRows {
   }
 };
 
-struct SkPlainRows {  // lhs (M, K) -> out (M, N), M <= 8: one 8-row group
+// lhs (M, K) -> out (M, N): block row group blockIdx.z holds plain rows
+// [z * group, (z + 1) * group), the rows its packed twin's block holds (G *
+// M0 of SkPackedRows, a slab of SkSlabRows, or 8 for the decode GEMV, M <=
+// 8), through a 2-D box of `group` rows (zeros past M).
+struct SkPlainRows {
   float* out;
-  int rows;  // M
-  int n;     // N1 * 128
-  // The box's rows: 8, zeros past M.
-  __device__ __forceinline__ int group_rows() const { return 8; }
+  int rows;   // M
+  int n;      // N1 * 128
+  int group;  // rows a block holds, at most SK_ROWS
+  __device__ __forceinline__ int group_rows() const { return group; }
   __device__ __forceinline__ void load(void* dst, const CUtensorMap* map, uint64_t* bar, int k0,
                                        int kt) const {
-    tma_load(dst, map, bar, kt * TMA_T0 + k0, 0);
+    tma_load(dst, map, bar, kt * TMA_T0 + k0, blockIdx.z * group);
   }
   __device__ __forceinline__ float* row(int gr, int n_base) const {
     return out + static_cast<size_t>(gr) * n + n_base;
@@ -667,6 +677,12 @@ cudaError_t launch_skinny(const void* lhs4, const void* rhs4, float* out4, int m
   }
 }
 
+// The map over plain rows lhs (M, K1*128) whose box lands `group` rows.
+template <typename T>
+cudaError_t plain_rows_map(CUtensorMap* map, const void* lhs, int m, int k1, int group) {
+  return encode_map<T>(map, lhs, m, static_cast<uint64_t>(k1) * TMA_T0, group);
+}
+
 // Plain rows lhs (M, K1*128), M <= 8 (one 8-row group), x rhs4 -> out (M,
 // N1*128); the scratch as above with one row group.
 template <typename T>
@@ -674,12 +690,45 @@ cudaError_t launch_skinny_plain(const void* lhs, const void* rhs4, float* out, i
                                 int k1, int splits, void* part, int* cnt, cudaStream_t s) {
   if (m < 1 || m > 8 || !skinny_plan_ok(n1, k1, splits, part, cnt)) return cudaErrorInvalidValue;
   CUtensorMap tm_lhs, tm_rhs;
-  cudaError_t e = encode_map<T>(&tm_lhs, lhs, m, static_cast<uint64_t>(k1) * TMA_T0, 8);
+  cudaError_t e = plain_rows_map<T>(&tm_lhs, lhs, m, k1, 8);
   if (e == cudaSuccess) e = weight_map<T>(&tm_rhs, rhs4, n1, k1, SK_BN);
   if (e != cudaSuccess) return e;
-  const SkPlainRows p{out, m, n1 * TMA_T0};
+  const SkPlainRows p{out, m, n1 * TMA_T0, 8};
   const SkinnyArgs a{part, cnt, k1, splits, Scales{}, nullptr};
   return launch_skinny_nt<T, 1>(tm_lhs, tm_rhs, p, a, dim3(n1 * TMA_T0 / SK_BN, splits, 1), s);
+}
+
+// The packed GEMMs' plain-row entry on this body: lhs (M, K1*128) x rhs4 ->
+// out (M, N1*128) under the plan of the packed twin at M1 = ceil(M / M0):
+// the same grid, K splits and row groups of G = min(M1, SK_ROWS / M0) row
+// blocks (G * M0 rows a block, which need not be a multiple of 8: the
+// shared-memory rows past them feed only accumulators that are never
+// stored), so each row's sums run in the same order and the result equals
+// unpack(mmt4d(pack(x))) bit for bit.  Rows past M are never read (TMA
+// fills zeros, as the packed twin's pad rows hold) nor stored, and `sc`'s
+// s_a is read only for rows < M.  The scratch as launch_skinny's.
+template <typename T>
+cudaError_t launch_skinny_rows(const void* lhs, const void* rhs4, float* out, int m, int m0,
+                               int n1, int k1, int splits, void* part, int* cnt, const Scales& sc,
+                               cudaStream_t s) {
+  if (m < 1 || m0 < 1 || m0 > SK_ROWS || !skinny_plan_ok(n1, k1, splits, part, cnt))
+    return cudaErrorInvalidValue;
+  const int m1 = (m + m0 - 1) / m0;
+  const int group = std::min(m1, SK_ROWS / m0) * m0;
+  CUtensorMap tm_lhs, tm_rhs;
+  cudaError_t e = plain_rows_map<T>(&tm_lhs, lhs, m, k1, group);
+  if (e == cudaSuccess) e = weight_map<T>(&tm_rhs, rhs4, n1, k1, SK_BN);
+  if (e != cudaSuccess) return e;
+  const SkPlainRows p{out, m, n1 * TMA_T0, group};
+  const SkinnyArgs a{part, cnt, k1, splits, sc, nullptr};
+  const dim3 grid(n1 * TMA_T0 / SK_BN, splits, (m + group - 1) / group);
+  switch ((group + 7) / 8) {
+#define CASE(NT) \
+  case NT: return launch_skinny_nt<T, NT>(tm_lhs, tm_rhs, p, a, grid, s);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -8,15 +8,24 @@ CUDA source: csrc/mmt4d.cu (what bounds it and how it is laid out is noted
 there).  `mmt4d` launches the kernel for CUDA tensors and takes the plain
 version `mmt4d_plain` (= ref.mmt4d) only for tensors on the CPU.
 
+`mmt4d_rows` is the same kernel's plain-row entry, the one the ops path's
+packed route calls: rows x (M, K1*128) in, (M, N1*128) f32 out, under the
+plan of the packed entry at lhs4 (ceil(M / M0), K1, M0, 128), equal to
+unpack(mmt4d(pack(x)))[:M] bit for bit.  The activation pack is its TMA
+boxes' addressing and the output unpack its epilogue's, so the route makes
+one launch, not three.  Plain version `mmt4d_rows_plain` on the CPU.
+
 The bf16 kernel runs one of two bodies, by `mmt4d_plan`: the skinny split-K
 body (csrc/packed_skinny.cuh; the packed GEMV's, the plain-row decode
 GEMV's and the int8 GEMM's too) for few rows, or the TMA + wgmma pipeline
 (csrc/gemm_wgmma.cuh, the prefill GEMM's and the int8 GEMM's) for wide
 windows.  The plans and the addresses each body's TMA copies read are
 mirrored here (`skinny_split_range`, `skinny_block_loads`,
-`skinny_plain_loads`, `wide_lhs_box`, `wide_lhs_origin`; `itemsize` 2 for
-bf16, 1 for int8; `slab_lhs_box`, `slab_lhs_origin` for the int4 GEMM's
-prefill slabs) so the CPU tests can hold them.
+`wide_lhs_box`, `wide_lhs_origin`; `itemsize` 2 for bf16, 1 for int8;
+`slab_lhs_box`, `slab_lhs_origin` for the int4 GEMM's prefill slabs; and
+the plain-row entries' `skinny_plain_loads`, `skinny_plain_box`,
+`wide_plain_box`, `wide_plain_origin`, `slab_plain_origin`) so the CPU
+tests can hold them.
 """
 
 from __future__ import annotations
@@ -139,14 +148,38 @@ def skinny_block_loads(bx: int, split: int, bz: int, i: int, m1: int, m0: int,
             tuple((k0, 0, kt, bz * g) for k0 in k0s))
 
 
-def skinny_plain_loads(bx: int, split: int, i: int, m: int, splits: int, k1: int):
-    """The TMA box origins of plain-row skinny block (bx, split) at its i-th
-    K tile: the weight boxes as `skinny_block_loads` (one row block of M
-    rows has the same grid), and the two row boxes SKINNY_PLAIN_BOX in lhs
-    (M, K) as (column, row)."""
-    weight, _ = skinny_block_loads(bx, split, 0, i, 1, m, splits, k1)
+def skinny_plain_loads(bx: int, split: int, i: int, m: int, splits: int, k1: int, *,
+                       m0: int | None = None, bz: int = 0, itemsize: int = 2):
+    """The TMA box origins of plain-row skinny block (bx, split, bz) at its
+    i-th K tile: the weight boxes as `skinny_block_loads` at the packed
+    twin's M1 = ceil(M / M0), and the row boxes (`skinny_plain_box`) in
+    lhs (M, K) as (column, row), one per box_k(itemsize) K elements: block
+    row group bz starts at plain row bz * G * M0, the first row its packed
+    twin's block holds.  `m0` None: the decode GEMV's one row block of M0 =
+    M rows (its box of 8 rows, SKINNY_PLAIN_BOX)."""
+    m0 = m0 or m
+    m1 = -(-m // m0)
+    weight, _ = skinny_block_loads(bx, split, bz, i, m1, m0, splits, k1, itemsize)
     kt = skinny_split_range(split, splits, k1)[0] + i
-    return weight, ((kt * PACK_TILE, 0), (kt * PACK_TILE + GEMM_K_STEP, 0))
+    row = bz * skinny_groups(m1, m0)[0] * m0
+    return weight, tuple((kt * PACK_TILE + k0, row)
+                         for k0 in range(0, PACK_TILE, box_k(itemsize)))
+
+
+def skinny_plain_box(m: int, m0: int, itemsize: int = 2) -> tuple[int, int]:
+    """The 2-D box over lhs (M, K) of the packed GEMMs' plain-row entry on
+    the skinny body, (K, rows) extents innermost first: the G * M0 rows of
+    the packed twin's row group (csrc/packed_skinny.cuh: launch_skinny_rows)."""
+    m1 = -(-m // m0)
+    return box_k(itemsize), skinny_groups(m1, m0)[0] * m0
+
+
+def slab_plain_origin(bz: int, kt: int, slab: int) -> tuple[int, int]:
+    """The plain-row counterpart of `slab_lhs_origin`: slab block row bz at
+    packed K tile kt reads the (128, slab) box of int8 lhs (M, K) at (kt *
+    128, bz * slab), the rows of slab bz % (M0 / slab) of row block bz //
+    (M0 / slab)."""
+    return kt * PACK_TILE, bz * slab
 
 
 def slab_lhs_box(slab: int) -> tuple[int, int, int, int]:
@@ -179,6 +212,18 @@ def wide_lhs_origin(by: int, step: int, m0: int, bm: int,
     m_base = by * bm
     b1 = m_base // m0
     return (step % boxes) * box_k(itemsize), m_base - b1 * m0, step // boxes, b1
+
+
+def wide_plain_box(bm: int, itemsize: int = 2) -> tuple[int, int]:
+    """The wide body's 2-D box over plain rows lhs (M, K), (K, rows)
+    extents innermost first (gemm_wgmma.cuh: PlainRows)."""
+    return box_k(itemsize), bm
+
+
+def wide_plain_origin(by: int, step: int, bm: int, itemsize: int = 2) -> tuple[int, int]:
+    """The origin of block row `by`'s plain box at K step `step`, as
+    (column, row): the rows and K slab of `wide_lhs_origin`'s box."""
+    return step * box_k(itemsize), by * bm
 
 
 # ---- scratch ----------------------------------------------------------------------
@@ -262,3 +307,65 @@ def mmt4d(lhs4: torch.Tensor, rhs4: torch.Tensor, plan=None) -> torch.Tensor:
 
 
 mmt4d.launches = 0
+
+
+# ---- the plain-row entry -----------------------------------------------------------
+
+
+def mmt4d_rows_plain(x: torch.Tensor, rhs4: torch.Tensor, m0: int) -> torch.Tensor:
+    """What the plain-row entry computes, in plain PyTorch: the packed
+    route ref.unpack(ref.mmt4d(ref.pack(x, (M0, 128)), rhs4)), cropped to
+    x's M rows."""
+    n1, _, n0, k0 = rhs4.shape
+    return ref.unpack(ref.mmt4d(ref.pack(x, (m0, k0)), rhs4), (x.shape[0], n1 * n0))
+
+
+def check_rows(x: torch.Tensor, rhs4: torch.Tensor, m0: int, k_packed: int) -> None:
+    """Contract of the plain-row entries: x (M, K1*128) on rhs4's device,
+    M0 one the packed twin takes."""
+    if x.dim() != 2 or x.shape[1] != k_packed or x.shape[0] < 1:
+        raise ValueError(f"want rows (M, {k_packed}), got {tuple(x.shape)}")
+    if x.device != rhs4.device:
+        raise ValueError(f"operands lie on {x.device} and {rhs4.device}")
+    if not gemm_m0(m0):
+        raise ValueError(f"the packed GEMMs take M0 in 1..{GEMV_MAX_ROWS} or {PACK_TILE}, "
+                         f"got {m0}")
+
+
+@functools.cache
+def _rows_kernel():
+    return build.entry(
+        "mmt4d", "mmt4d_rows",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3,
+    )
+
+
+def mmt4d_rows(x: torch.Tensor, rhs4: torch.Tensor, m0: int, plan=None) -> torch.Tensor:
+    """Plain rows x (M, K1*128) x packed rhs4 -> (M, N1*N0) f32: the packed
+    route unpack(mmt4d(pack(x, (M0, 128))))[:M] in one launch, bit for bit,
+    under `mmt4d_plan` at M1 = ceil(M / M0) (or `plan`, bf16 only).  Plain
+    version on the CPU; on a CUDA tensor the kernel runs or this raises.
+    Counts its launches as `mmt4d`'s."""
+    n1, k1, n0, k0 = rhs4.shape
+    check_rows(x, rhs4, m0, k1 * k0)
+    if x.device.type == "cpu":
+        return mmt4d_rows_plain(x, rhs4, m0)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"mmt4d_rows runs on cuda (or cpu: plain), not {x.device}")
+    if x.dtype != rhs4.dtype or (n0, k0) != (PACK_TILE, PACK_TILE):
+        raise ValueError(f"want {rhs4.dtype} rows and {PACK_TILE}x{PACK_TILE} pack tiles, got "
+                         f"{x.dtype} and {tuple(rhs4.shape)}")
+    m = x.shape[0]
+    m1 = -(-m // m0)
+    x, rhs4 = build.aligned(x), build.aligned(rhs4)
+    out = torch.empty((m, n1 * n0), dtype=torch.float32, device=x.device)
+    wide, bm, bn, splits, part, cnt = 0, 0, 0, 1, None, None
+    if x.dtype == torch.bfloat16:
+        wide, bm, bn, splits, part, cnt = launch_args(
+            x.device, m1, m0, n1, k1, plan or mmt4d_plan(m1, m0, n1, k1))
+    err = _rows_kernel()(x.data_ptr(), rhs4.data_ptr(), out.data_ptr(), m, m0, n1, k1,
+                         build.dtype_code(x.dtype), wide, bm, bn, splits, part, cnt,
+                         build.stream_ptr(x.device))
+    build.check(err, "mmt4d", "mmt4d_rows launch")
+    mmt4d.launches += 1
+    return out

@@ -26,8 +26,14 @@ on the CPU.
 `mmt4d_q4` runs the packed GEMMs' skinny split-K body
 (csrc/packed_skinny.cuh) on the nibble weight, for every row count, by
 `q4_plan`; the plan and the addresses its TMA and bulk copies read are
-mirrored here (`q4_groups`, `q4_grid`, `q4_block_loads`) so the CPU tests
-can hold them.
+mirrored here (`q4_groups`, `q4_grid`, `q4_block_loads`, with `plain=True`
+for the plain-row entry) so the CPU tests can hold them.
+
+    mmt4d_q4_rows : int8 rows lhs_q (M, K1*K0), s_a (M,) f32 -> (M, N1*N0)
+                    f32, the packed route (pack at M0, mmt4d_q4, unpack) in
+                    one launch, bit for bit: the same kernel's plain-row
+                    entry, under `q4_plan` at M1 = ceil(M / M0); the ops
+                    path's packed route calls it
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import mmt4d as mmt4d_lib
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_pack_mmt4d import GEMM_WAVE
-from repro_torch.kernels.mmt4d_q8 import check_packed_scales
+from repro_torch.kernels.mmt4d_q8 import check_packed_scales, check_row_scales, packed_scales
 
 KERNEL_GROUPS = (16, 32)
 
@@ -179,17 +185,22 @@ def q4_plan(m1: int, m0: int, n1: int, k1: int) -> tuple[str, int, int]:
 
 
 def q4_block_loads(bx: int, split: int, bz: int, i: int, m1: int, m0: int, k1: int,
-                   bn: int, splits: int, group: int):
+                   bn: int, splits: int, group: int, *, plain: bool = False):
     """What block (bx, split, bz) copies at its i-th K tile: the weight box
     (64, bn) in rhs4_p viewed as (N1*K1*128, 64) as (column, row); the scale
     run as (first element, elements) of s_w4 flattened; the rows box origin
     in lhs4 as (k0, m0, k1, m1), innermost first (box (128, M0, 1, G), or
-    mmt4d.slab_lhs_box at M0 > 64)."""
+    mmt4d.slab_lhs_box at M0 > 64).  `plain`: the plain-row entry's rows
+    box origin in lhs (M, K) as (column, row), box (128, rows a block
+    holds), whatever M1 * M0 covers M: row group bz starts at plain row
+    bz * rows, the first its packed twin holds."""
     n_base = bx * bn
     kt = mmt4d_lib.skinny_split_range(split, splits, k1)[0] + i
     row = (n_base // PACK_TILE) * k1 * PACK_TILE + n_base % PACK_TILE + kt * PACK_TILE
     gpt = PACK_TILE // group
-    if m0 > Q4_ROWS:
+    if plain:
+        rows = (kt * PACK_TILE, bz * q4_groups(m1, m0)[0])
+    elif m0 > Q4_ROWS:
         rows = mmt4d_lib.slab_lhs_origin(bz, kt, m0, Q4_ROWS)
     else:
         rows = (0, 0, kt, bz * min(m1, Q4_ROWS // m0))
@@ -256,3 +267,57 @@ def mmt4d_q4(lhs4_q: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
 
 
 mmt4d_q4.launches = 0
+
+
+# ---- the plain-row entry -----------------------------------------------------------
+
+
+def mmt4d_q4_rows_plain(xq: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
+                        s_w4: torch.Tensor, group: int, m0: int) -> torch.Tensor:
+    """What the plain-row entry computes, in plain PyTorch: the packed
+    route ref.unpack(ref.mmt4d_q4(ref.pack(xq, (M0, 128)), ...)), cropped."""
+    n1, _, n0, k0p = rhs4_p.shape
+    out4 = ref.mmt4d_q4(ref.pack(xq, (m0, 2 * k0p)), rhs4_p, packed_scales(s_a, m0), s_w4,
+                        group)
+    return ref.unpack(out4, (xq.shape[0], n1 * n0))
+
+
+@functools.cache
+def _rows_kernel():
+    return build.entry(
+        "mmt4d_q4", "mmt4d_q4_rows",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3,
+    )
+
+
+def mmt4d_q4_rows(xq: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
+                  s_w4: torch.Tensor, group: int, m0: int, plan=None) -> torch.Tensor:
+    """int8 rows xq (M, K1*128), s_a (M,) x the nibble-packed weight -> (M,
+    N1*N0) f32, under `q4_plan` at M1 = ceil(M / M0) (or `plan`).  Plain
+    version on the CPU; on a CUDA tensor the kernel runs or this raises.
+    Counts its launches as `mmt4d_q4`'s."""
+    _check_weight(rhs4_p, group)
+    n1, k1, n0, k0p = rhs4_p.shape
+    mmt4d_lib.check_rows(xq, rhs4_p, m0, k1 * 2 * k0p)
+    check_row_scales(xq, s_a)
+    if tuple(s_w4.shape) != (n1, k1, n0, 2 * k0p // group) or s_w4.device != xq.device:
+        raise ValueError(f"s_w4 {tuple(s_w4.shape)} on {s_w4.device} does not match rhs4_p "
+                         f"{tuple(rhs4_p.shape)} at group {group}")
+    if not _on_card(xq, "mmt4d_q4_rows"):
+        return mmt4d_q4_rows_plain(xq, rhs4_p, s_a, s_w4, group, m0)
+    _check_kernel(rhs4_p, group, "mmt4d_q4_rows")
+    if s_w4.dtype != torch.bfloat16:
+        raise ValueError(f"mmt4d_q4_rows takes bf16 scales, got {s_w4.dtype}")
+    m = xq.shape[0]
+    m1 = -(-m // m0)
+    xq, rhs4_p = build.aligned(xq), build.aligned(rhs4_p)
+    s_a, s_w4 = s_a.contiguous(), build.aligned(s_w4)
+    out = torch.empty((m, n1 * n0), dtype=torch.float32, device=xq.device)
+    bn, splits, part, cnt = q4_launch_args(xq.device, m1, m0, n1, k1,
+                                           plan or q4_plan(m1, m0, n1, k1))
+    err = _rows_kernel()(xq.data_ptr(), rhs4_p.data_ptr(), s_a.data_ptr(), s_w4.data_ptr(),
+                         out.data_ptr(), m, m0, n1, k1, group, bn, splits, part, cnt,
+                         build.stream_ptr(xq.device))
+    build.check(err, "mmt4d_q4", "mmt4d_q4_rows launch")
+    mmt4d_q4.launches += 1
+    return out

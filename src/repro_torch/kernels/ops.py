@@ -10,12 +10,14 @@ through the registry to one of:
     backend="fused"     : the CUDA kernels with pack/unpack inside them: the
                           GEMV for decode with at most GEMV_MAX_ROWS rows, the
                           GEMM otherwise
-    backend="pallas"    : the pack kernel (csrc/pack.cu), the packed CUDA
-                          kernels, the unpack kernel: the packed GEMV
-                          (csrc/mmt4d_gemv.cu) for decode with one packed
-                          row block, the packed GEMM (csrc/mmt4d.cu)
-                          otherwise -- the paper's two microkernels, as in
-                          repro/kernels/ops.py
+    backend="pallas"    : the packed CUDA kernels -- the paper's two
+                          microkernels, as in repro/kernels/ops.py: the
+                          packed GEMV (csrc/mmt4d_gemv.cu) for decode with
+                          one packed row block, the packed GEMM
+                          (csrc/mmt4d.cu) otherwise, each through its
+                          plain-row entry, which packs the rows in its TMA
+                          loads and unpacks the output in its stores: one
+                          launch a projection
 
 The decode routing comes from the CUDA GEMV's own needs, not from the TPU's
 VMEM plan: the kernel streams the weight from device memory and stages at
@@ -28,17 +30,20 @@ w4a8) quantize the activation rows per row to int8 in plain PyTorch (after
 padding K to the packed weight's), then route by the same rule: "fused" at
 decode with at most GEMV_MAX_ROWS rows takes the int8 or int4 GEMV
 (csrc/fused_gemv_q8.cu, csrc/mmt4d_q4.cu) on the plain rows; "pallas", and
-"fused" otherwise, pack the rows and take the packed q8 or q4 GEMM
-(csrc/mmt4d_q8.cu, csrc/mmt4d_q4.cu); "xla" takes the plain oracle
-(ref.mmt4d_q8 / ref.mmt4d_q4), the registry's fallback for these quants.
+"fused" otherwise, take the packed q8 or q4 GEMM (csrc/mmt4d_q8.cu,
+csrc/mmt4d_q4.cu) through its plain-row entry; "xla" takes the plain
+oracle (ref.mmt4d_q8 / ref.mmt4d_q4), the registry's fallback for these
+quants.
 
-Every pack and unpack outside the oracle goes through kernels/pack.py (the
-pack and unpack kernels on a CUDA tensor, ref.pack / ref.unpack on the
-CPU): the weight packs at load (pack_rhs, pack_rhs_q8, pack_rhs_q4), and
-the activation pack and output unpack of the packed routes.  JAX's ops
-path packs and unpacks with its plain ref there; both are exact
-relayouts, so the tokens are the same.  The "xla" and "reference" routes
-keep ref.pack / ref.unpack.
+The packed routes launch no pack or unpack: each packed GEMM's plain-row
+entry (mmt4d_rows, mmt4d_gemv_rows, mmt4d_q8_rows, mmt4d_q4_rows) runs the
+plan its packed entry would run at M1 = ceil(M / M0) and equals
+unpack(packed kernel(pack(x)))[:M] bit for bit, M0 being
+select_tile_sizes's.  JAX's ops path packs and unpacks with its plain ref
+there; both are exact relayouts, so the tokens are the same.  The weight
+packs at load (pack_rhs, pack_rhs_q8, pack_rhs_q4) go through
+kernels/pack.py (the pack kernel on a CUDA tensor, ref.pack on the CPU).
+The "xla" and "reference" routes keep ref.pack / ref.unpack.
 """
 
 from __future__ import annotations
@@ -100,19 +105,15 @@ def encoded_matmul(
         w_t = ref.unpack(rhs4, (n, k1 * k0))[:, :k]
         out = ref.matmul_reference(x2d, w_t)
         return out.to(out_dtype).reshape(*lead, n)
-    if backend == "pallas":  # pack -> packed kernel -> unpack, each a kernel
-        if -(-k // k0) != k1:  # the pack zero-fills x's last K tile, not tiles past it
-            x2d = F.pad(x2d, (0, k1 * k0 - k))
-        m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
-        lhs4 = pack_lib.pack(x2d, (m0, k0))
-        if phase is Phase.DECODE and lhs4.shape[0] == 1:
-            out4 = gemv_lib.mmt4d_gemv(lhs4, rhs4)
-        else:
-            out4 = mmt4d_lib.mmt4d(lhs4, rhs4)
-        return pack_lib.unpack(out4, (m, n)).to(out_dtype).reshape(*lead, n)
     if k != k1 * k0:  # K padding lives in the packed weight; mirror it on lhs.
         x2d = F.pad(x2d, (0, k1 * k0 - k))
-    if backend == "fused":
+    if backend == "pallas":  # the packed kernels' plain-row entries: one launch
+        m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
+        if phase is Phase.DECODE and m <= m0:  # one packed row block
+            out2d = gemv_lib.mmt4d_gemv_rows(x2d, rhs4)
+        else:
+            out2d = mmt4d_lib.mmt4d_rows(x2d, rhs4, m0)
+    elif backend == "fused":
         if phase is Phase.DECODE and m <= encoding.GEMV_MAX_ROWS:
             out2d = fused_gemv_lib.fused_gemv(x2d, rhs4)
         else:
@@ -167,14 +168,11 @@ def _quantized_rows(x: torch.Tensor, k_packed: int) -> tuple[torch.Tensor, torch
 
 
 def _packed_rows(xq: torch.Tensor, s_a: torch.Tensor, phase: Phase,
-                 k0: int, pack=pack_lib.pack) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pack int8 rows at select_tile_sizes's M0 (`pack`: the kernel route's,
-    or ref.pack for the oracle); pad rows get scale 0."""
-    m = xq.shape[0]
-    m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
-    lhs4 = pack(xq, (m0, k0))
-    m1 = lhs4.shape[0]
-    return lhs4, F.pad(s_a, (0, m1 * m0 - m)).reshape(m1, m0)
+                 k0: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The oracle's int8 rows packed at select_tile_sizes's M0 (ref.pack);
+    pad rows get scale 0."""
+    m0 = encoding.select_tile_sizes(phase, m_hint=xq.shape[0]).m0
+    return ref.pack(xq, (m0, k0)), q8_lib.packed_scales(s_a, m0)
 
 
 def encoded_matmul_q8(x: torch.Tensor, rhs4_q: torch.Tensor, s_w: torch.Tensor, *, n: int,
@@ -193,11 +191,11 @@ def encoded_matmul_q8(x: torch.Tensor, rhs4_q: torch.Tensor, s_w: torch.Tensor, 
     if backend == "fused" and phase is Phase.DECODE and m <= encoding.GEMV_MAX_ROWS:
         out2d = fused_gemv_lib.fused_gemv_q8(xq, rhs4_q, s_a[:, None], s_w)
     elif backend == "xla":
-        lhs4, sa2 = _packed_rows(xq, s_a, phase, k0, ref.pack)
-        out2d = ref.unpack(ref.mmt4d_q8(lhs4, rhs4_q, sa2, s_w), (m, n1 * n0))
-    else:  # "pallas", and "fused" outside the GEMV's rows
         lhs4, sa2 = _packed_rows(xq, s_a, phase, k0)
-        out2d = pack_lib.unpack(q8_lib.mmt4d_q8(lhs4, rhs4_q, sa2, s_w), (m, n))
+        out2d = ref.unpack(ref.mmt4d_q8(lhs4, rhs4_q, sa2, s_w), (m, n1 * n0))
+    else:  # "pallas", and "fused" outside the GEMV's rows: the plain-row entry
+        m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
+        out2d = q8_lib.mmt4d_q8_rows(xq, rhs4_q, s_a, s_w, m0)
     return out2d[:, :n].to(out_dtype).reshape(*lead, n)
 
 
@@ -219,11 +217,11 @@ def encoded_matmul_q4(x: torch.Tensor, rhs4_p: torch.Tensor, s_w4: torch.Tensor,
     if backend == "fused" and phase is Phase.DECODE and m <= encoding.GEMV_MAX_ROWS:
         out2d = q4_lib.fused_gemv_q4(xq, rhs4_p, s_a[:, None], s_w4, group)
     elif backend == "xla":
-        lhs4, sa2 = _packed_rows(xq, s_a, phase, k0, ref.pack)
-        out2d = ref.unpack(ref.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group), (m, n1 * n0))
-    else:  # "pallas", and "fused" outside the GEMV's rows
         lhs4, sa2 = _packed_rows(xq, s_a, phase, k0)
-        out2d = pack_lib.unpack(q4_lib.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group), (m, n))
+        out2d = ref.unpack(ref.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group), (m, n1 * n0))
+    else:  # "pallas", and "fused" outside the GEMV's rows: the plain-row entry
+        m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
+        out2d = q4_lib.mmt4d_q4_rows(xq, rhs4_p, s_a, s_w4, group, m0)
     return out2d[:, :n].to(out_dtype).reshape(*lead, n)
 
 

@@ -11,6 +11,12 @@ take only tile-aligned operands, the CUDA pack masks the ragged edge itself.
 Each wrapper launches its kernel for a CUDA tensor and takes the plain
 version (`pack_plain` = ref.pack, `unpack_plain` = ref.unpack) only for a
 tensor on the CPU.
+
+The serving path launches the pack kernel only for the weight packs at load
+(kernels/ops.py: pack_rhs, pack_rhs_q8, pack_rhs_q4).  The packed routes'
+activation pack and output unpack live in the packed GEMMs' plain-row
+entries (their TMA loads and epilogue stores), so no activation goes
+through either kernel; `ops.pack_pallas` / `ops.unpack_pallas` export them.
 """
 
 from __future__ import annotations

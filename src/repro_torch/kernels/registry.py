@@ -31,11 +31,13 @@ that fails on int4 pages does not quarantine the bf16 path.
 
 Backend names keep the JAX vocabulary.  For matmul: "reference" (un-encoded
 torch.matmul), "xla" (plain pack + mmt4d + unpack), "fused" (the CUDA GEMV
-at decode, the CUDA GEMM otherwise) and "pallas" (the CUDA pack, the packed
-CUDA mmt4d GEMV for one decode row block or the packed mmt4d GEMM, the CUDA
-unpack).  For the quantized keys (w8a8, w4a8): "fused" (the int8 or int4
-CUDA GEMV at decode with at most 8 rows, the packed q8 or q4 GEMM
-otherwise), "pallas" (the packed q8 or q4 GEMM) and "xla" (their plain
+at decode, the CUDA GEMM otherwise) and "pallas" (the packed CUDA mmt4d
+GEMV for one decode row block or the packed mmt4d GEMM, each entered with
+plain rows: the activation pack is its TMA loads', the output unpack its
+stores', one launch a projection).  For the quantized keys (w8a8, w4a8):
+"fused" (the int8 or int4 CUDA GEMV at decode with at most 8 rows, the
+packed q8 or q4 GEMM otherwise), "pallas" (the packed q8 or q4 GEMM; both
+packed GEMMs through their plain-row entries) and "xla" (their plain
 oracle, the fallback).  For attention: "xla" (plain) and "pallas" (the CUDA
 flash-prefill, paged-decode and dense-decode kernels).
 """

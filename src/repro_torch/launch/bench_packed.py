@@ -15,7 +15,14 @@ padded to 32 where there are 16 or fewer: _int_mm takes more than 16); in
 int4 (w4a8, groups 16 and 32): `mmt4d_q4` at the packed GEMM's rows and
 `fused_gemv_q4` at 1, 4 and 8 rows (no PyTorch call computes int4 x int8);
 and `batch_mmt4d` at chip_smoke.py's attention shapes in f32 and bf16,
-beside torch.einsum.
+beside torch.einsum.  The packed GEMMs' plain-row entries (`mmt4d_rows`,
+`mmt4d_q8_rows`, `mmt4d_q4_rows` at the packed GEMMs' rows and M0,
+`mmt4d_gemv_rows` at 1, 4 and 8) are timed beside their packed twins, and
+the whole packed route, kernels/ops.py's encoded_matmul{,_q8,_q4} with
+backend "pallas" (decode rows at M0 = 8, the 2048 rows as a prefill at M0 =
+128; the w8a8/w4a8 routes quantize the bf16 rows first), at 16, 20, 256
+and 2048 rows in each weight format: the route's calls are the same in
+every tree, so its host_us and event_ms compare two trees' routes.
 Four numbers a shape, each the median of --reps repeats (as
 launch/bench_prefill.py):
 
@@ -89,8 +96,9 @@ def _q4_plans(m1: int, m0: int, n1: int, k1: int) -> list:
 def cases(dev, gen, sweep: bool) -> list:
     """(name, fn, checked) of every timed call: the kernels (checked: their
     output's checksum is printed) and their library calls."""
+    from repro_torch.core.encoding import Phase
     from repro_torch.kernels import (batch_mmt4d, fused_gemv, fused_pack_mmt4d, mmt4d,
-                                     mmt4d_gemv, mmt4d_q4, mmt4d_q8, ref)
+                                     mmt4d_gemv, mmt4d_q4, mmt4d_q8, ops, ref)
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
@@ -113,12 +121,20 @@ def cases(dev, gen, sweep: bool) -> list:
             if m <= 8:
                 out.append((f"mmt4d_gemv {key}", lambda a=ref.pack(x, (m, 128)), r=rhs4:
                             mmt4d_gemv.mmt4d_gemv(a, r), True))
+                out.append((f"mmt4d_gemv_rows {key}", lambda a=x, r=rhs4:
+                            mmt4d_gemv.mmt4d_gemv_rows(a, r), True))
                 out.append((f"fused_gemv {key}", lambda a=x, r=rhs4:
                             fused_gemv.fused_gemv(a, r), True))
             if m in (16, 20, 256, 2048):
                 m0 = 128 if m == 2048 else 8
                 out.append((f"mmt4d {key}", lambda a=ref.pack(x, (m0, 128)), r=rhs4:
                             mmt4d.mmt4d(a, r), True))
+                out.append((f"mmt4d_rows {key}", lambda a=x, r=rhs4, m0=m0:
+                            mmt4d.mmt4d_rows(a, r, m0), True))
+                phase = Phase.PREFILL if m0 == 128 else Phase.DECODE
+                out.append((f"route bf16 {key}", lambda a=x, r=rhs4, n=n, p=phase:
+                            ops.encoded_matmul(a, r, n=n, phase=p, backend="pallas",
+                                               out_dtype=torch.float32), True))
             if m in (16, 512, 2048):
                 out.append((f"fused_pack_mmt4d {key}", lambda a=x, r=rhs4:
                             fused_pack_mmt4d.fused_pack_mmt4d(a, r), True))
@@ -135,9 +151,27 @@ def cases(dev, gen, sweep: bool) -> list:
             sa2 = torch.nn.functional.pad(s_a, (0, rows - m)).reshape(-1, m0)
             out.append((f"mmt4d_q8 {key}", lambda a=lhs4, r=rhs4_q, sa=sa2, sw=s_w:
                         mmt4d_q8.mmt4d_q8(a, r, sa, sw), True))
+            out.append((f"mmt4d_q8_rows {key}", lambda a=xq, r=rhs4_q, sa=s_a, sw=s_w, m0=m0:
+                        mmt4d_q8.mmt4d_q8_rows(a, r, sa, sw, m0), True))
             xp = torch.nn.functional.pad(xq, (0, 0, 0, 32 - m)) if m <= 16 else xq
             out.append((f"int_mm {key}", lambda a=xp, w=w_q.t(), sa=s_a, sw=s_w.reshape(-1), m=m:
                         (torch._int_mm(a, w)[:m].float() * sa[:, None]) * sw, False))
+        # The w8a8 and w4a8 routes on weights quantized from w_t, bf16 rows.
+        q8w = ops.pack_rhs_q8(w_t)
+        q4w = {g: ops.pack_rhs_q4(w_t, group=g) for g in (16, 32)}
+        for m in (16, 20, 256, 2048):
+            key = f"M={m} K={k} N={n}"
+            phase = Phase.PREFILL if m == 2048 else Phase.DECODE
+            out.append((f"route w8a8 {key}", lambda a=lhs[m], w=q8w, n=n, p=phase:
+                        ops.encoded_matmul_q8(a, *w, n=n, phase=p, backend="pallas",
+                                              out_dtype=torch.float32), True))
+            for group in (16, 32):
+                out.append((f"route w4a8 g{group} {key}",
+                            lambda a=lhs[m], w=q4w[group], n=n, p=phase, g=group:
+                            ops.encoded_matmul_q4(a, *w, n=n, phase=p, group=g,
+                                                  backend="pallas", out_dtype=torch.float32),
+                            True))
+        del q8w, q4w
         # int4: nibbles, bf16 group scales, the same int8 rows
         rhs4_p = torch.randint(0, 256, (n1, k1, 128, 64), generator=gen, device=dev,
                                dtype=torch.uint8)
@@ -151,10 +185,14 @@ def cases(dev, gen, sweep: bool) -> list:
             for m in (16, 20, 256, 2048):
                 key = f"g{group} M={m} K={k} N={n}"
                 m0 = 128 if m == 2048 else 8
-                lhs4 = ref.pack(int8(m, k), (m0, 128))
+                xq = int8(m, k)
+                lhs4 = ref.pack(xq, (m0, 128))
                 sa2 = scales(lhs4.shape[0], m0)
                 out.append((f"mmt4d_q4 {key}", lambda a=lhs4, r=rhs4_p, sa=sa2, sw=s_w4, g=group:
                             mmt4d_q4.mmt4d_q4(a, r, sa, sw, g), True))
+                out.append((f"mmt4d_q4_rows {key}",
+                            lambda a=xq, r=rhs4_p, sa=sa2.reshape(-1)[:m].contiguous(), sw=s_w4,
+                            g=group, m0=m0: mmt4d_q4.mmt4d_q4_rows(a, r, sa, sw, g, m0), True))
                 if sweep:
                     for target, plan in _q4_plans(lhs4.shape[0], m0, n1, k1):
                         out.append((f"mmt4d_q4 bn={plan[1]} target={target} splits={plan[2]} "
@@ -240,7 +278,8 @@ def main(argv: list[str] | None = None) -> dict:
         try:
             for _ in range(3):
                 fn()
-        except ValueError as e:  # another tree's kernel that does not take this shape
+        except (ValueError, AttributeError) as e:  # another tree's kernel that does not
+            # take this shape, or has no such entry
             print(f"[bench] {args.label:8s} {name:58s} refused: {e}", flush=True)
             continue
         ev = [_event_ms(fn, flush, 10) for _ in range(args.reps)]

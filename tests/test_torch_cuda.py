@@ -27,7 +27,9 @@ bit for bit where the two plans pick one tile.  The bf16 decode GEMV runs
 the skinny body on plain rows: 1e-4, and a repeat call the same bits.  The
 int8 GEMM on either body sums integers exactly: equal to its plain version
 bit for bit.  The pack and unpack kernels copy bytes: equal
-bit for bit.  batch_mmt4d sums the same exact products in another order
+bit for bit.  The packed GEMMs' plain-row entries equal their packed routes
+(pack, the packed entry, unpack) bit for bit under every plan, in every
+format.  batch_mmt4d sums the same exact products in another order
 (rtol 1e-5, atol 1e-4), at any tile shape (64 x 64 outputs, K0 = 13).  The sampler's integer bits, and so its uniforms,
 are the same on the card and the CPU."""
 
@@ -846,8 +848,9 @@ def test_batch_mmt4d_kernel(dev, dtype, shape):
 @pytest.mark.parametrize("backend", ["pallas", "fused"])
 @pytest.mark.parametrize("wq", ["none", "int8", "int4"])
 def test_packed_routes_launch_pack_kernels(dev, backend, wq):
-    """The packed routes pack and unpack through the kernels once a
-    projection; the weight pack at load runs the pack kernel too."""
+    """The weight pack at load runs the pack kernel (int4: its codes and its
+    scales); a projection on any route launches no activation pack and no
+    output unpack, the packed routes one launch of their packed GEMM."""
     enc = EncodingConfig(backend=backend, attn_backend="auto", weight_quant=wq)
     cfg = cfg_registry.get_reduced("llama3.2-1b")
     before = pack.pack.launches
@@ -855,12 +858,138 @@ def test_packed_routes_launch_pack_kernels(dev, backend, wq):
     per_weight = 2 if wq == "int4" else 1  # int4 packs its codes and its scales
     assert pack.pack.launches - before == 7 * cfg.num_layers * per_weight
     x = _rand(dev, cfg.activation_dtype, 20, cfg.d_model)
-    counts = (pack.pack.launches, pack.unpack.launches)
+    gemm = {"none": mmt4d.mmt4d, "int8": mmt4d_q8.mmt4d_q8, "int4": mmt4d_q4.mmt4d_q4}[wq]
+    counts = (pack.pack.launches, pack.unpack.launches, gemm.launches)
     packed_lib.linear_apply(params["layers"][0]["attn"]["wq"], x, n=cfg.d_model,
                             phase=Phase.DECODE, enc=enc)
     packed_route = backend == "pallas" or wq != "none"  # 20 decode rows: the packed GEMMs
-    assert (pack.pack.launches - counts[0], pack.unpack.launches - counts[1]) == (
-        (1, 1) if packed_route else (0, 0))
+    assert (pack.pack.launches - counts[0], pack.unpack.launches - counts[1],
+            gemm.launches - counts[2]) == (0, 0, 1 if packed_route else 0)
+
+
+# ---- the packed GEMMs' plain-row entries: the packed route bit for bit -------------
+
+# Rows of decode windows (M0 = 8), wide windows and prefill batches (M0 =
+# 128), and M0s whose row groups are not a multiple of 8 rows.
+_ROWS_CASES = ([(m, 8) for m in (9, 20, 21, 33, 64, 65, 256, 300, 2048)]
+               + [(m, 128) for m in (9, 20, 65, 256, 300, 2048)]
+               + [(20, 3), (33, 5), (21, 6), (65, 7), (300, 3)])
+
+
+def _gemm_plans(m1, m0, n1, k1):
+    """The plan the route runs and every plan the packed tests force: the
+    skinny body at 1, 3 and K1 splits (M0 <= 64), the wide body at each
+    tile whose box lands the row blocks."""
+    plans = [None]
+    if m0 <= mmt4d.SKINNY_ROWS:
+        plans += [("skinny", mmt4d.SKINNY_BN, s) for s in sorted({1, min(3, k1), k1})]
+    if m0 in mmt4d.WIDE_M0:
+        plans += [("wide", bm, bn) for bm, bn in ((64, 64), (128, 64), (128, 128))
+                  if bm % m0 == 0 or m0 % bm == 0]
+    return plans
+
+
+def _packed_route(fn, x, m0, n, *args):
+    """pack -> the packed entry -> unpack, each a kernel."""
+    return pack.unpack(fn(pack.pack(x, (m0, 128)), *args), (x.shape[0], n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,m0", _ROWS_CASES)
+def test_mmt4d_rows_equal_packed_route(dev, dtype, m, m0):
+    """mmt4d_rows == unpack(mmt4d(pack(x))) bit for bit under every plan,
+    one mmt4d launch and no pack or unpack a call; and the plain version
+    to the GEMM's tolerance."""
+    n1, k1 = 4, 16
+    x = _rand(dev, dtype, m, k1 * 128, seed=m * m0)
+    rhs4 = _rand(dev, dtype, n1, k1, 128, 128, scale=(k1 * 128) ** -0.5, seed=m0)
+    m1 = -(-m // m0)
+    plans = _gemm_plans(m1, m0, n1, k1) if dtype == torch.bfloat16 else [None]
+    for plan in plans:
+        want = _packed_route(lambda l4: mmt4d.mmt4d(l4, rhs4, plan=plan), x, m0, n1 * 128)
+        counts = (pack.pack.launches, pack.unpack.launches, mmt4d.mmt4d.launches)
+        got = mmt4d.mmt4d_rows(x, rhs4, m0, plan=plan)
+        assert (pack.pack.launches, pack.unpack.launches, mmt4d.mmt4d.launches) == (
+            counts[0], counts[1], counts[2] + 1)
+        assert torch.equal(got, want), plan
+        assert _counters_zero()
+    torch.testing.assert_close(got, mmt4d.mmt4d_rows_plain(x, rhs4, m0), **_tol(dtype, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k1", [3, 16])
+@pytest.mark.parametrize("m", list(range(1, 9)))
+def test_mmt4d_gemv_rows_equal_packed_route(dev, dtype, k1, m):
+    n1 = 4
+    x = _rand(dev, dtype, m, k1 * 128, seed=m + k1)
+    rhs4 = _rand(dev, dtype, n1, k1, 128, 128, scale=(k1 * 128) ** -0.5, seed=k1)
+    want = _packed_route(mmt4d_gemv.mmt4d_gemv, x, m, n1 * 128, rhs4)
+    before = mmt4d_gemv.mmt4d_gemv.launches
+    got = mmt4d_gemv.mmt4d_gemv_rows(x, rhs4)
+    assert mmt4d_gemv.mmt4d_gemv.launches == before + 1
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, mmt4d_gemv.mmt4d_gemv_rows_plain(x, rhs4), **_tol(dtype, True))
+
+
+@pytest.mark.parametrize("m,m0", _ROWS_CASES)
+def test_mmt4d_q8_rows_equal_packed_route(dev, m, m0):
+    """int8: bit for bit against the packed route (s_a padded with zeros)
+    and against the plain version, under every plan."""
+    n1, k1 = 4, 16
+    xq, rhs4 = _int8(dev, m, k1 * 128, seed=m * m0), _int8(dev, n1, k1, 128, 128, seed=1)
+    s_a, s_w = _scales(dev, m, seed=2), _scales(dev, n1, 128, seed=3)
+    sa2 = mmt4d_q8.packed_scales(s_a, m0)
+    for plan in _gemm_plans(-(-m // m0), m0, n1, k1):
+        want = _packed_route(lambda l4: mmt4d_q8.mmt4d_q8(l4, rhs4, sa2, s_w, plan=plan),
+                             xq, m0, n1 * 128)
+        before = mmt4d_q8.mmt4d_q8.launches
+        got = mmt4d_q8.mmt4d_q8_rows(xq, rhs4, s_a, s_w, m0, plan=plan)
+        assert mmt4d_q8.mmt4d_q8.launches == before + 1
+        assert torch.equal(got, want), plan
+        assert _counters_zero()
+    assert torch.equal(got, mmt4d_q8.mmt4d_q8_rows_plain(xq, rhs4, s_a, s_w, m0))
+
+
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("m,m0", _ROWS_CASES)
+def test_mmt4d_q4_rows_equal_packed_route(dev, m, m0, group):
+    """int4: bit for bit against the packed route and the plain version
+    (exact f64 sums) at its plan and with the plan forced: 16-column blocks
+    at 1 and 3 K splits, 64-column blocks where a block holds 57-64 rows."""
+    n1, k1 = 4, 16
+    xq, rhs4 = _int8(dev, m, k1 * 128, seed=m * m0), _nibbles(dev, n1, k1, 128, 64, seed=1)
+    s_a = _scales(dev, m, seed=2)
+    s_w4 = _scales(dev, n1, k1, 128, 128 // group, seed=3, dtype=torch.bfloat16)
+    sa2 = mmt4d_q8.packed_scales(s_a, m0)
+    plans = [None, ("skinny", mmt4d_q4.Q4_BN, 1), ("skinny", mmt4d_q4.Q4_BN, 3)]
+    if mmt4d_q4.q4_groups(-(-m // m0), m0)[0] > 56:
+        plans += [("skinny", mmt4d_q4.Q4_WIDE_BN, 1), ("skinny", mmt4d_q4.Q4_WIDE_BN, 2)]
+    for plan in plans:
+        want = _packed_route(
+            lambda l4: mmt4d_q4.mmt4d_q4(l4, rhs4, sa2, s_w4, group, plan=plan), xq, m0, n1 * 128)
+        before = mmt4d_q4.mmt4d_q4.launches
+        got = mmt4d_q4.mmt4d_q4_rows(xq, rhs4, s_a, s_w4, group, m0, plan=plan)
+        assert mmt4d_q4.mmt4d_q4.launches == before + 1
+        assert torch.equal(got, want), plan
+        assert _counters_zero()
+    assert torch.equal(got, mmt4d_q4.mmt4d_q4_rows_plain(xq, rhs4, s_a, s_w4, group, m0))
+
+
+def test_rows_entries_take_unaligned_views(dev):
+    """A window that arrives as a view (a column slice, a base off 16
+    bytes) gives the bits of its contiguous copy."""
+    n1, k1, m = 4, 3, 20
+    rhs4 = _rand(dev, torch.bfloat16, n1, k1, 128, 128, scale=384**-0.5, seed=1)
+    big = _rand(dev, torch.bfloat16, m + 1, k1 * 128 + 8, seed=2)
+    view = big[1:, 3:3 + k1 * 128]
+    assert not view.is_contiguous()
+    assert torch.equal(mmt4d.mmt4d_rows(view, rhs4, 8), mmt4d.mmt4d_rows(view.contiguous(), rhs4, 8))
+    bq = _int8(dev, m + 1, k1 * 128 + 8, seed=3)
+    rq = _int8(dev, n1, k1, 128, 128, seed=4)
+    s_a, s_w = _scales(dev, m, seed=5), _scales(dev, n1, 128, seed=6)
+    vq = bq[1:, 3:3 + k1 * 128]
+    assert torch.equal(mmt4d_q8.mmt4d_q8_rows(vq, rq, s_a, s_w, 8),
+                       mmt4d_q8.mmt4d_q8_rows(vq.contiguous(), rq, s_a, s_w, 8))
 
 
 @pytest.mark.parametrize("seed,step", [(0, 0), (9, 3), (12345, 100000)])
