@@ -23,10 +23,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
              packed twins' shapes, each equal to the packed route (pack ->
              packed kernel -> unpack, each a kernel) bit for bit and timed
              beside it; then the four quantized-weight
-             kernels (w8a8: fused_gemv_q8, mmt4d_q8, equal to their plain
-             versions bit for bit; w4a8 at group 16 and 32: fused_gemv_q4,
-             fused_gemv_q4 within 3e-5 of the largest output, mmt4d_q4
-             within it and equal bit for bit) at GEMV rows 1, 4,
+             kernels (w8a8: fused_gemv_q8, mmt4d_q8; w4a8 at group 16 and
+             32: fused_gemv_q4, mmt4d_q4; each equal to its plain version
+             bit for bit, the GEMVs under each plan their rule picks,
+             forced, too) at GEMV rows 1, 4,
              8 and GEMM rows 16, 20, 256 (M0 = 8) and 2048 (M0 = 128), the
              yardstick torch._int_mm plus the scale epilogue for int8 (rows
              padded to 32 where it needs more than 16) and none for int4
@@ -503,6 +503,27 @@ def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
 
     groups = (16, 32)
     kn = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+
+    def gemv_plans_forced(xq, rhs4_q, sa1, s_w, q4):
+        """Each plan the decode GEMVs' rules pick at these shapes and 1-8
+        rows, forced on both GEMVs at one shape: bit for bit with the plain
+        versions."""
+        picked = {fused_gemv.gemv_q8_plan(m, k // 128, n // 128) for k, n in kn
+                  for m in range(1, 9)}
+        picked |= {mmt4d_q4.gemv_q4_plan(m, k // 128, n // 128, g) for k, n in kn
+                   for m in range(1, 9) for g in groups}
+        for plan in sorted(picked):
+            want = fused_gemv.fused_gemv_q8_plain(xq, rhs4_q, sa1, s_w)
+            if not torch.equal(fused_gemv.fused_gemv_q8(xq, rhs4_q, sa1, s_w, plan=plan), want):
+                raise AssertionError(f"fused_gemv_q8 under {plan}: not its plain version")
+            for g, (rhs4_p, s_w4) in q4.items():
+                want = mmt4d_q4.fused_gemv_q4_plain(xq, rhs4_p, sa1, s_w4, g)
+                got = mmt4d_q4.fused_gemv_q4(xq, rhs4_p, sa1, s_w4, g, plan=plan)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"fused_gemv_q4 g{g} under {plan}: not its plain version")
+            log(f"[phase2] fused_gemv_q8, fused_gemv_q4 g16/g32 M={xq.shape[0]} forced {plan}: "
+                f"bit for bit")
+
     for k, n in kn:
         w_t = rnd(n, k, scale=k**-0.5)
         rhs4_q, s_w = ops.pack_rhs_q8(w_t)
@@ -522,16 +543,18 @@ def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
                   lambda: fused_gemv.fused_gemv_q8_plain(xq, rhs4_q, sa1, s_w),
                   tol_rel=0.0, library_ms=int_mm_ms(xq, w_q, s_a, s_w_flat),
                   bytes_moved=m * k + n * k + m * 4 + n * 4 + m * n * 4, flops=2 * m * n * k,
-                  iters=10, library_rows=32)
+                  iters=10, exact=True, library_rows=32)
             for g in groups:
                 rhs4_p, s_w4 = q4[g]
                 check("fused_gemv_q4", f"w4a8 g{g} M={m} K={k} N={n}",
                       lambda: mmt4d_q4.fused_gemv_q4(xq, rhs4_p, sa1, s_w4, g),
                       lambda: mmt4d_q4.fused_gemv_q4_plain(xq, rhs4_p, sa1, s_w4, g),
-                      tol_rel=3e-5, library_ms=None,
+                      tol_rel=0.0, library_ms=None, exact=True,
                       bytes_moved=m * k + n * k // 2 + n * (k // g) * 2 + m * 4 + m * n * 4,
                       flops=2 * m * n * k, iters=10,
                       bf16_dequant_matmul_ms=timer.ms(lambda: torch.matmul(x, w_deq[g].t())))
+        if (k, n) == (2048, 2048):
+            gemv_plans_forced(xq, rhs4_q, sa1, s_w, q4)
         for m, m0 in ((16, 8), (20, 8), (256, 8), (2048, 128)):
             x = rnd(m, k)
             xq, s_a = ref.quantize_rows(x)

@@ -15,10 +15,10 @@
 // What bounds it on the H100: bytes at decode (0.625 weight bytes per
 // element at group 16: the nibbles and the bf16 scales, streamed once),
 // operations at prefill.  The TPU kernels dequantize each tile to f32 and
-// contract in f32.  Here the per-group integer sum comes first (the GEMV:
-// __dp4a takes four int8 products into an int32; the GEMM: an s8 tensor-core
-// step per group), and the group's sum (|sum| <= 2^15) times
-// its bf16 scale (8 significant bits) is exact.  Those terms are summed in
+// contract in f32.  Here the per-group integer sum comes first (an s8
+// tensor-core step per group, or two groups kept apart in one step by the
+// GEMV), and the group's sum (|sum| <= 2^15) times its bf16 scale (8
+// significant bits) is exact.  Those terms are summed in
 // float64, where the sum is exact as long as a row's group scales span less
 // than a factor 2^21 (far wider than any weight row's), and rounded to f32
 // once before the s_a epilogue.  So the result does not depend on the order
@@ -27,18 +27,10 @@
 // sum's rounding.  The float64 adds are one per group and row-column pair,
 // off the byte-bound path of the decode GEMV.
 //
-// The GEMV's nibbles to int8: a 32-bit word of packed bytes holds 8 K elements; its low
-// nibbles (elements 0, 2, 4, 6) and high nibbles (1, 3, 5, 7) each become 4
-// sign-extended bytes with one mask, one xor and one per-byte subtract
-// (__vsub4).  The activations are staged in shared memory in the matching
-// order: every 8 K elements a0..a7 are stored as a0 a2 a4 a6 a1 a3 a5 a7
-// (__byte_perm), so each nibble word meets its 4 activations in one int.
-//
-// fused_gemv_q4 (decode, M <= 8 rows): one warp per output column n walks
-// that column's K1 packed rows; a tile row is 64 bytes, so 4 lanes read it
-// with 16-byte loads (32 K elements each) and a warp covers 8 K tiles per
-// load.  The int8 rows are staged in shared memory one K chunk at a time.
-// M is a template parameter; rows are never padded.
+// fused_gemv_q4 (decode, M <= 8 plain rows): the decode-GEMV body of
+// gemv_warps.cuh (16-column blocks over the whole of K, the warps splitting
+// the K tiles, one launch, no merge through memory) on nibbles; its
+// section below says how a step's slots keep the groups apart.
 //
 // mmt4d_q4 (packed rows, any M0 in 1..8 or 128): the skinny split-K body
 // of the bf16 and int8 packed GEMMs (packed_skinny.cuh), instantiated for
@@ -79,127 +71,191 @@
 // 2048 x 512 ~ 2.1e9 at K = 8192 g16, ~0.13 ms at the H100's ~17e12 DFMA/s
 // (about 4x the int8 tensor-core bound), half that at g32; measured 4-5x
 // that floor (PERF.md, section 7: why is open).
-#include "packed_skinny.cuh"
+#include "gemv_warps.cuh"
 
 namespace {
 
 constexpr int T0 = 128;   // N0 = K0
 constexpr int T0P = 64;   // packed bytes of a K0 tile row
 
-__device__ __forceinline__ void expand_nibbles(unsigned w, int& lo, int& hi) {
-  const unsigned l = w & 0x0F0F0F0Fu;
-  const unsigned h = (w >> 4) & 0x0F0F0F0Fu;
-  lo = static_cast<int>(__vsub4(l ^ 0x08080808u, 0x08080808u));
-  hi = static_cast<int>(__vsub4(h ^ 0x08080808u, 0x08080808u));
-}
+// ---- decode GEMV: the body of gemv_warps.cuh on nibbles ------------------------------
+//
+// Lane (g, t) loads bytes 16t..16t+15 of weight rows g and g+8 of its
+// block's slice in each K tile: K 32t..32t+31, one g32 group or two g16
+// groups.  A k32 step sums its 32 slots over the quad's four lanes, so one
+// step must see one group (g32) or keep two apart: the quad exchanges its
+// words (quad_transpose) so that lane t holds word t (K 8t..8t+7) of each
+// of the tile's four 32-element chunks; a step then takes chunk c, its low
+// nibbles (K 8t + 0, 2, 4, 6) in slots 4t.. and its high ones in 16+4t..,
+// each nibble in the high half of its byte (16 w, as the skinny body
+// does), and the rows' matching bytes (lhs at K 32c + 8t, split into even
+// and odd elements by a byte permute) on the B side.
+//   g32: chunk c is group c; B column j is row j.
+//   g16: lane t's slots hold group 2c + t/2, so B column j takes row
+//        4 rb + j%4 only on the lanes of group half j/4 (zeros elsewhere):
+//        column j sums one group, and rows 0-3 (rb = 0) and 4-7 (rb = 1,
+//        a second step, when M > 4) share the weight registers.
+// Each group's int32 fragment starts at Q4_C and is rescaled into f64 by
+// q4_rescale; the scales' sum removes the offset at the end (exact, as in
+// the skinny body).  At g16 lanes t and t^2 hold the two group halves of
+// the same outputs and are added before the warps' sums meet.
 
-__device__ __forceinline__ double warp_sum_f64(double x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// 8 int8 activations a0..a7 -> {a0 a2 a4 a6, a1 a3 a5 a7}.
-__device__ __forceinline__ uint2 deinterleave8(uint2 v) {
-  return make_uint2(__byte_perm(v.x, v.y, 0x6420), __byte_perm(v.x, v.y, 0x7531));
-}
-
-// ---- decode GEMV --------------------------------------------------------------------
-constexpr int WARPS = 8;    // output columns per block
-constexpr int KC = 4096;    // K elements of the rows staged per pass
-constexpr int TPW = 8;      // K tiles a warp covers per load (4 lanes each)
-
-template <int M, int G>
-__global__ void __launch_bounds__(WARPS * 32)
-fused_gemv_q4_kernel(const int8_t* __restrict__ lhs, const uint8_t* __restrict__ rhs4,
-                     const float* __restrict__ s_a, const bf16* __restrict__ s_w4,
-                     float* __restrict__ out, int n1, int k1) {
-  constexpr int GPT = T0 / G;    // groups per tile row
-  constexpr int GPL = 32 / G;    // groups per lane (32 K elements)
-  constexpr int CPG = G / 8;     // 8-element chunks per group
-  __shared__ __align__(16) int8_t xs[M][KC];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int N = n1 * T0;
-  const int K = k1 * T0;
-  const int n = blockIdx.x * WARPS + warp;  // grid covers N exactly
-  const int nt = n / T0;
-  const int n0 = n % T0;
-  const int sub = lane >> 2;   // which of the TPW tiles this lane reads
-  const int q = lane & 3;      // its 32 K elements: q*32 .. q*32+31 of the tile
-
-  double acc[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) acc[m] = 0.0;
-
-  for (int kc = 0; kc < K; kc += KC) {
-    const int kn = min(KC, K - kc);  // a multiple of T0
-    __syncthreads();
-    for (int i = threadIdx.x; i < M * kn / 8; i += blockDim.x) {
-      const int m = i / (kn / 8);
-      const int kk = (i - m * (kn / 8)) * 8;
-      *reinterpret_cast<uint2*>(&xs[m][kk]) =
-          deinterleave8(*reinterpret_cast<const uint2*>(lhs + (size_t)m * K + kc + kk));
-    }
-    __syncthreads();
-    const int tiles = kn / T0;
-    const size_t row0 = ((size_t)nt * k1 + kc / T0) * T0 + n0;  // tile row of the chunk's first tile
-#pragma unroll 2
-    for (int t0 = 0; t0 < tiles; t0 += TPW) {
-      const int t = t0 + sub;
-      if (t < tiles) {
-        const size_t row = row0 + (size_t)t * T0;
-        const uint4 w = *reinterpret_cast<const uint4*>(rhs4 + row * T0P + q * 16);
-        double sc[GPL];
-#pragma unroll
-        for (int g = 0; g < GPL; ++g) sc[g] = __bfloat162float(s_w4[row * GPT + q * GPL + g]);
-        int lo[4], hi[4];
-        expand_nibbles(w.x, lo[0], hi[0]);
-        expand_nibbles(w.y, lo[1], hi[1]);
-        expand_nibbles(w.z, lo[2], hi[2]);
-        expand_nibbles(w.w, lo[3], hi[3]);
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          const int* x = reinterpret_cast<const int*>(&xs[m][t * T0 + q * 32]);
-          const int4 xa = *reinterpret_cast<const int4*>(x);
-          const int4 xb = *reinterpret_cast<const int4*>(x + 4);
-          const int xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-#pragma unroll
-          for (int g = 0; g < GPL; ++g) {
-            int s = 0;
-#pragma unroll
-            for (int c = g * CPG; c < (g + 1) * CPG; ++c) {
-              s = __dp4a(lo[c], xv[2 * c], s);
-              s = __dp4a(hi[c], xv[2 * c + 1], s);
-            }
-            acc[m] += static_cast<double>(s) * sc[g];
-          }
-        }
-      }
-    }
+// Lane t of each quad ends with word t of the quad's four 16-byte loads,
+// in lane order: a 4 x 4 transpose in two exchanges.
+__device__ __forceinline__ uint4 quad_transpose(uint4 v, int t) {
+  const bool odd = t & 1;
+  unsigned r0 = __shfl_xor_sync(0xffffffffu, odd ? v.x : v.y, 1);
+  unsigned r1 = __shfl_xor_sync(0xffffffffu, odd ? v.z : v.w, 1);
+  if (odd) {
+    v.x = r0;
+    v.z = r1;
+  } else {
+    v.y = r0;
+    v.w = r1;
   }
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    const double s = warp_sum_f64(acc[m]);
-    if (lane == 0) out[(size_t)m * N + n] = static_cast<float>(s) * s_a[m];
+  const bool high = t & 2;
+  r0 = __shfl_xor_sync(0xffffffffu, high ? v.x : v.z, 2);
+  r1 = __shfl_xor_sync(0xffffffffu, high ? v.y : v.w, 2);
+  if (high) {
+    v.x = r0;
+    v.y = r1;
+  } else {
+    v.z = r0;
+    v.w = r1;
   }
+  return v;
+}
+
+__device__ __forceinline__ unsigned word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ unsigned word(const uint2& v, int i) { return i == 0 ? v.x : v.y; }
+
+// The bf16 in half `h` (0 low, 1 high) of a 32-bit word, as a double.
+__device__ __forceinline__ double bf16_half(unsigned w, int h) {
+  return static_cast<double>(__uint_as_float(h ? (w & 0xFFFF0000u) : (w << 16)));
 }
 
 template <int G>
+struct GvScales;  // a weight row's scales of one K tile
+template <>
+struct GvScales<16> {
+  using V = uint4;  // 8 bf16
+  static __device__ __forceinline__ V load(const bf16* p) { return ld_once16(p); }
+  // the scale of lane t's group in chunk c: group 2c + t/2
+  static __device__ __forceinline__ double at(const V& v, int c, int t) {
+    return bf16_half(word(v, c), t >> 1);
+  }
+};
+template <>
+struct GvScales<32> {
+  using V = uint2;  // 4 bf16
+  static __device__ __forceinline__ V load(const bf16* p) { return ld_once8(p); }
+  static __device__ __forceinline__ double at(const V& v, int c, int) {
+    return bf16_half(word(v, c >> 1), c & 1);
+  }
+};
+
+// W warps; NB: 8-row blocks of B (1, or 2 at g16 when M > 4).
+template <int W, int G, int NB>
+__global__ void __launch_bounds__(W * 32)
+gemv_q4_warps(const int8_t* __restrict__ lhs, const uint8_t* __restrict__ rhs4,
+              const float* __restrict__ s_a, const bf16* __restrict__ s_w4,
+              float* __restrict__ out, int m, int n1, int k1) {
+  constexpr int GPT = T0 / G;  // scales a tile row
+  using S = GvScales<G>;
+  using SV = typename S::V;
+  __shared__ double red[W][GV_ROWS * GV_LDR];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_base = blockIdx.x * GV_BN;
+  const int K = k1 * T0;
+  const int e = threadIdx.x;
+  const float sa = e < m * GV_BN ? s_a[e / GV_BN] : 0.f;
+  // Tile row of weight row g of the slice in K tile 0; K tile kt is kt * T0
+  // rows on, row g + 8 is 8 rows on.
+  const size_t row0 = (size_t)(n_base / T0) * k1 * T0 + n_base % T0 + g;
+  const uint8_t* wp = rhs4 + row0 * T0P + 16 * t;
+  const bf16* sp = s_w4 + row0 * GPT;
+  const int8_t* xp[NB];
+  bool xr[NB];
+#pragma unroll
+  for (int rb = 0; rb < NB; ++rb) {
+    const int r = G == 32 ? g : 4 * rb + (g & 3);
+    xr[rb] = r < m && (G == 32 || (t >> 1) == (g >> 2));
+    xp[rb] = lhs + (size_t)(xr[rb] ? r : 0) * K + 8 * t;
+  }
+  int lo, hi;
+  gv_warp_tiles(warp, W, k1, lo, hi);
+  double acc[NB][4] = {};
+  double ssum[2] = {0.0, 0.0};  // the scales of rows g and g + 8 this lane used
+  for (int kt = lo; kt < hi; ++kt) {
+    const size_t row = (size_t)kt * T0;  // this K tile's rows past row0
+    const uint4 w0 = ld_once16(wp + row * T0P), w1 = ld_once16(wp + (row + 8) * T0P);
+    const SV s0 = S::load(sp + row * GPT), s1 = S::load(sp + (row + 8) * GPT);
+    uint2 xv[NB][4];
+#pragma unroll
+    for (int rb = 0; rb < NB; ++rb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        xv[rb][c] = xr[rb] ? __ldg(reinterpret_cast<const uint2*>(xp[rb] + kt * T0 + 32 * c))
+                           : make_uint2(0, 0);
+    const uint4 v0 = quad_transpose(w0, t), v1 = quad_transpose(w1, t);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const unsigned p0 = word(v0, c), p1 = word(v1, c);
+      const unsigned fa[4] = {(p0 << 4) & 0xF0F0F0F0u, (p1 << 4) & 0xF0F0F0F0u, p0 & 0xF0F0F0F0u,
+                              p1 & 0xF0F0F0F0u};
+      const double d0 = S::at(s0, c, t), d1 = S::at(s1, c, t);
+      ssum[0] += d0;
+      ssum[1] += d1;
+#pragma unroll
+      for (int rb = 0; rb < NB; ++rb) {
+        const uint2 x = xv[rb][c];
+        const unsigned fb[2] = {__byte_perm(x.x, x.y, 0x6420), __byte_perm(x.x, x.y, 0x7531)};
+        int cc[4] = {Q4_C, Q4_C, Q4_C, Q4_C};
+        mma_16x8(cc, fa, fb);
+        q4_rescale(acc[rb], cc, d0, d1);
+      }
+    }
+  }
+  double* rw = red[warp];
+#pragma unroll
+  for (int rb = 0; rb < NB; ++rb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[rb][i] = fma(-Q4_OFFSET, ssum[i >> 1], acc[rb][i]);
+      if (G == 16) acc[rb][i] += __shfl_xor_sync(0xffffffffu, acc[rb][i], 2);
+    }
+    // acc[rb]: (column g, row r0), (g, r0 + 1), (g + 8, r0), (g + 8, r0 + 1)
+    const int r0 = G == 32 ? 2 * t : 4 * rb + 2 * (t & 1);
+    if (G == 32 || t < 2) {
+      rw[r0 * GV_LDR + g] = acc[rb][0];
+      rw[(r0 + 1) * GV_LDR + g] = acc[rb][1];
+      rw[r0 * GV_LDR + g + 8] = acc[rb][2];
+      rw[(r0 + 1) * GV_LDR + g + 8] = acc[rb][3];
+    }
+  }
+  const int n = n1 * T0;
+  gv_store<W>(red, m, [&](double s, int r, int c) {
+    out[(size_t)r * n + n_base + c] = static_cast<float>(s) * sa;
+  });
+}
+
+template <int G, int NB>
 int launch_gemv(const void* lhs, const void* rhs4, const void* s_a, const void* s_w4, void* out,
-                int m, int n1, int k1, cudaStream_t stream) {
-  const dim3 grid(n1 * T0 / WARPS);
-  const dim3 block(WARPS * 32);
+                int m, int n1, int k1, int warps, cudaStream_t s) {
   const int8_t* a = static_cast<const int8_t*>(lhs);
   const uint8_t* w = static_cast<const uint8_t*>(rhs4);
   const float* sa = static_cast<const float*>(s_a);
   const bf16* sw = static_cast<const bf16*>(s_w4);
   float* o = static_cast<float*>(out);
-  switch (m) {
-#define CASE(MM) \
-  case MM: fused_gemv_q4_kernel<MM, G><<<grid, block, 0, stream>>>(a, w, sa, sw, o, n1, k1); break;
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-#undef CASE
+  const dim3 grid(n1 * T0 / GV_BN);
+  switch (warps) {
+    case 8: gemv_q4_warps<8, G, NB><<<grid, 8 * 32, 0, s>>>(a, w, sa, sw, o, m, n1, k1); break;
+    case 16: gemv_q4_warps<16, G, NB><<<grid, 16 * 32, 0, s>>>(a, w, sa, sw, o, m, n1, k1); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -300,13 +356,16 @@ int launch_gemm_rows(const void* lhs, const void* rhs4, const void* s_a, const v
 
 }  // namespace
 
+// warps: the plan's warps a block (kernels/mmt4d_q4.py: gemv_q4_plan).
 extern "C" int fused_gemv_q4(const void* lhs, const void* rhs4, const void* s_a,
                              const void* s_w4, void* out, int m, int n1, int k1, int group,
-                             void* stream) {
+                             int warps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (group == 16) return launch_gemv<16>(lhs, rhs4, s_a, s_w4, out, m, n1, k1, s);
-  if (group == 32) return launch_gemv<32>(lhs, rhs4, s_a, s_w4, out, m, n1, k1, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || m > GV_ROWS || n1 < 1 || k1 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (group == 32) return launch_gemv<32, 1>(lhs, rhs4, s_a, s_w4, out, m, n1, k1, warps, s);
+  if (group != 16) return static_cast<int>(cudaErrorInvalidValue);
+  return m > 4 ? launch_gemv<16, 2>(lhs, rhs4, s_a, s_w4, out, m, n1, k1, warps, s)
+               : launch_gemv<16, 1>(lhs, rhs4, s_a, s_w4, out, m, n1, k1, warps, s);
 }
 
 // bn, splits, part, cnt: the plan's block width (16 or 64 columns) and K

@@ -14,7 +14,10 @@ rows (`mmt4d.skinny_plain_loads` mirrors its TMA boxes).
 
 `fused_gemv_q8` is the w8a8 decode GEMV (counterpart of
 fused_gemv_q8_pallas): int8 rows x the packed int8 weight, int32 sum, then
-(acc * s_a[m]) * s_w[n] in f32.  CUDA source: csrc/fused_gemv_q8.cu.
+(acc * s_a[m]) * s_w[n] in f32.  CUDA source: csrc/fused_gemv_q8.cu, on the
+decode-GEMV body of csrc/gemv_warps.cuh: blocks of GEMV_BN columns over the
+whole of K, whose warps split the K tiles (`gemv_q8_plan` picks how many),
+one launch, no scratch.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 from repro_torch.core.encoding import GEMV_MAX_ROWS
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused_pack_mmt4d import check_operands
+from repro_torch.kernels.fused_pack_mmt4d import GEMM_WAVE, check_operands
 from repro_torch.kernels.mmt4d import launch_args, mmt4d_plan
 
 
@@ -109,19 +112,47 @@ def fused_gemv_q8_plain(lhs_q: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Te
     return acc * s_a * s_w.reshape(1, n1 * n0)
 
 
+# ---- the decode-GEMV body's plan (csrc/gemv_warps.cuh; mmt4d_q4.gemv_q4_plan too)
+
+GEMV_BN = 16            # output columns a block owns: one m16 fragment of the weight
+GEMV_WARPS = (8, 16)    # warps a block
+
+
+def gemv_warps(n1: int) -> int:
+    """Warps a block for N1 * 128 output columns: 16, or 8 where the grid
+    has more than two blocks an SM (N = 8192: 512 blocks), so that every
+    block is resident at once (the sweep in PERF.md, section 6)."""
+    return 8 if n1 * 128 // GEMV_BN > 2 * GEMM_WAVE else 16
+
+
+@functools.cache
+def gemv_q8_plan(m: int, k1: int, n1: int) -> tuple[str, int, int]:
+    """("warps", GEMV_BN, W) for int8 rows (M, K1*128) x rhs4 (N1, K1, 128,
+    128): N1 * 128 / GEMV_BN blocks of W warps over the whole of K."""
+    return "warps", GEMV_BN, gemv_warps(n1)
+
+
+def check_gemv_plan(plan, name: str) -> tuple[str, int, int]:
+    """`plan` if the kernels take it: ("warps", GEMV_BN, W in GEMV_WARPS)."""
+    if len(plan) != 3 or plan[:2] != ("warps", GEMV_BN) or plan[2] not in GEMV_WARPS:
+        raise ValueError(f"{name} takes ('warps', {GEMV_BN}, W in {GEMV_WARPS}), got {plan}")
+    return plan
+
+
 @functools.cache
 def _kernel_q8():
     return build.entry(
         "fused_gemv_q8", "fused_gemv_q8",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
 
 
 def fused_gemv_q8(lhs_q: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Tensor,
-                  s_w: torch.Tensor) -> torch.Tensor:
+                  s_w: torch.Tensor, plan=None) -> torch.Tensor:
     """int8 rows (M, K) x packed int8 rhs4_q -> (M, N1*N0) f32 with the
     s_a (M, 1) x s_w (N1, N0) epilogue.  Plain version on the CPU; on a CUDA
-    tensor the kernel runs or this raises."""
+    tensor the kernel runs or this raises.  `plan` overrides
+    `gemv_q8_plan`."""
     check_q8_operands(lhs_q, rhs4_q, s_a, s_w)
     if lhs_q.device.type == "cpu":
         return fused_gemv_q8_plain(lhs_q, rhs4_q, s_a, s_w)
@@ -135,8 +166,9 @@ def fused_gemv_q8(lhs_q: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Tensor,
     lhs_q, rhs4_q = build.aligned(lhs_q), build.aligned(rhs4_q)
     s_a, s_w = s_a.contiguous(), s_w.contiguous()
     out = torch.empty((m, n1 * n0), dtype=torch.float32, device=lhs_q.device)
+    plan = gemv_q8_plan(m, k1, n1) if plan is None else check_gemv_plan(plan, "fused_gemv_q8")
     err = _kernel_q8()(lhs_q.data_ptr(), rhs4_q.data_ptr(), s_a.data_ptr(), s_w.data_ptr(),
-                       out.data_ptr(), m, n1, k1, build.stream_ptr(lhs_q.device))
+                       out.data_ptr(), m, n1, k1, plan[2], build.stream_ptr(lhs_q.device))
     build.check(err, "fused_gemv_q8", "fused_gemv_q8 launch")
     fused_gemv_q8.launches += 1
     return out

@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.core.encoding import GEMV_MAX_ROWS, PACK_TILE
 from repro_torch.kernels import build
+from repro_torch.kernels import fused_gemv as fused_gemv_lib
 from repro_torch.kernels import mmt4d as mmt4d_lib
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_pack_mmt4d import GEMM_WAVE
@@ -92,17 +93,25 @@ def fused_gemv_q4_plain(lhs_q: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Te
 
 
 @functools.cache
+def gemv_q4_plan(m: int, k1: int, n1: int, group: int) -> tuple[str, int, int]:
+    """("warps", GEMV_BN, W) for int8 rows (M, K1*128) x nibbles (N1, K1,
+    128, 64) at `group`: the int8 GEMV's blocks (fused_gemv.gemv_q8_plan)."""
+    return "warps", fused_gemv_lib.GEMV_BN, fused_gemv_lib.gemv_warps(n1)
+
+
+@functools.cache
 def _gemv_kernel():
     return build.entry(
         "mmt4d_q4", "fused_gemv_q4",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     )
 
 
 def fused_gemv_q4(lhs_q: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
-                  s_w4: torch.Tensor, group: int = ref.Q4_GROUP) -> torch.Tensor:
+                  s_w4: torch.Tensor, group: int = ref.Q4_GROUP, plan=None) -> torch.Tensor:
     """int8 rows (M, K) x the nibble-packed weight -> (M, N1*N0) f32.  Plain
-    version on the CPU; on a CUDA tensor the kernel runs or this raises."""
+    version on the CPU; on a CUDA tensor the kernel runs or this raises.
+    `plan` overrides `gemv_q4_plan`."""
     _check_weight(rhs4_p, group)
     n1, k1, n0, k0p = rhs4_p.shape
     m, k = lhs_q.shape
@@ -123,10 +132,12 @@ def fused_gemv_q4(lhs_q: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor,
         raise ValueError(f"fused_gemv_q4 takes 1..{GEMV_MAX_ROWS} rows and bf16 scales, "
                          f"got M={m}, {s_w4.dtype}")
     lhs_q, rhs4_p = build.aligned(lhs_q), build.aligned(rhs4_p)
-    s_a, s_w4 = s_a.contiguous(), s_w4.contiguous()
+    s_a, s_w4 = s_a.contiguous(), build.aligned(s_w4)
     out = torch.empty((m, n1 * n0), dtype=torch.float32, device=lhs_q.device)
+    plan = (gemv_q4_plan(m, k1, n1, group) if plan is None
+            else fused_gemv_lib.check_gemv_plan(plan, "fused_gemv_q4"))
     err = _gemv_kernel()(lhs_q.data_ptr(), rhs4_p.data_ptr(), s_a.data_ptr(), s_w4.data_ptr(),
-                         out.data_ptr(), m, n1, k1, group, build.stream_ptr(lhs_q.device))
+                         out.data_ptr(), m, n1, k1, group, plan[2], build.stream_ptr(lhs_q.device))
     build.check(err, "mmt4d_q4", "fused_gemv_q4 launch")
     fused_gemv_q4.launches += 1
     return out

@@ -9,9 +9,10 @@ Times, against the Llama-3.2-1B projections K x N = 2048 x 2048, 2048 x
 in bf16: `mmt4d` at 16, 20 and 256 rows packed in M0 = 8 blocks and 2048
 rows in M0 = 128 slabs, `mmt4d_gemv` and `fused_gemv` at 1, 4 and 8 rows,
 and `fused_pack_mmt4d` at 16, 512 and 2048 rows, each beside torch.matmul
-on the unpacked weight at the same rows; in int8 (w8a8): `mmt4d_q8` at the
-packed GEMM's rows, beside torch._int_mm plus the scale epilogue (rows
-padded to 32 where there are 16 or fewer: _int_mm takes more than 16); in
+on the unpacked weight at the same rows; in int8 (w8a8): `fused_gemv_q8`
+at 1, 4 and 8 rows and `mmt4d_q8` at the packed GEMM's rows, beside
+torch._int_mm plus the scale epilogue (rows padded to 32 where there are 16
+or fewer: _int_mm takes more than 16); in
 int4 (w4a8, groups 16 and 32): `mmt4d_q4` at the packed GEMM's rows and
 `fused_gemv_q4` at 1, 4 and 8 rows (no PyTorch call computes int4 x int8);
 and `batch_mmt4d` at chip_smoke.py's attention shapes in f32 and bf16,
@@ -40,8 +41,9 @@ wrappers' public signatures, so run this file by path with PYTHONPATH set to
 another checkout's src/ to time that tree.  --sweep (this tree's plans only)
 adds the bf16 and int8 packed GEMMs at 64, 128 and 256 rows (M0 = 8) under
 each body, the skinny body's K split at grid targets of 132, 264 and 528
-blocks, and `mmt4d_q4` at 16, 20, 256 and 2048 rows under both block
-widths (16 and 64 columns) at those targets.  Prints one line a shape and one JSON line; writes
+blocks, `mmt4d_q4` at 16, 20, 256 and 2048 rows under both block widths
+(16 and 64 columns) at those targets, and both decode GEMVs under each of
+their plans (8 and 16 warps a block).  Prints one line a shape and one JSON line; writes
 chiprun_out/bench_packed-<label>.json.
 """
 
@@ -93,6 +95,14 @@ def _q4_plans(m1: int, m0: int, n1: int, k1: int) -> list:
     return out
 
 
+def _gemv_plans() -> list:
+    """The w8a8/w4a8 decode GEMVs' plans (this tree's only): the
+    decode-GEMV body at each warp count."""
+    from repro_torch.kernels import fused_gemv
+
+    return [("warps", fused_gemv.GEMV_BN, w) for w in fused_gemv.GEMV_WARPS]
+
+
 def cases(dev, gen, sweep: bool) -> list:
     """(name, fn, checked) of every timed call: the kernels (checked: their
     output's checksum is printed) and their library calls."""
@@ -139,9 +149,23 @@ def cases(dev, gen, sweep: bool) -> list:
                 out.append((f"fused_pack_mmt4d {key}", lambda a=x, r=rhs4:
                             fused_pack_mmt4d.fused_pack_mmt4d(a, r), True))
             out.append((f"matmul {key}", lambda a=x, w=w_t: torch.matmul(a, w.t()), False))
-        # int8: the packed GEMM beside _int_mm + the epilogue on the same values
+        # int8: the decode GEMV and the packed GEMM beside _int_mm + the
+        # epilogue on the same values
         w_q = int8(n, k)
         rhs4_q, s_w = ref.pack(w_q, (128, 128)), scales(n1, 128)
+        for m in (1, 4, 8):
+            key = f"M={m} K={k} N={n}"
+            xq, s_a = int8(m, k), scales(m, 1)
+            out.append((f"fused_gemv_q8 {key}", lambda a=xq, r=rhs4_q, sa=s_a, sw=s_w:
+                        fused_gemv.fused_gemv_q8(a, r, sa, sw), True))
+            xp = torch.nn.functional.pad(xq, (0, 0, 0, 32 - m))
+            out.append((f"int_mm {key}", lambda a=xp, w=w_q.t(), sa=s_a, sw=s_w.reshape(-1), m=m:
+                        (torch._int_mm(a, w)[:m].float() * sa) * sw, False))
+            if sweep:
+                for plan in _gemv_plans():
+                    out.append((f"fused_gemv_q8 {'/'.join(map(str, plan))} {key}",
+                                lambda a=xq, r=rhs4_q, sa=s_a, sw=s_w, p=plan:
+                                fused_gemv.fused_gemv_q8(a, r, sa, sw, plan=p), True))
         for m in (16, 20, 256, 2048):
             key = f"M={m} K={k} N={n}"
             m0 = 128 if m == 2048 else 8
@@ -182,6 +206,12 @@ def cases(dev, gen, sweep: bool) -> list:
                 out.append((f"fused_gemv_q4 g{group} M={m} K={k} N={n}",
                             lambda a=xq, r=rhs4_p, sa=s_a, sw=s_w4, g=group:
                             mmt4d_q4.fused_gemv_q4(a, r, sa, sw, g), True))
+                if sweep:
+                    for plan in _gemv_plans():
+                        out.append((f"fused_gemv_q4 {'/'.join(map(str, plan))} g{group} M={m} "
+                                    f"K={k} N={n}", lambda a=xq, r=rhs4_p, sa=s_a, sw=s_w4,
+                                    g=group, p=plan:
+                                    mmt4d_q4.fused_gemv_q4(a, r, sa, sw, g, plan=p), True))
             for m in (16, 20, 256, 2048):
                 key = f"g{group} M={m} K={k} N={n}"
                 m0 = 128 if m == 2048 else 8
@@ -278,8 +308,8 @@ def main(argv: list[str] | None = None) -> dict:
         try:
             for _ in range(3):
                 fn()
-        except (ValueError, AttributeError) as e:  # another tree's kernel that does not
-            # take this shape, or has no such entry
+        except (ValueError, AttributeError, TypeError) as e:  # another tree's kernel that
+            # does not take this shape or plan, or has no such entry
             print(f"[bench] {args.label:8s} {name:58s} refused: {e}", flush=True)
             continue
         ev = [_event_ms(fn, flush, 10) for _ in range(args.reps)]

@@ -11,10 +11,8 @@ both versions (1e-4); attention outputs are rounded to the input dtype, so
 bf16 allows about one bf16 ulp (2e-2).  The int8 (w8a8) kernels sum integers
 exactly and apply the same f32 epilogue: equal bit for bit.  The int4 (w4a8)
 kernels sum exact terms in float64, as their plain versions do, and round
-once: the GEMV is held to 3e-5 of the largest output, the bar of
-chip_smoke.py; the GEMM (the skinny body) equal bit for bit under every
-plan, as the sums stay exact while a row's group scales span less than
-2**21.  The
+once: the GEMV and the GEMM equal bit for bit under every plan, as the
+sums stay exact while a row's group scales span less than 2**21.  The
 paged and dense decode kernels on kv8/kv4 caches dequantize exactly, so
 they keep the attention tolerances; through an identity page table the two
 kernels agree bit for bit, and flash prefill (the same body over K/V as a
@@ -559,14 +557,11 @@ def _nibbles(dev, *shape, seed=0):
     return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
 
 
-def _q4_close(got, want):
-    torch.testing.assert_close(got, want, rtol=0, atol=3e-5 * want.abs().max().item())
-
-
 @pytest.mark.parametrize("m", [1, 5, 8])
 @pytest.mark.parametrize("n1,k1", [(4, 3), (2, 64)])
 def test_fused_gemv_q8_kernel(dev, m, n1, k1):
-    """k1 = 64 (K = 8192) stages the rows in two K chunks."""
+    """At the plan: k1 = 3 (fewer K tiles than warps) and 64 (K = 8192,
+    16 warps a block)."""
     lhs, rhs4 = _int8(dev, m, k1 * 128, seed=m), _int8(dev, n1, k1, 128, 128, seed=1)
     s_a, s_w = _scales(dev, m, 1, seed=2), _scales(dev, n1, 128, seed=3)
     before = fused_gemv.fused_gemv_q8.launches
@@ -636,7 +631,123 @@ def test_fused_gemv_q4_kernel(dev, m, group, n1, k1):
     before = mmt4d_q4.fused_gemv_q4.launches
     got = mmt4d_q4.fused_gemv_q4(lhs, rhs4, s_a, s_w4, group)
     assert mmt4d_q4.fused_gemv_q4.launches == before + 1
-    _q4_close(got, mmt4d_q4.fused_gemv_q4_plain(lhs, rhs4, s_a, s_w4, group))
+    assert torch.equal(got, mmt4d_q4.fused_gemv_q4_plain(lhs, rhs4, s_a, s_w4, group))
+
+
+def _gemv_plans():
+    """Every plan of the w8a8/w4a8 decode GEMVs: the decode-GEMV body at
+    each warp count it is built for."""
+    return [("warps", fused_gemv.GEMV_BN, w) for w in fused_gemv.GEMV_WARPS]
+
+
+@pytest.mark.parametrize("n1,k1", [(4, 16), (1, 3), (2, 64)])
+@pytest.mark.parametrize("m", list(range(1, 9)))
+def test_fused_gemv_q8_every_plan(dev, m, n1, k1):
+    """The w8a8 GEMV under every plan it can take, forced: bit for bit with
+    the plain version (exact int32 sums, the same epilogue), one launch a
+    call, a repeat call the same bits."""
+    lhs, rhs4 = _int8(dev, m, k1 * 128, seed=m + k1), _int8(dev, n1, k1, 128, 128, seed=n1)
+    s_a, s_w = _scales(dev, m, 1, seed=2), _scales(dev, n1, 128, seed=3)
+    want = fused_gemv.fused_gemv_q8_plain(lhs, rhs4, s_a, s_w)
+    for plan in _gemv_plans():
+        before = fused_gemv.fused_gemv_q8.launches
+        got = fused_gemv.fused_gemv_q8(lhs, rhs4, s_a, s_w, plan=plan)
+        assert fused_gemv.fused_gemv_q8.launches == before + 1
+        assert torch.equal(got, want), plan
+        assert torch.equal(fused_gemv.fused_gemv_q8(lhs, rhs4, s_a, s_w, plan=plan), got)
+
+
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("n1,k1", [(4, 16), (1, 3), (2, 64)])
+@pytest.mark.parametrize("m", list(range(1, 9)))
+def test_fused_gemv_q4_every_plan(dev, m, n1, k1, group):
+    """The w4a8 GEMV under every plan it can take, forced, at both groups
+    (one and two B row blocks at g16): bit for bit with the plain version
+    (exact f64 sums), one launch a call, a repeat call the same bits."""
+    lhs, rhs4 = _int8(dev, m, k1 * 128, seed=m + k1), _nibbles(dev, n1, k1, 128, 64, seed=n1)
+    s_a = _scales(dev, m, 1, seed=2)
+    s_w4 = _scales(dev, n1, k1, 128, 128 // group, seed=3, dtype=torch.bfloat16)
+    want = mmt4d_q4.fused_gemv_q4_plain(lhs, rhs4, s_a, s_w4, group)
+    for plan in _gemv_plans():
+        before = mmt4d_q4.fused_gemv_q4.launches
+        got = mmt4d_q4.fused_gemv_q4(lhs, rhs4, s_a, s_w4, group, plan=plan)
+        assert mmt4d_q4.fused_gemv_q4.launches == before + 1
+        assert torch.equal(got, want), plan
+        assert torch.equal(mmt4d_q4.fused_gemv_q4(lhs, rhs4, s_a, s_w4, group, plan=plan), got)
+
+
+def test_fused_gemv_q8_sums_past_f32(dev):
+    """All operands 127 at K = 8192 (|sum| = 132128768 > 2^24), then
+    operands from [100, 127] and -128 against 127: the int32 fragments keep
+    every sum exact, so the output equals the plain version bit for bit at
+    8 and 16 warps a block (8 and 4 K tiles a warp)."""
+    m, k1, n1 = 8, 64, 4
+    s_a, s_w = _scales(dev, m, 1, seed=2), _scales(dev, n1, 128, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    full = torch.full((m, k1 * 128), 127, dtype=torch.int8, device=dev)
+    cases = [(full, torch.full((n1, k1, 128, 128), 127, dtype=torch.int8, device=dev)),
+             tuple(torch.randint(100, 128, shape, generator=g, device=dev, dtype=torch.int8)
+                   for shape in ((m, k1 * 128), (n1, k1, 128, 128))),
+             (torch.full_like(full, -128), torch.full((n1, k1, 128, 128), 127,
+                                                       dtype=torch.int8, device=dev))]
+    for lhs, rhs4 in cases:
+        want = fused_gemv.fused_gemv_q8_plain(lhs, rhs4, s_a, s_w)
+        for plan in _gemv_plans():
+            assert torch.equal(fused_gemv.fused_gemv_q8(lhs, rhs4, s_a, s_w, plan=plan), want)
+
+
+@pytest.mark.parametrize("group", [16, 32])
+def test_fused_gemv_q4_extreme_sums_and_scales(dev, group):
+    """Every row -128 against every nibble -8: each group's sum is 1024 *
+    group (32768 at g32, where the f64 term's high word carries into its
+    exponent); then group scales spanning 2^-10 .. 2^10 in each weight row,
+    at K = 8192: still exact, so equal bit for bit, at 1-4 and 5-8 rows."""
+    k1, n1 = 64, 4
+    s_w4 = _scales(dev, n1, k1, 128, 128 // group, seed=3, dtype=torch.bfloat16)
+    rhs4 = torch.full((n1, k1, 128, 64), 0x88, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    span = torch.randint(-10, 11, s_w4.shape, generator=g, device=dev).float().exp2()
+    wide = (s_w4.float() * span).to(torch.bfloat16)
+    for m in (3, 8):
+        s_a = _scales(dev, m, 1, seed=2)
+        lhs = torch.full((m, k1 * 128), -128, dtype=torch.int8, device=dev)
+        got = mmt4d_q4.fused_gemv_q4(lhs, rhs4, s_a, s_w4, group)
+        assert torch.equal(got, mmt4d_q4.fused_gemv_q4_plain(lhs, rhs4, s_a, s_w4, group))
+        lhs, nib = _int8(dev, m, k1 * 128, seed=6), _nibbles(dev, n1, k1, 128, 64, seed=7)
+        got = mmt4d_q4.fused_gemv_q4(lhs, nib, s_a, wide, group)
+        assert torch.equal(got, mmt4d_q4.fused_gemv_q4_plain(lhs, nib, s_a, wide, group))
+
+
+def test_quantized_gemvs_take_unaligned_views(dev):
+    """Rows that arrive as a view off a 16-byte boundary (a column slice,
+    as the activation quantizer's output may be) and group scales viewed
+    at an offset of one bf16 give the bits of their contiguous copies: the
+    wrappers hand the kernels 16-byte aligned bases."""
+    n1, k1, m = 4, 3, 5
+    big = _int8(dev, m + 1, k1 * 128 + 8, seed=1)
+    xq = big[1:, 3:3 + k1 * 128]
+    assert not xq.is_contiguous()
+    flat = _int8(dev, m * k1 * 128 + 1, seed=2)
+    xs = flat[1:].view(m, k1 * 128)
+    assert xs.data_ptr() % 16 != 0
+    rq, s_a, s_w = _int8(dev, n1, k1, 128, 128, seed=3), _scales(dev, m, 1), _scales(dev, n1, 128)
+    for x in (xq, xs):
+        assert torch.equal(fused_gemv.fused_gemv_q8(x, rq, s_a, s_w),
+                           fused_gemv.fused_gemv_q8(x.contiguous(), rq, s_a, s_w))
+    nib = _nibbles(dev, n1, k1, 128, 64, seed=4)
+    for group in (16, 32):
+        shape = (n1, k1, 128, 128 // group)
+        sbuf = _scales(dev, shape[0] * shape[1] * shape[2] * shape[3] + 1, seed=5,
+                       dtype=torch.bfloat16)
+        s_w4 = sbuf[1:].view(shape)
+        assert s_w4.data_ptr() % 16 != 0
+        want = mmt4d_q4.fused_gemv_q4(xq.contiguous(), nib, s_a, s_w4.contiguous(), group)
+        assert torch.equal(want, mmt4d_q4.fused_gemv_q4_plain(xq.contiguous(), nib, s_a,
+                                                               s_w4.contiguous(), group))
+        for x in (xq, xs):
+            assert torch.equal(mmt4d_q4.fused_gemv_q4(x, nib, s_a, s_w4, group),
+                               mmt4d_q4.fused_gemv_q4(x.contiguous(), nib, s_a, s_w4.contiguous(),
+                                                      group))
 
 
 @pytest.mark.parametrize("group", [16, 32])
