@@ -47,7 +47,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
              the yardstick; and the sampler: its (4, 128256) bits, uniforms
              and sampled rows on the card equal to the CPU's for three keys,
              a chi-square test of its frequencies, its launches and
-             device busy time;
+             device busy time; then the dense family's shapes: paged decode
+             (bf16, kv8, kv4 pools), dense decode and flash prefill at head
+             dim 128 with G = 5, 6 and 8 (Qwen2.5 40/8, Qwen2-1.5B 12/2,
+             Yi-9B 32/4 heads; L = 1, 3, 5, 16, 256) and the identity-table
+             paged == dense check there, and the projection kernels at
+             Qwen2-1.5B's K x N and the untied heads' (4096 x 64000, 5120 x
+             152064) in bf16, w8a8 and w4a8 g16 at rows 1, 4, 8, 20, 2048;
   3. forward a depth-2, full-width f32 model served through the kernels and
              through the plain backends on the card: identical tokens, for
              the phase-split engine and for speculative decode (registry
@@ -63,6 +69,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
              then temperature sampling (0.7 on half the requests, 0 on the
              others; paged vectorized and dense grouped): kernel tokens ==
              plain tokens, and temperature-0 requests == the greedy engine;
+             then each of Qwen2-1.5B, Qwen2.5-14B/32B and Yi-9B at depth 2,
+             full width, f32, nonzero QKV biases: the kernels (phase-split
+             and spec decode) emit the plain backends' tokens;
   4. serve   the full-depth, full-width bf16 Llama-3.2-1B (random weights from
              --seed): 8 requests, half sharing a 256-token prefix so the second
              wave runs the suffix prefill;
@@ -85,9 +94,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
              sample="temperature" (0.8 on half the requests, 0 on the
              others) in turns: tokens/s, decode p50/p99 and p50 as a
              multiple of the greedy run's; the temperature-0 requests must
-             emit the greedy run's tokens.
+             emit the greedy run's tokens;
+  9. dense   Qwen2-1.5B at full width and depth (28 layers, bf16, nonzero
+             QKV biases): phase 4's trace, phase 5's speculative decode and
+             phase 4's trace with w8a8 weights;
+ 10. chaos   the committed fault schedules on the card: Qwen2-1.5B at depth
+             2, full width, f32, random_7.json on a bf16 pool and
+             kv_quant_mix.json on a kv8 pool; every request ends in a
+             terminal status, survivors emit the fault-free card run's
+             tokens, no page leaks, every injected kernel fault is in
+             stats["degraded"] and only those are caught.
 
-In phases 4 to 8 every kernel's launch count (per KV layout for the decode
+In phases 4 to 9 every kernel's launch count (per KV layout for the decode
 kernels), set to 0 before each run and read after it, must equal the
 dispatches that resolved to it (tallied here from each dispatch's rows,
 weight format, cache and KV layout, and the registry) x layers x (7
@@ -96,7 +114,7 @@ packed projections run their GEMMs' plain-row entries), and every other
 kernel of the table but batch_mmt4d must have launched in these runs.
 Every model made on the card must launch one weight pack per projection
 weight (two for int4: codes and scales); the table's pack launches are
-those of the models of phases 4-8.
+those of the models of phases 4-9.
 
 The third line from the end is the kernel table as JSON, the next the card's
 name and power limit, and the last {"ok": true, "device": {...}}.  Details go
@@ -466,6 +484,18 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
     torch.cuda.synchronize()
 
 
+def int_mm_time(torch, timer, xq, w_q, s_a, s_w) -> float:
+    """torch._int_mm (int8 x int8 -> int32) plus the scale epilogue: the
+    library call of the w8a8 function; it needs more than 16 rows, so fewer
+    are padded to 32."""
+    import torch.nn.functional as F
+
+    m = xq.shape[0]
+    xp = F.pad(xq, (0, 0, 0, 32 - m)) if m <= 16 else xq
+    w_kn = w_q.t()  # (K, N), column-major
+    return timer.ms(lambda: (torch._int_mm(xp, w_kn)[:m].float() * s_a[:, None]) * s_w)
+
+
 def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
     """Phase 2, quantized weights: the four w8a8/w4a8 kernels against their
     plain versions at the full-width projection shapes, and the packed
@@ -493,13 +523,7 @@ def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
                 bytes_moved=bytes_moved, flops=flops, dname="int8", **extra)
 
     def int_mm_ms(xq, w_q, s_a, s_w):
-        """torch._int_mm (int8 x int8 -> int32) plus the scale epilogue: the
-        library call of the w8a8 function; it needs more than 16 rows, so
-        fewer are padded to 32."""
-        m = xq.shape[0]
-        xp = F.pad(xq, (0, 0, 0, 32 - m)) if m <= 16 else xq
-        w_kn = w_q.t()  # (K, N), column-major
-        return timer.ms(lambda: (torch._int_mm(xp, w_kn)[:m].float() * s_a[:, None]) * s_w)
+        return int_mm_time(torch, timer, xq, w_q, s_a, s_w)
 
     groups = (16, 32)
     kn = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
@@ -606,6 +630,41 @@ def check_quant_kernels(torch, dev, target, timer, results: dict) -> None:
     torch.cuda.synchronize()
 
 
+def kv_data(torch, gen, kv: str, dt, *shape):
+    """(data, scales) of random K or V rows of `shape` (.., KV, D) in layout
+    `kv` (scales None for bf16, which keeps dtype `dt`)."""
+    from repro_torch.core import encoding
+
+    x = torch.randn(shape, generator=gen, device=gen.device)
+    return (x.to(dt), None) if kv == "bf16" else encoding.kv_layout(kv).quantize(x)
+
+
+def kv_dequant(kv: str, x, sc):
+    from repro_torch.core import encoding
+
+    return x if kv == "bf16" else encoding.kv_layout(kv).dequantize(x, sc)
+
+
+def kv_row_bytes(kv: str, d: int, itemsize: int) -> int:
+    """Bytes one cached (token, kv head) row of K or V costs to read."""
+    from repro_torch.core import encoding
+
+    if kv == "bf16":
+        return d * itemsize
+    return encoding.kv_layout(kv).storage_head_dim(d) + encoding.KV_SCALE_ITEMSIZE
+
+
+def sdpa_call(torch, q, k_view, v_view, mask, g: int):
+    """SDPA on (B, S, KV, D) views expanded to the query heads (head = kv*G +
+    j): the attention kernels' library yardstick."""
+    import torch.nn.functional as F
+
+    qt = q.transpose(1, 2)
+    kt, vt = (t.to(q.dtype).repeat_interleave(g, dim=2).transpose(1, 2)
+              for t in (k_view, v_view))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
 def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
     """Phase 2, the decode kernels on every KV layout at the full-width
     shapes (B = 4, H = 32, KV = 8, D = 64, pos {37, 300, 511, 900}): paged
@@ -614,9 +673,7 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
     on the dequantized view as the yardstick; then the paged kernel through
     an identity table against the dense kernel, bit for bit."""
     import numpy as np
-    import torch.nn.functional as F
 
-    from repro_torch.core import encoding
     from repro_torch.kernels import attn
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -628,27 +685,6 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev)
-
-    def kv_data(kv, dt, *shape):
-        """(data, scales) of K or V rows in layout `kv` (scales None for bf16)."""
-        x = rnd(*shape)
-        return (x.to(dt), None) if kv == "bf16" else encoding.kv_layout(kv).quantize(x)
-
-    def dequant(kv, x, sc):
-        return x if kv == "bf16" else encoding.kv_layout(kv).dequantize(x, sc)
-
-    def row_bytes(kv, itemsize):
-        """Bytes one cached (token, kv head) row of K or V costs to read."""
-        if kv == "bf16":
-            return d * itemsize
-        return encoding.kv_layout(kv).storage_head_dim(d) + encoding.KV_SCALE_ITEMSIZE
-
-    def sdpa(q, k_view, v_view, mask):
-        """SDPA on (B, S, KV, D) views expanded to the query heads."""
-        qt = q.transpose(1, 2)
-        kt, vt = (t.to(q.dtype).repeat_interleave(g, dim=2).transpose(1, 2)
-                  for t in (k_view, v_view))
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
     def check(name, key, fn, plain, library, *, dname, bytes_moved, flops):
         got, want = fn(), plain()
@@ -662,8 +698,8 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
         np.stack([rng.permutation(pages - 1)[:80] + 1 for _ in range(b)]).astype(np.int32)
     ).to(dev)
     for kv in ("kv8", "kv4"):
-        k_pool, k_sc = kv_data(kv, None, pages, bs, kvh, d)
-        v_pool, v_sc = kv_data(kv, None, pages, bs, kvh, d)
+        k_pool, k_sc = kv_data(torch, gen, kv, None, pages, bs, kvh, d)
+        v_pool, v_sc = kv_data(torch, gen, kv, None, pages, bs, kvh, d)
         kw = dict(k_scale=k_sc, v_scale=v_sc, kv_quant=kv)
         for dname, dt in dtypes:
             s = 2 if dname == "bf16" else 4
@@ -672,7 +708,7 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
                 table = full_table[:, :nb].contiguous()
                 q = rnd(b, L, h, d).to(dt)
                 live = max(pos_list) + L
-                k_view, v_view = (dequant(kv, attn.paged_gather(x, table)[:, :live],
+                k_view, v_view = (kv_dequant(kv, attn.paged_gather(x, table)[:, :live],
                                           attn.paged_gather(sc, table)[:, :live])
                                   for x, sc in ((k_pool, k_sc), (v_pool, v_sc)))
                 qpos = pos[:, None].long() + torch.arange(L, device=dev)
@@ -683,22 +719,22 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
                       lambda: attn.paged_decode_attention(q, k_pool, v_pool, table, pos, **kw),
                       lambda: attn.paged_decode_attention_plain(q, k_pool, v_pool, table, pos,
                                                                 **kw),
-                      sdpa(q, k_view, v_view, mask), dname=dname,
-                      bytes_moved=2 * b * L * h * d * s + 2 * keys * kvh * row_bytes(kv, s)
+                      sdpa_call(torch, q, k_view, v_view, mask, g), dname=dname,
+                      bytes_moved=2 * b * L * h * d * s + 2 * keys * kvh * kv_row_bytes(kv, d, s)
                       + b * nb * 4 + b * 4, flops=4 * h * d * pairs)
 
     s_c = 1024
     for kv in ("bf16", "kv8", "kv4"):
         for dname, dt in dtypes:
             s = 2 if dname == "bf16" else 4
-            k, k_sc = kv_data(kv, dt, b, s_c, kvh, d)
-            v, v_sc = kv_data(kv, dt, b, s_c, kvh, d)
+            k, k_sc = kv_data(torch, gen, kv, dt, b, s_c, kvh, d)
+            v, v_sc = kv_data(torch, gen, kv, dt, b, s_c, kvh, d)
             kw = dict(k_scale=k_sc, v_scale=v_sc, kv_quant=kv)
             name = "dense_decode_attention" + ("" if kv == "bf16" else f"_{kv}")
             for L in (1, 16):
                 q = rnd(b, L, h, d).to(dt)
                 live = max(pos_list) + L
-                k_view, v_view = (dequant(kv, x[:, :live], None if sc is None else sc[:, :live])
+                k_view, v_view = (kv_dequant(kv, x[:, :live], None if sc is None else sc[:, :live])
                                   for x, sc in ((k, k_sc), (v, v_sc)))
                 qpos = pos[:, None].long() + torch.arange(L, device=dev)
                 mask = (torch.arange(live, device=dev) <= qpos[..., None])[:, None]
@@ -708,8 +744,8 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
                 check(name, f"{prefix}{dname} B={b} S_c={s_c} L={L}",
                       lambda: attn.dense_decode_attention(q, k, v, pos, **kw),
                       lambda: attn.dense_decode_attention_plain(q, k, v, pos, **kw),
-                      sdpa(q, k_view, v_view, mask), dname=dname,
-                      bytes_moved=2 * b * L * h * d * s + 2 * keys * kvh * row_bytes(kv, s)
+                      sdpa_call(torch, q, k_view, v_view, mask, g), dname=dname,
+                      bytes_moved=2 * b * L * h * d * s + 2 * keys * kvh * kv_row_bytes(kv, d, s)
                       + b * 4, flops=4 * h * d * pairs)
             del k, v, k_sc, v_sc
 
@@ -728,7 +764,7 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
         check("dense_decode_attention", f"{dname} B={b} S_c={ring} window={window} L=1",
               lambda: attn.dense_decode_attention(q, k, v, pos, window=window),
               lambda: attn.dense_decode_attention_plain(q, k, v, pos, window=window),
-              sdpa(q, k, v, valid[:, None, None, :]), dname=dname,
+              sdpa_call(torch, q, k, v, valid[:, None, None, :], g), dname=dname,
               bytes_moved=2 * b * h * d * s + 2 * keys * kvh * d * s + b * 4,
               flops=4 * h * d * keys)
 
@@ -737,8 +773,8 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
     table = torch.arange(b * nb, dtype=torch.int32, device=dev).reshape(b, nb)
     for kv, dname, dt in (("bf16", "bf16", torch.bfloat16), ("bf16", "f32", torch.float32),
                           ("kv8", "bf16", torch.bfloat16), ("kv4", "bf16", torch.bfloat16)):
-        k, k_sc = kv_data(kv, dt, b, s_c, kvh, d)
-        v, v_sc = kv_data(kv, dt, b, s_c, kvh, d)
+        k, k_sc = kv_data(torch, gen, kv, dt, b, s_c, kvh, d)
+        v, v_sc = kv_data(torch, gen, kv, dt, b, s_c, kvh, d)
 
         def pages_of(x):
             return None if x is None else x.reshape(b * nb, bs, *x.shape[2:])
@@ -841,6 +877,242 @@ def check_pack_kernels(torch, dev, target, timer, results: dict) -> None:
                     library_ms=timer.ms(lambda: torch.einsum("zmkac,znkbc->zmnab", lhs, rhs)),
                     bytes_moved=b * (m * k + n * k) * s + b * m * n * 4,
                     flops=2 * b * m * n * k, dname=dname)
+    torch.cuda.synchronize()
+
+
+# (query heads, kv heads) of the dense family's group sizes at D = 128:
+# Qwen2.5-14B/32B 40/8 (G = 5), Qwen2-1.5B 12/2 (G = 6), Yi-9B 32/4 (G = 8).
+DENSE_HEADS = {5: (40, 8), 6: (12, 2), 8: (32, 4)}
+# K x N of the dense family's projections: Qwen2-1.5B's q/o, k/v, gate/up
+# and down, and the untied heads of Yi-9B and Qwen2.5 (N = vocab).
+DENSE_KN = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536), (4096, 64000),
+            (5120, 152064))
+
+
+def check_dense_family_attention(torch, dev, target, timer, results: dict) -> dict:
+    """Phase 2, the decode and prefill kernels at the dense family's heads
+    (D = 128; G = 5, 6, 8; B = 4, pos {37, 300, 511, 900}): paged decode on
+    bf16, kv8 and kv4 pools and dense decode (S_c = 2048) at L = 1, 3, 5, 16
+    and 256 with bf16 queries (f32 too on the bf16 layouts at L = 1 and
+    16), flash prefill in bf16 and f32, each against its plain version at
+    the tolerances of the Llama shapes with SDPA on the expanded heads as
+    the yardstick; then the identity-table paged == dense check (S_c =
+    1024), bit for bit."""
+    import numpy as np
+
+    from repro_torch.kernels import attn
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, d, bs, pages = 4, 128, 16, 257
+    pos_list = [37, 300, 511, 900]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    rng = np.random.RandomState(5)
+    full_table = torch.from_numpy(
+        np.stack([rng.permutation(pages - 1)[:80] + 1 for _ in range(b)]).astype(np.int32)
+    ).to(dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def check(name, key, fn, plain, library, *, dname, bytes_moved, flops):
+        got, want = fn(), plain()
+        add_row(results, target, name, key, err=(got.float() - want.float()).abs().max().item(),
+                tol=2e-2 if dname == "bf16" else 1e-4, ms=timer.ms(fn),
+                plain_ms=timer.ms(plain, iters=3), library_ms=timer.ms(library),
+                bytes_moved=bytes_moved, flops=flops, dname=dname)
+
+    identity = {}
+    for g, (h, kvh) in sorted(DENSE_HEADS.items()):
+        for kv in ("bf16", "kv8", "kv4"):
+            name = "paged_decode_attention" + ("" if kv == "bf16" else f"_{kv}")
+            dts = [("bf16", torch.bfloat16)] + ([("f32", torch.float32)] if kv == "bf16" else [])
+            for dname, dt in dts:
+                s = 2 if dname == "bf16" else 4
+                k_pool, k_sc = kv_data(torch, gen, kv, dt, pages, bs, kvh, d)
+                v_pool, v_sc = kv_data(torch, gen, kv, dt, pages, bs, kvh, d)
+                kw = dict(k_scale=k_sc, v_scale=v_sc, kv_quant=kv)
+                for L in ((1, 3, 5, 16, 256) if dname == "bf16" else (1, 16)):
+                    nb = max(64, -(-(max(pos_list) + L) // bs))
+                    table = full_table[:, :nb].contiguous()
+                    q = rnd(b, L, h, d).to(dt)
+                    live = max(pos_list) + L
+                    k_view, v_view = (kv_dequant(kv, attn.paged_gather(x, table)[:, :live],
+                                              None if sc is None else
+                                              attn.paged_gather(sc, table)[:, :live])
+                                      for x, sc in ((k_pool, k_sc), (v_pool, v_sc)))
+                    qpos = pos[:, None].long() + torch.arange(L, device=dev)
+                    mask = (torch.arange(live, device=dev) <= qpos[..., None])[:, None]
+                    keys = sum(p + L for p in pos_list)
+                    pairs = sum(p + j + 1 for p in pos_list for j in range(L))
+                    prefix = "" if kv == "bf16" else f"{kv} "
+                    check(name, f"{prefix}{dname} D=128 G={g} B={b} L={L}",
+                          lambda: attn.paged_decode_attention(q, k_pool, v_pool, table, pos,
+                                                              **kw),
+                          lambda: attn.paged_decode_attention_plain(q, k_pool, v_pool, table,
+                                                                    pos, **kw),
+                          sdpa_call(torch, q, k_view, v_view, mask, g), dname=dname,
+                          bytes_moved=2 * b * L * h * d * s
+                          + 2 * keys * kvh * kv_row_bytes(kv, d, s) + b * nb * 4 + b * 4,
+                          flops=4 * h * d * pairs)
+                del k_pool, v_pool, k_sc, v_sc
+
+        s_c = 2048  # holds the L = 256 windows past pos 900
+        for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            s = 2 if dname == "bf16" else 4
+            k, v = rnd(b, s_c, kvh, d).to(dt), rnd(b, s_c, kvh, d).to(dt)
+            for L in ((1, 3, 5, 16, 256) if dname == "bf16" else (1, 16)):
+                q = rnd(b, L, h, d).to(dt)
+                live = max(pos_list) + L
+                qpos = pos[:, None].long() + torch.arange(L, device=dev)
+                mask = (torch.arange(live, device=dev) <= qpos[..., None])[:, None]
+                keys = sum(p + L for p in pos_list)
+                pairs = sum(p + j + 1 for p in pos_list for j in range(L))
+                check("dense_decode_attention", f"{dname} D=128 G={g} B={b} S_c={s_c} L={L}",
+                      lambda: attn.dense_decode_attention(q, k, v, pos),
+                      lambda: attn.dense_decode_attention_plain(q, k, v, pos),
+                      sdpa_call(torch, q, k[:, :live], v[:, :live], mask, g), dname=dname,
+                      bytes_moved=2 * b * L * h * d * s + 2 * keys * kvh * d * s + b * 4,
+                      flops=4 * h * d * pairs)
+
+            for sq, sk, q_off in ((512, 512, 0), (256, 512, 256)):
+                q, kp, vp = rnd(b, sq, h, d).to(dt), rnd(b, sk, kvh, d).to(dt), \
+                    rnd(b, sk, kvh, d).to(dt)
+                qpos = q_off + torch.arange(sq, device=dev)
+                mask = torch.arange(sk, device=dev)[None, :] <= qpos[:, None]
+                pairs = int(mask.sum().item())
+                check("flash_prefill_attention",
+                      f"{dname} D=128 G={g} B={b} Sq={sq} Sk={sk} q_offset={q_off}",
+                      lambda: attn.flash_prefill_attention(q, kp, vp, q_offset=q_off),
+                      lambda: attn.flash_prefill_attention_plain(q, kp, vp, q_offset=q_off),
+                      sdpa_call(torch, q, kp, vp, mask, g), dname=dname,
+                      bytes_moved=(2 * b * sq * h * d + 2 * b * sk * kvh * d) * s,
+                      flops=4 * b * h * d * pairs)
+            del k, v
+
+        s_c = 1024
+        nb = s_c // bs
+        table = torch.arange(b * nb, dtype=torch.int32, device=dev).reshape(b, nb)
+        for kv, dname, dt in (("bf16", "bf16", torch.bfloat16), ("bf16", "f32", torch.float32),
+                              ("kv8", "bf16", torch.bfloat16), ("kv4", "bf16", torch.bfloat16)):
+            k, k_sc = kv_data(torch, gen, kv, dt, b, s_c, kvh, d)
+            v, v_sc = kv_data(torch, gen, kv, dt, b, s_c, kvh, d)
+
+            def pages_of(x):
+                return None if x is None else x.reshape(b * nb, bs, *x.shape[2:])
+
+            for L in (1, 5, 16):
+                q = rnd(b, L, h, d).to(dt)
+                dense = attn.dense_decode_attention(q, k, v, pos, k_scale=k_sc, v_scale=v_sc,
+                                                    kv_quant=kv)
+                paged = attn.paged_decode_attention(q, pages_of(k), pages_of(v), table, pos,
+                                                    k_scale=pages_of(k_sc),
+                                                    v_scale=pages_of(v_sc), kv_quant=kv)
+                same = bool(torch.equal(paged, dense))
+                identity[f"{kv} {dname} D=128 G={g} L={L}"] = same
+                log(f"[kernel] identity-table paged == dense, {kv} {dname} D=128 G={g} L={L}: "
+                    f"bit for bit {same}")
+                if not same:
+                    raise AssertionError(f"identity-table paged != dense ({kv} {dname} D=128 "
+                                         f"G={g} L={L}): max diff "
+                                         f"{(paged.float() - dense.float()).abs().max().item()}")
+    torch.cuda.synchronize()
+    return identity
+
+
+def check_dense_family_projections(torch, dev, target, timer, results: dict) -> None:
+    """Phase 2, the projection kernels at the dense family's K x N
+    (DENSE_KN): bf16 fused_gemv and mmt4d_gemv_rows at 1, 4 and 8 rows,
+    mmt4d_rows at 20 (M0 = 8) and 2048 (M0 = 128) rows, fused_pack_mmt4d at
+    2048 rows (tolerance 1e-3, matmul the yardstick); w8a8 fused_gemv_q8 and
+    mmt4d_q8_rows, w4a8 g16 fused_gemv_q4 and mmt4d_q4_rows at the same
+    rows, bit for bit (torch._int_mm + epilogue the w8a8 yardstick; none
+    computes int4 x int8).  Weights drawn in bf16 and packed or quantized on
+    the card as the model does; plain versions timed once a shape at 2048
+    rows."""
+    from repro_torch.kernels import (fused_gemv, fused_pack_mmt4d, mmt4d, mmt4d_gemv, mmt4d_q4,
+                                     mmt4d_q8, ops, ref)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    def check(name, key, fn, plain, *, exact, library_ms, bytes_moved, flops, dname, iters):
+        got, want = fn(), plain()
+        err = (got - want).abs().max().item()
+        if exact and not torch.equal(got, want):
+            raise AssertionError(f"{name} {key}: not equal to its plain version bit for bit "
+                                 f"(max abs error {err})")
+        add_row(results, target, name, key, err=err, tol=0.0 if exact else 1e-3,
+                ms=timer.ms(fn), plain_ms=timer.ms(plain, iters=iters, warmup=1),
+                library_ms=library_ms, bytes_moved=bytes_moved, flops=flops, dname=dname)
+
+    for k, n in DENSE_KN:
+        w_t = rnd(n, k, scale=k**-0.5)
+        rhs4 = ref.pack(w_t, (128, 128))
+        shape = f"K={k} N={n}"
+        for m in (1, 4, 8, 20, 2048):
+            x = rnd(m, k)
+            iters = 1 if m == 2048 else 3
+            lib_ms = timer.ms(lambda: torch.matmul(x, w_t.t()))
+            kw = dict(exact=False, library_ms=lib_ms, bytes_moved=(m * k + n * k) * 2 + m * n * 4,
+                      flops=2 * m * n * k, dname="bf16", iters=iters)
+            if m <= 8:
+                check("fused_gemv", f"dense bf16 M={m} {shape}",
+                      lambda: fused_gemv.fused_gemv(x, rhs4),
+                      lambda: fused_gemv.fused_gemv_plain(x, rhs4), **kw)
+                check("mmt4d_gemv", f"dense bf16 rows M={m} {shape}",
+                      lambda: mmt4d_gemv.mmt4d_gemv_rows(x, rhs4),
+                      lambda: mmt4d_gemv.mmt4d_gemv_rows_plain(x, rhs4), **kw)
+            else:
+                m0 = 8 if m == 20 else 128
+                check("mmt4d", f"dense bf16 rows M={m} {shape}",
+                      lambda: mmt4d.mmt4d_rows(x, rhs4, m0),
+                      lambda: mmt4d.mmt4d_rows_plain(x, rhs4, m0), **kw)
+            if m == 2048:
+                check("fused_pack_mmt4d", f"dense bf16 M={m} {shape}",
+                      lambda: fused_pack_mmt4d.fused_pack_mmt4d(x, rhs4),
+                      lambda: fused_pack_mmt4d.fused_pack_mmt4d_plain(x, rhs4), **kw)
+        del rhs4
+        rhs4_q, s_w = ops.pack_rhs_q8(w_t)
+        w_q = ref.unpack(rhs4_q, (n, k)).contiguous()
+        s_w_flat = s_w.reshape(-1)[:n]
+        for m in (1, 4, 8, 20, 2048):
+            xq, s_a = ref.quantize_rows(rnd(m, k))
+            kw = dict(exact=True, library_ms=int_mm_time(torch, timer, xq, w_q, s_a, s_w_flat),
+                      bytes_moved=m * k + n * k + m * 4 + n * 4 + m * n * 4,
+                      flops=2 * m * n * k, dname="int8", iters=1 if m == 2048 else 3)
+            if m <= 8:
+                sa1 = s_a[:, None]
+                check("fused_gemv_q8", f"dense w8a8 M={m} {shape}",
+                      lambda: fused_gemv.fused_gemv_q8(xq, rhs4_q, sa1, s_w),
+                      lambda: fused_gemv.fused_gemv_q8_plain(xq, rhs4_q, sa1, s_w), **kw)
+            else:
+                m0 = 8 if m == 20 else 128
+                check("mmt4d_q8", f"dense w8a8 rows M={m} {shape}",
+                      lambda: mmt4d_q8.mmt4d_q8_rows(xq, rhs4_q, s_a, s_w, m0),
+                      lambda: mmt4d_q8.mmt4d_q8_rows_plain(xq, rhs4_q, s_a, s_w, m0), **kw)
+        del rhs4_q, w_q
+        rhs4_p, s_w4 = ops.pack_rhs_q4(w_t, group=16)
+        del w_t
+        for m in (1, 4, 8, 20, 2048):
+            xq, s_a = ref.quantize_rows(rnd(m, k))
+            kw = dict(exact=True, library_ms=None,
+                      bytes_moved=m * k + n * k // 2 + n * (k // 16) * 2 + m * 4 + m * n * 4,
+                      flops=2 * m * n * k, dname="int8", iters=1 if m == 2048 else 3)
+            if m <= 8:
+                sa1 = s_a[:, None]
+                check("fused_gemv_q4", f"dense w4a8 g16 M={m} {shape}",
+                      lambda: mmt4d_q4.fused_gemv_q4(xq, rhs4_p, sa1, s_w4, 16),
+                      lambda: mmt4d_q4.fused_gemv_q4_plain(xq, rhs4_p, sa1, s_w4, 16), **kw)
+            else:
+                m0 = 8 if m == 20 else 128
+                check("mmt4d_q4", f"dense w4a8 g16 rows M={m} {shape}",
+                      lambda: mmt4d_q4.mmt4d_q4_rows(xq, rhs4_p, s_a, s_w4, 16, m0),
+                      lambda: mmt4d_q4.mmt4d_q4_rows_plain(xq, rhs4_p, s_a, s_w4, 16, m0),
+                      **kw)
+        del rhs4_p, s_w4
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
 
@@ -1757,6 +2029,205 @@ def serve_sampled(torch, dev, seed: int, sampler: dict) -> dict:
     return runs
 
 
+DENSE_FAMILY = ("qwen2-1.5b", "qwen2.5-14b", "qwen2.5-32b", "yi-9b")
+
+
+def randomize_biases(torch, params, seed: int) -> None:
+    """Set every QKV bias of `params` (zero after model_init, as in JAX) to
+    N(0, 0.5^2) from `seed`, so that a dropped or misplaced bias changes
+    the tokens."""
+    gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
+    for layer in params["layers"]:
+        for proj in layer["attn"].values():
+            if "b" in proj:
+                b = torch.randn(proj["b"].shape, generator=gen, device=proj["b"].device)
+                proj["b"].copy_(0.5 * b)
+
+
+def dense_family_forward_check(torch, dev, seed: int) -> dict:
+    """Phase 3, the dense family: each of Qwen2-1.5B, Qwen2.5-14B/32B and
+    Yi-9B at full width, depth 2, f32, with nonzero QKV biases (and the
+    untied heads of Qwen2.5 and Yi through the packed projections),
+    served through the kernels (backend "fused", then registry routing with
+    spec decode) and through the plain backends: identical tokens."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+
+    outs = {}
+    for arch in DENSE_FAMILY:
+        cfg = dataclasses.replace(cfg_registry.get_config(arch), num_layers=2, dtype="float32")
+        params = init_model(cfg, EncodingConfig(), seed, dev)
+        randomize_biases(torch, params, seed + 7)
+        rng = np.random.RandomState(seed + 5)
+        prompts = [np.tile(rng.randint(1, cfg.vocab_size, 16), 12)[:n].astype(np.int32)
+                   for n in (80, 144)]
+        prompts += [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (100, 37, 250)]
+        got = {}
+        for label, enc, config in (
+                ("plain", EncodingConfig(backend="reference", attn_backend="xla"), {}),
+                ("kernels", EncodingConfig(backend="fused", attn_backend="auto"), {}),
+                ("spec", EncodingConfig(backend="auto", attn_backend="auto"),
+                 dict(spec_decode=True, draft_k=4))):
+            eng = engine_lib.Engine(params, cfg, enc, device=dev, config=EngineConfig(
+                slots=4, max_seq=512, block_size=16, **config))
+            for i, p in enumerate(prompts):
+                eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=8))
+            got[label] = {r.uid: r.generated for r in eng.run()}
+            st = eng.stats
+            if st["pages_in_use"] or st["degraded"] or len(got[label]) != len(prompts):
+                raise AssertionError(f"{arch} {label}: pages {st['pages_in_use']} degraded "
+                                     f"{st['degraded']}")
+            if config and not st["spec"]["proposed"]:
+                raise AssertionError(f"{arch} spec: no drafts verified")
+        same = got["kernels"] == got["plain"] and got["spec"] == got["plain"]
+        log(f"[forward] {arch} depth-2 f32 full width (G={cfg.gqa_groups}, D={cfg.head_dim}, "
+            f"bias {cfg.qkv_bias}, tied head {cfg.tie_embeddings}): kernel and spec tokens == "
+            f"plain tokens: {same}")
+        if not same:
+            raise AssertionError(f"{arch}: tokens differ: {got}")
+        outs[arch] = got["plain"]
+        del params
+        torch.cuda.empty_cache()
+    return outs
+
+
+def serve_dense_family(torch, dev, seed: int) -> dict:
+    """Phase 9: Qwen2-1.5B at full width and depth (28 layers), bf16, with
+    nonzero QKV biases: phase 4's 8 shared-prefix requests (backend
+    "fused"), phase 5's speculative decode on tiled prompts (registry
+    routing) and phase 4's trace with w8a8 weights, each run's launches
+    equal to its tally (layers from the config)."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+
+    cfg = cfg_registry.get_config("qwen2-1.5b")
+    runs = {}
+    for wq in ("none", "int8"):
+        fused = EncodingConfig(backend="fused", attn_backend="auto", weight_quant=wq)
+        params = init_model(cfg, fused, seed, dev)
+        randomize_biases(torch, params, seed + 7)
+        tag = "bf16" if wq == "none" else "w8a8"
+        prompts = shared_prefix_prompts(np.random.RandomState(seed), cfg.vocab_size)
+        _, out = counted_run(torch, dev, params, cfg, fused, dict(slots=4),
+                             submit_all(prompts, 32), f"{cfg.name} {tag} phase4", "dense")
+        if out["prefix_hit_tokens"] <= 0:
+            raise AssertionError(f"{cfg.name} {tag} phase4: no prefix-cache hit")
+        runs[f"{tag} phase4"] = out
+        if wq == "none":
+            auto = EncodingConfig(backend="auto", attn_backend="auto")
+            _, out = counted_run(torch, dev, params, cfg, auto,
+                                 dict(slots=4, spec_decode=True, draft_k=4),
+                                 submit_all(tiled_prompts(np.random.RandomState(seed + 1),
+                                                          cfg.vocab_size), 32),
+                                 f"{cfg.name} bf16 spec", "dense")
+            if not (out["dispatches"].get("verify", 0) > 0 and out["spec"]["proposed"] > 0):
+                raise AssertionError(f"{cfg.name} spec: no verify dispatch: {out['dispatches']}")
+            log(f"[dense] {cfg.name} spec: acceptance {out['spec']['acceptance_rate']:.3f}, "
+                f"mean committed per slot step {out['spec']['mean_accepted_len']:.3f}")
+            runs["bf16 spec"] = out
+        del params
+        torch.cuda.empty_cache()
+    return runs
+
+
+def chaos_check(torch, dev, seed: int) -> dict:
+    """Phase 10, the chaos harness on the card: Qwen2-1.5B at full width,
+    depth 2, f32, nonzero biases, served through the kernels (backend
+    "fused", attention "auto") under the committed schedules
+    tests/fault_schedules/random_7.json (paged bf16 pool) and
+    kv_quant_mix.json (kv8 pool).  Every request ends in a terminal status
+    within a step budget; the survivors emit the fault-free card run's
+    tokens; no page leaks; every kernel_fail of the log is in
+    stats["degraded"] with an injected fault's reason (the engine catches
+    KernelFaultError only: any real CUDA error would end the phase); the
+    card is still sound after it (a synchronize).  The quarantine the
+    faults leave is cleared at the end."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.kernels import registry
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving import faults as faults_lib
+    from repro_torch.serving.config import EngineConfig
+
+    cfg = dataclasses.replace(cfg_registry.get_config("qwen2-1.5b"), num_layers=2,
+                              dtype="float32")
+    params = init_model(cfg, EncodingConfig(), seed, dev)
+    randomize_biases(torch, params, seed + 7)
+    rng = np.random.RandomState(seed + 8)
+    prompts = [rng.randint(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.randint(8, 48, 6)]
+    enc = EncodingConfig(backend="fused", attn_backend="auto")
+    sched_dir = os.path.join(HERE, "tests", "fault_schedules")
+    out = {}
+    for name, kv in (("random_7.json", "bf16"), ("kv_quant_mix.json", "kv8")):
+        def engine(hooks=None):
+            eng = engine_lib.Engine(params, cfg, enc, device=dev, fault_hooks=hooks,
+                                    clock=None if hooks is None else hooks.clock,
+                                    config=EngineConfig(slots=3, max_seq=128, block_size=16,
+                                                        kv_quant=kv))
+            for i, p in enumerate(prompts):
+                if not eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=8)):
+                    raise AssertionError(f"chaos {name}: request {i} rejected")
+            return eng
+
+        def drive(eng, sched=None):
+            steps = 0
+            while eng.queue or any(r is not None for r in eng.slot_req):
+                if steps >= 300:
+                    raise AssertionError(f"chaos {name}: engine deadlocked under faults")
+                eng.step()
+                eng.audit()
+                steps += 1
+            if sched is not None:
+                sched.drain(eng)
+                eng.audit()
+            return steps
+
+        registry.clear_quarantine()
+        gold_eng = engine()
+        drive(gold_eng)
+        gold = {r.uid: r.generated for r in gold_eng.finished}
+        sched = faults_lib.FaultSchedule.from_json(os.path.join(sched_dir, name))
+        eng = engine(sched)
+        steps = drive(eng, sched)
+        torch.cuda.synchronize()
+        statuses = {r.uid: r.status for r in eng.finished}
+        if sorted(statuses) != list(range(len(prompts))) or not all(
+                r.done and r.status in engine_lib.REQUEST_STATUSES for r in eng.finished):
+            raise AssertionError(f"chaos {name}: statuses {statuses}")
+        diverged = [r.uid for r in eng.finished if r.status == "ok" and r.generated != gold[r.uid]]
+        if diverged:
+            raise AssertionError(f"chaos {name}: survivors {diverged} diverged from the "
+                                 "fault-free card run")
+        if eng.alloc.in_use() != 0 or eng.alloc.available() != eng.alloc.capacity:
+            raise AssertionError(f"chaos {name}: {eng.alloc.in_use()} pages leaked")
+        fired = [e["key"] for e in sched.log if e["kind"] == "kernel_fail"]
+        degraded = eng.stats["degraded"]
+        if [d["key"] for d in degraded] != fired or not all(
+                d["reason"].startswith("injected kernel fault") for d in degraded):
+            raise AssertionError(f"chaos {name}: kernel faults {fired} vs degraded {degraded}")
+        kinds = sorted({e["kind"] for e in sched.log})
+        survivors = sum(s == "ok" for s in statuses.values())
+        log(f"[chaos] {name} ({kv} pool, {steps} steps): statuses {statuses}; {survivors} "
+            f"survivors == fault-free card tokens; 0 pages leaked; fired {kinds}; degraded "
+            f"{[(d['key'], d['from'], d['to']) for d in degraded]}")
+        out[name] = {"kv_quant": kv, "steps": steps, "statuses": statuses, "log": sched.log,
+                     "degraded": degraded, "lifecycle": eng.stats["lifecycle"]}
+        del eng, gold_eng
+    registry.clear_quarantine()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1802,6 +2273,10 @@ def main() -> int:
     check_kernels(torch, dev, targets.H100, timer, results)
     check_quant_kernels(torch, dev, targets.H100, timer, results)
     identity = check_decode_kernels(torch, dev, targets.H100, timer, results)
+    t1 = time.perf_counter()
+    identity.update(check_dense_family_attention(torch, dev, targets.H100, timer, results))
+    check_dense_family_projections(torch, dev, targets.H100, timer, results)
+    log(f"[kernel] dense-family shapes checked in {time.perf_counter() - t1:.1f}s")
     check_pack_kernels(torch, dev, targets.H100, timer, results)
     sampler = check_sampler(torch, dev, timer)
     log(f"[kernel] checks done in {time.perf_counter() - t0:.1f}s")
@@ -1811,19 +2286,24 @@ def main() -> int:
     quant_forward_check(torch, dev, args.seed)
     kv_forward_check(torch, dev, args.seed)
     sampled_forward_check(torch, dev, args.seed)
+    dense_forward = dense_family_forward_check(torch, dev, args.seed)
     loads = len(WEIGHT_PACKS)  # models made before the serving phases
     served = serve(torch, dev, args.seed)
     windows = serve_windows(torch, dev, args.seed)
     quant = serve_quantized(torch, dev, args.seed)
     kv = serve_kv(torch, dev, args.seed)
     sampled = serve_sampled(torch, dev, args.seed, sampler)
+    dense = serve_dense_family(torch, dev, args.seed)
+    served_packs = sum(WEIGHT_PACKS[loads:])  # the weight packs of the served models
+    chaos = chaos_check(torch, dev, args.seed)
     launches = {name: served["launches"][name]
                 + sum(r["launches"][name] for r in (*windows.values(), *quant.values(),
-                                                    *kv.values(), *sampled.values()))
+                                                    *kv.values(), *sampled.values(),
+                                                    *dense.values()))
                 for name in REPLACES}
     if launches["pack"] or launches["unpack"]:
         raise AssertionError(f"serving runs launched activation packs or unpacks: {launches}")
-    launches["pack"] = sum(WEIGHT_PACKS[loads:])  # the weight packs of the served models
+    launches["pack"] = served_packs
     idle = [name for name, n in launches.items() if n == 0 and name not in NOT_ON_SERVING_PATHS]
     if idle:
         raise AssertionError(f"kernels never launched on the serving paths: {idle}")
@@ -1844,6 +2324,7 @@ def main() -> int:
         json.dump({"card": smi, "kind": kind, "build_s": build_s, "kernels": results,
                    "identity": identity, "sampler": sampler, "serve": served,
                    "windows": windows, "quant": quant, "kv": kv, "sampled": sampled,
+                   "dense_forward": dense_forward, "dense": dense, "chaos": chaos,
                    "table": table}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolution (counterpart of
-repro/configs/registry.py).  Only the paper's own model is ported so far;
-the other families wait for their slices (ROADMAP)."""
+repro/configs/registry.py).  The paper's own model and the dense family
+are ported so far; the other families wait for their slices (ROADMAP)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,10 @@ import importlib
 from repro_torch.configs.base import ModelConfig, reduced
 
 _ARCH_MODULES = {
+    "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "yi-9b": "repro_torch.configs.yi_9b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
 }
 

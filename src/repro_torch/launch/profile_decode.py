@@ -1,9 +1,10 @@
 """Where a decode (or prefill) step's time goes on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode [--prefill] [--slots N]
+      [--arch qwen2-1.5b]
 
-Serves --slots (default 4) requests of the full-width bf16 Llama-3.2-1B
-(random weights from --seed; as many slots, max_seq 1024, block 16, the
+Serves --slots (default 4) requests of the full-width bf16 --arch model
+(Llama-3.2-1B by default; random weights from --seed; as many slots, max_seq 1024, block 16, the
 serving path chip_smoke.py drives), lets prefill and the first decode step
 run, then records --steps decode steps under torch.profiler.  With more
 slots than the decode GEMV takes rows (8), the projections route by the
@@ -46,6 +47,7 @@ from repro_torch.serving.config import EngineConfig
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prompt-len", type=int, default=None,
@@ -65,7 +67,7 @@ def main(argv: list[str] | None = None) -> dict:
     out_path = args.out or f"chiprun_out/profile_{kind}.json"
 
     dev = T.resolve_device("cuda")
-    cfg = registry.get_config("llama3.2-1b")
+    cfg = registry.get_config(args.arch)
     weight_quant = {v: k for k, v in QUANT_KEYS.items()}[args.quant]
     backend = "fused" if args.slots <= encoding.GEMV_MAX_ROWS else "auto"
     enc = EncodingConfig(backend=backend, attn_backend="auto", weight_quant=weight_quant,
@@ -123,6 +125,7 @@ def main(argv: list[str] | None = None) -> dict:
     busy_ms = busy / args.steps
     out = {
         "card": torch.cuda.get_device_name(0),
+        "arch": args.arch,
         "step_kind": kind,
         "prompt_len": prompt_len,
         "quant": args.quant,
@@ -140,7 +143,7 @@ def main(argv: list[str] | None = None) -> dict:
             key=lambda r: -r["ms_per_step"],
         ),
     }
-    print(f"[profile] {out['card']} ({args.quant}, {args.kv_quant}, {args.sample}, "
+    print(f"[profile] {out['card']} {args.arch} ({args.quant}, {args.kv_quant}, {args.sample}, "
           f"{args.slots} slots): "
           f"{args.steps} {kind} steps, host {step_ms:.3f} ms/step, "
           f"device busy {busy_ms:.3f} ms/step, idle share {out['device_idle_share']:.3f}, "

@@ -1,4 +1,5 @@
-"""Serving CLI of the port: random-weight Llama-3.2-1B on the card.
+"""Serving CLI of the port: a random-weight model of the registry on the card
+(Llama-3.2-1B by default; --arch qwen2-1.5b, qwen2.5-14b, qwen2.5-32b or yi-9b).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
 

@@ -94,6 +94,12 @@ from repro_torch.serving import spec as spec_lib
 from repro_torch.serving.config import EngineConfig
 
 
+# Every status a Request can hold; all but "queued" and "running" are terminal.
+REQUEST_STATUSES = (
+    "queued", "running", "ok", "cancelled", "expired", "error", "rejected",
+)
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -250,7 +256,8 @@ class Engine:
     replaces the prompt-lookup drafter of spec decode; `clock` (seconds)
     drives deadlines and the watchdog; `fault_hooks` is an object with
     on_step_begin, pre_dispatch and corrupt_slots (and optionally
-    held_pages), the JAX package's injection points; `stream_cb(req, token)`
+    held_pages), the JAX package's injection points, such as a
+    serving/faults.FaultSchedule; `stream_cb(req, token)`
     sees every committed token.
     """
 
@@ -545,15 +552,19 @@ class Engine:
             return self.enc.quant_backend()
         return self.enc.resolved_backend()
 
-    def _quarantine_kernel(self, key: str, reason: str) -> dict:
+    def _quarantine_kernel(self, key: str, reason: str, shard: int | None = None) -> dict:
         """Demote `key` to the next rung of its ladder for the rest of the
         process and record it in stats["degraded"].  The model consults the
-        registry on every call, so the next dispatch runs the demoted rung."""
+        registry on every call, so the next dispatch runs the demoted rung.
+        One card has no shards to keep apart: a shard-tagged fault demotes
+        the key itself, and its entry names the shard."""
         requested = self._requested_for(key)
         before = registry_lib.resolve_key(key, requested=requested)
         record = registry_lib.demote(key, failing=before.backend, reason=reason,
                                      requested=requested)
         entry = {"key": key, "step": self.step_count, **record}
+        if shard is not None:
+            entry["shard"] = int(shard)
         self.degraded.append(entry)
         self.lifecycle["kernel_faults"] += 1
         return entry
@@ -568,7 +579,7 @@ class Engine:
                 if self.hooks is not None:
                     self.hooks.pre_dispatch(self, kind, keys)
             except faults_lib.KernelFaultError as exc:
-                self._quarantine_kernel(exc.key, reason=str(exc))
+                self._quarantine_kernel(exc.key, reason=str(exc), shard=exc.shard)
                 continue
             self.dispatches[kind] += 1
             return fn(*args)
@@ -644,6 +655,32 @@ class Engine:
         bad = frozenset(s for s in active if not ok[s])
         self.lifecycle["guard_trips"] += len(bad)
         return bad
+
+    def poison_slot_kv(self, s: int) -> None:
+        """Overwrite slot `s`'s newest KV storage in every layer: the chaos
+        layer's cache poisoning (a kernel writing garbage K/V).  Paged: the
+        slot's last page of every K and V pool; dense: the slot's newest
+        row.  The slot's next logits go non-finite and the guard finishes
+        it; co-batched slots see the poison only through a page they share.
+        Integer pools (kv8, kv4) cannot hold a NaN: their data pages get the
+        dtype's largest value and the float32 scale pages NaN, so the
+        dequantized K/V are still non-finite.  Tables are never touched."""
+        if self.cache_mode == "paged":
+            if not self.slot_pages[s]:
+                return
+            page = self.slot_pages[s][-1]
+            for layer in self.caches["layers"]:
+                for name, leaf in layer.items():
+                    if name == "table":
+                        continue
+                    poison = (torch.iinfo(leaf.dtype).max if not leaf.dtype.is_floating_point
+                              else float("nan"))
+                    leaf[page] = poison
+        else:
+            pos = max(int(self.slot_pos[s]) - 1, 0)
+            for layer in self.caches["layers"]:
+                for leaf in (layer["k"], layer["v"]):
+                    leaf[s, pos % leaf.shape[1]] = float("nan")
 
     # ---- paged admission / page management ------------------------------------
 

@@ -1141,3 +1141,176 @@ def test_sampled_engine_kernels_match_plain_path(dev, config):
     greedy = serve(EncodingConfig(backend="auto", attn_backend="auto"), "greedy")
     assert kernels == plain
     assert all(kernels[i] == greedy[i] for i, t in enumerate(temps) if t == 0)
+
+
+# ---------------------------------------------------------------------------
+# The dense family's shapes: head dim 128 at G = 5, 6, 8; K1 = 12 and the
+# untied heads
+
+
+# (query heads, kv heads) of each group size: Qwen2.5 40/8 (G = 5),
+# Qwen2-1.5B 12/2 (G = 6), Yi-9B 32/4 (G = 8).
+_HEADS_128 = {5: (40, 8), 6: (12, 2), 8: (32, 4)}
+
+
+@pytest.mark.parametrize("g", sorted(_HEADS_128))
+@pytest.mark.parametrize("kv", ["bf16", "kv8", "kv4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 3, 5, 16, 256])
+def test_paged_decode_kernel_head_dim_128(dev, dtype, L, kv, g):
+    """D = 128 at G = 5, 6 and 8: L * G query rows that are no multiple of
+    the group in a 64-row tile (L = 3 and 5 at G = 5, 6: 15-30 rows, the
+    tensor cores in bf16 from 16), on bf16, kv8 and kv4 pools (kv4: 64
+    bytes a row)."""
+    h, kvh = _HEADS_128[g]
+    rng = np.random.RandomState(L + g)
+    b, d, bs, pages = 3, 128, 16, 40
+    nb = 8 + L // bs
+    q = _rand(dev, dtype, b, L, h, d, seed=4)
+    k_pool, k_scale = _kv_pages(dev, kv, dtype, pages, bs, kvh, d, seed=5)
+    v_pool, v_scale = _kv_pages(dev, kv, dtype, pages, bs, kvh, d, seed=6)
+    table = torch.from_numpy(rng.randint(1, pages, (b, nb)).astype(np.int32)).to(dev)
+    table[1, :2] = table[0, :2]
+    pos = torch.tensor([0, 37, nb * bs - L], dtype=torch.int32, device=dev)
+    kw = dict(k_scale=k_scale, v_scale=v_scale, kv_quant=kv)
+    before = attn.paged_decode_attention.launches_by_kv[kv]
+    got = attn.paged_decode_attention(q, k_pool, v_pool, table, pos, **kw)
+    assert attn.paged_decode_attention.launches_by_kv[kv] == before + 1
+    want = attn.paged_decode_attention_plain(q, k_pool, v_pool, table, pos, **kw)
+    torch.testing.assert_close(got, want, **_tol(dtype, False))
+    assert torch.equal(attn.paged_decode_attention(q, k_pool, v_pool, table, pos, **kw), got)
+
+
+@pytest.mark.parametrize("g", sorted(_HEADS_128))
+@pytest.mark.parametrize("kv", ["bf16", "kv8", "kv4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 3, 16])
+def test_dense_decode_kernel_head_dim_128(dev, dtype, L, kv, g):
+    b, d, s_c = 3, 128, 1024
+    h, kvh = _HEADS_128[g]
+    q = _rand(dev, dtype, b, L, h, d, seed=7)
+    k, k_scale = _kv_pages(dev, kv, dtype, b, s_c, kvh, d, seed=8)
+    v, v_scale = _kv_pages(dev, kv, dtype, b, s_c, kvh, d, seed=9)
+    pos = torch.tensor([0, 300, s_c - L], dtype=torch.int32, device=dev)
+    kw = dict(k_scale=k_scale, v_scale=v_scale, kv_quant=kv)
+    got = attn.dense_decode_attention(q, k, v, pos, **kw)
+    want = attn.dense_decode_attention_plain(q, k, v, pos, **kw)
+    torch.testing.assert_close(got, want, **_tol(dtype, False))
+
+
+@pytest.mark.parametrize("g", sorted(_HEADS_128))
+@pytest.mark.parametrize("kv,dtype", [("bf16", torch.bfloat16), ("bf16", torch.float32),
+                                      ("kv8", torch.bfloat16), ("kv4", torch.bfloat16)])
+@pytest.mark.parametrize("L", [1, 5, 16])
+def test_identity_table_head_dim_128(dev, kv, dtype, L, g):
+    """Paged == dense through the identity table, bit for bit, at D = 128."""
+    h, kvh = _HEADS_128[g]
+    b, d, bs, nb = 4, 128, 16, 64
+    s_c = nb * bs
+    q = _rand(dev, dtype, b, L, h, d, seed=10)
+    k, k_scale = _kv_pages(dev, kv, dtype, b, s_c, kvh, d, seed=11)
+    v, v_scale = _kv_pages(dev, kv, dtype, b, s_c, kvh, d, seed=12)
+    pos = torch.tensor([37, 300, 511, s_c - L], dtype=torch.int32, device=dev)
+    table = torch.arange(b * nb, dtype=torch.int32, device=dev).reshape(b, nb)
+
+    def pages(a):
+        return None if a is None else a.reshape(b * nb, bs, *a.shape[2:])
+
+    dense = attn.dense_decode_attention(q, k, v, pos, k_scale=k_scale, v_scale=v_scale,
+                                        kv_quant=kv)
+    paged = attn.paged_decode_attention(q, pages(k), pages(v), table, pos,
+                                        k_scale=pages(k_scale), v_scale=pages(v_scale),
+                                        kv_quant=kv)
+    assert torch.equal(paged, dense)
+
+
+@pytest.mark.parametrize("g", sorted(_HEADS_128))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,q_offset", [(512, 512, 0), (256, 512, 256), (7, 100, 93),
+                                            (65, 65, 0)])
+def test_flash_prefill_head_dim_128(dev, dtype, sq, sk, q_offset, g):
+    h, kvh = _HEADS_128[g]
+    q, k, v = _prefill_qkv(dev, dtype, 2, sq, sk, h, kvh, 128)
+    got = attn.flash_prefill_attention(q, k, v, q_offset=q_offset)
+    torch.testing.assert_close(got, attn.flash_prefill_attention_plain(q, k, v, q_offset=q_offset),
+                               **_tol(dtype, False))
+    assert torch.equal(got, attn.dense_decode_attention(q, k, v, q_offset))
+
+
+# K x N of Qwen2-1.5B's projections (K1 = 12: fewer K tiles than the GEMVs'
+# 16 warps) and of the untied heads (Yi-9B's N = 64000).
+_DENSE_KN = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536), (4096, 64000)]
+
+
+@pytest.mark.parametrize("k,n", _DENSE_KN)
+def test_projection_kernels_at_dense_family_shapes(dev, k, n):
+    """bf16: fused_gemv (1, 4, 8 rows), mmt4d_rows (20 rows at M0 = 8, 300
+    at M0 = 128) and fused_pack_mmt4d (300 rows) against their plain
+    versions; w8a8 and w4a8 g16: the GEMVs and the plain-row GEMMs bit for
+    bit, the weights quantized as the model does."""
+    from repro_torch.kernels import ops, ref
+
+    w_t = _rand(dev, torch.bfloat16, n, k, scale=k**-0.5, seed=1)
+    rhs4 = ref.pack(w_t, (128, 128))
+    for m in (1, 4, 8):
+        x = _rand(dev, torch.bfloat16, m, k, seed=m)
+        torch.testing.assert_close(fused_gemv.fused_gemv(x, rhs4),
+                                   fused_gemv.fused_gemv_plain(x, rhs4), rtol=1e-3, atol=1e-3)
+    for m, m0 in ((20, 8), (300, 128)):
+        x = _rand(dev, torch.bfloat16, m, k, seed=m)
+        torch.testing.assert_close(mmt4d.mmt4d_rows(x, rhs4, m0),
+                                   mmt4d.mmt4d_rows_plain(x, rhs4, m0), rtol=1e-3, atol=1e-3)
+    x = _rand(dev, torch.bfloat16, 300, k, seed=5)
+    torch.testing.assert_close(fused_pack_mmt4d.fused_pack_mmt4d(x, rhs4),
+                               fused_pack_mmt4d.fused_pack_mmt4d_plain(x, rhs4),
+                               rtol=1e-3, atol=1e-3)
+    del rhs4
+    rhs4_q, s_w = ops.pack_rhs_q8(w_t)
+    rhs4_p, s_w4 = ops.pack_rhs_q4(w_t, group=16)
+    del w_t
+    for m in (1, 4, 8, 20):
+        xq, s_a = ref.quantize_rows(_rand(dev, torch.bfloat16, m, k, seed=10 + m))
+        if m <= 8:
+            sa1 = s_a[:, None]
+            assert torch.equal(fused_gemv.fused_gemv_q8(xq, rhs4_q, sa1, s_w),
+                               fused_gemv.fused_gemv_q8_plain(xq, rhs4_q, sa1, s_w))
+            assert torch.equal(mmt4d_q4.fused_gemv_q4(xq, rhs4_p, sa1, s_w4, 16),
+                               mmt4d_q4.fused_gemv_q4_plain(xq, rhs4_p, sa1, s_w4, 16))
+        else:
+            assert torch.equal(mmt4d_q8.mmt4d_q8_rows(xq, rhs4_q, s_a, s_w, 8),
+                               mmt4d_q8.mmt4d_q8_rows_plain(xq, rhs4_q, s_a, s_w, 8))
+            assert torch.equal(mmt4d_q4.mmt4d_q4_rows(xq, rhs4_p, s_a, s_w4, 16, 8),
+                               mmt4d_q4.mmt4d_q4_rows_plain(xq, rhs4_p, s_a, s_w4, 16, 8))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen2.5-14b", "yi-9b"])
+def test_dense_family_engine_kernels_match_plain_path(dev, arch):
+    """The head-kept reduced model (G = 6, 5, 8 at D = 128; nonzero QKV
+    biases; Qwen2.5 and Yi untied heads) served through the kernels emits
+    the plain backends' tokens: phase-split and spec decode."""
+    full = cfg_registry.get_config(arch)
+    cfg = cfg_registry.get_reduced(arch, num_heads=full.num_heads,
+                                   num_kv_heads=full.num_kv_heads, head_dim=128)
+    params = T.model_init(cfg, EncodingConfig(), seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for layer in params["layers"]:
+        for proj in layer["attn"].values():
+            if "b" in proj:
+                proj["b"].normal_(0.0, 0.5, generator=g)
+    rng = np.random.RandomState(7)
+    prompts = [np.tile(rng.randint(1, cfg.vocab_size, 3), n).astype(np.int32) for n in (3, 6)]
+    prompts += [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (5, 17, 30)]
+
+    def serve(enc, **config):
+        eng = engine_lib.Engine(params, cfg, enc, device=dev, config=EngineConfig(
+            slots=3, max_seq=64, block_size=8, **config))
+        for i, p in enumerate(prompts):
+            eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=8))
+        out = {r.uid: r.generated for r in eng.run()}
+        assert not eng.stats["degraded"] and eng.stats["pages_in_use"] == 0
+        return out
+
+    plain = serve(EncodingConfig(backend="reference", attn_backend="xla"))
+    assert serve(EncodingConfig(backend="fused", attn_backend="auto")) == plain
+    assert serve(EncodingConfig(backend="auto", attn_backend="auto"), spec_decode=True,
+                 draft_k=4) == plain

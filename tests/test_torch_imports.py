@@ -37,7 +37,10 @@ def test_port_imports_no_jax_and_no_repro():
     assert got["bad"] == []
     for mod in ("repro_torch.serving.engine", "repro_torch.kernels.attn",
                 "repro_torch.kernels.mmt4d_q8", "repro_torch.kernels.mmt4d_q4",
-                "repro_torch.launch.serve", "repro_torch.convert"):
+                "repro_torch.launch.serve", "repro_torch.convert",
+                "repro_torch.serving.faults", "repro_torch.configs.qwen2_1_5b",
+                "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.qwen2_5_32b",
+                "repro_torch.configs.yi_9b"):
         assert mod in got["modules"]
 
 
