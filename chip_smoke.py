@@ -54,6 +54,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
              paged == dense check there, and the projection kernels at
              Qwen2-1.5B's K x N and the untied heads' (4096 x 64000, 5120 x
              152064) in bf16, w8a8 and w4a8 g16 at rows 1, 4, 8, 20, 2048;
+             then Mixtral-8x22B's shapes:
+             its projections (6144 x 6144, 6144 x 1024, 6144 x 16384,
+             16384 x 6144) in bf16 and w8a8 at rows 1, 4 and the 1406-row
+             expert buffer of a 4500-token prefill, the router (6144 x 8)
+             in f32 and int8 at rows 1, 4 and 4500, windowed flash prefill
+             at Sq = Sk = 4608, window 4096, G = 6, and the ring dense
+             decode at S_c = 4096 with rows wrapped;
   3. forward a depth-2, full-width f32 model served through the kernels and
              through the plain backends on the card: identical tokens, for
              the phase-split engine and for speculative decode (registry
@@ -71,7 +78,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
              plain tokens, and temperature-0 requests == the greedy engine;
              then each of Qwen2-1.5B, Qwen2.5-14B/32B and Yi-9B at depth 2,
              full width, f32, nonzero QKV biases: the kernels (phase-split
-             and spec decode) emit the plain backends' tokens;
+             and spec decode) emit the plain backends' tokens; then
+             Mixtral-8x22B at depth 2, full width, f32, on its 4096-slot
+             ring (max_seq 8192), 9 requests, one of 4500 tokens: the
+             kernels phase-split, on `pallas`, grouped and with 12 slots
+             against the plain backends in the same configuration (MoE
+             capacity drops depend on the batch), and int8 and int4
+             weights against the plain quantized projections;
   4. serve   the full-depth, full-width bf16 Llama-3.2-1B (random weights from
              --seed): 8 requests, half sharing a 256-token prefix so the second
              wave runs the suffix prefill;
@@ -103,18 +116,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
              kv_quant_mix.json on a kv8 pool; every request ends in a
              terminal status, survivors emit the fault-free card run's
              tokens, no page leaks, every injected kernel fault is in
-             stats["degraded"] and only those are caught.
+             stats["degraded"] and only those are caught;
+ 11. moe     Mixtral-8x22B at full width and depth 8 of 56 (the cut: one
+             card holds 80 GB, 56 layers are 282 GB in bf16), 4 slots,
+             max_seq 8192: 8 requests of 100-500 tokens and one of 4500,
+             32 new each, in bf16 and in w8a8, with tokens/s, step p50/p99
+             by kind, peak memory and the weight bytes a decode step
+             streams (the router and all 8 experts of every layer).
 
-In phases 4 to 9 every kernel's launch count (per KV layout for the decode
-kernels), set to 0 before each run and read after it, must equal the
+In phases 4 to 9 and 11 every kernel's launch count (per KV layout for the
+decode kernels), set to 0 before each run and read after it, must equal the
 dispatches that resolved to it (tallied here from each dispatch's rows,
 weight format, cache and KV layout, and the registry) x layers x (7
-projections or 1 attention); pack and unpack must not launch at all (the
+projections, or for an MoE layer 5 at the dispatch's rows and 3 a expert
+at its capacity buffer's rows, or 1 attention), plus an untied head's one
+projection a dispatch; pack and unpack must not launch at all (the
 packed projections run their GEMMs' plain-row entries), and every other
 kernel of the table but batch_mmt4d must have launched in these runs.
 Every model made on the card must launch one weight pack per projection
 weight (two for int4: codes and scales); the table's pack launches are
-those of the models of phases 4-9.
+those of the models of phases 4-9 and 11.
 
 The third line from the end is the kernel table as JSON, the next the card's
 name and power limit, and the last {"ok": true, "device": {...}}.  Details go
@@ -229,7 +250,7 @@ def log(msg: str) -> None:
 
 
 class Timer:
-    """Device time of one call by CUDA events, mean over `iters` launches.
+    """Device time of one call by CUDA events, the median of `iters` launches.
     With `flush`, a 256 MB buffer is written before every launch (outside
     the timed window) so the call finds the 50 MB L2 cold, as the serving
     step does: each layer's weights are read once per step."""
@@ -239,6 +260,7 @@ class Timer:
         self.flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
 
     def ms(self, fn, *, iters: int = 10, warmup: int = 2, flush: bool = True) -> float:
+        """Median device ms of one call over `iters` launches."""
         torch = self.torch
         for _ in range(warmup):
             fn()
@@ -251,7 +273,9 @@ class Timer:
             fn()
             ends[i].record()
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+        times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
+        mid = iters // 2
+        return times[mid] if iters % 2 else 0.5 * (times[mid - 1] + times[mid])
 
 
 def bound(target, *, bytes_moved: float, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -279,6 +303,37 @@ def add_row(results: dict, target, name: str, key: str, *, err, tol, ms, plain_m
         f"plain={plain_ms:.4f} library={lib}{aside} bound={b_ms:.4f} ({b_by})")
     if not err <= tol:
         raise AssertionError(f"{name} {key}: max abs error {err} exceeds {tol}")
+
+
+def bf16_attn_limit(torch, q, k, v, valid, want):
+    """Per-element limit of a bf16 attention kernel's output against its
+    plain (f32) version.  The kernel rounds each softmax weight to bf16 for
+    the tensor cores' P.V product (relative error within bf16's unit
+    roundoff 2^-8, sd at most 2^-8/sqrt(3)), so an output element moves by
+    a sum whose sd is at most 2^-8/sqrt(3) x sqrt(sum_j p_j^2 v_j^2); both
+    outputs are then rounded to bf16.  The limit is 6 such sd, plus 2 bf16
+    ulps of the plain value, plus 1e-5 for f32 summation order.  Where a
+    row attends to ~4096 keys that is ~6e-4 at outputs of ~0.03, so a
+    dropped 64-key tile or a band edge moved by one key, each of which
+    shifts outputs by 1e-3 or more, fails it.  q (B, Sq, H, D); k, v (B,
+    Sk, KV, D); valid (B, Sq, Sk)."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    sd = torch.empty(b, sq, h, d, dtype=torch.float32, device=q.device)
+    for j in range(kvh):
+        qg = q[:, :, j * g:(j + 1) * g].float() * d**-0.5
+        sc = torch.einsum("bqgd,bsd->bgqs", qg, k[:, :, j].float())
+        p = torch.nan_to_num(torch.softmax(sc.masked_fill(~valid[:, None], float("-inf")), -1))
+        del sc
+        sd[:, :, j * g:(j + 1) * g] = torch.einsum("bgqs,bsd->bqgd", p * p,
+                                                   v[:, :, j].float() ** 2).sqrt()
+        del p
+    sd *= 2.0**-8 / 3**0.5
+    mant, ex = torch.frexp(want.float().abs())
+    ulp = torch.where(want != 0, torch.ldexp(torch.ones_like(mant), ex - 8),
+                      torch.zeros_like(mant))
+    return 6.0 * sd + 2.0 * ulp + 1e-5
 
 
 def rows_entry(torch, timer, results: dict, target, name: str, key: str, fn, plain, route, *,
@@ -1116,6 +1171,156 @@ def check_dense_family_projections(torch, dev, target, timer, results: dict) -> 
     torch.cuda.synchronize()
 
 
+# Mixtral-8x22B (MoE, window 4096): K x N of its attention projections (q/o
+# 6144 x 6144, k/v 6144 x 1024), its experts (gate/up 6144 x 16384, down
+# 16384 x 6144) and its router (6144 x 8, f32 in the unquantized formats);
+# the prompt longer than the window that phases 3 and 11 serve.
+MOE_KN = ((6144, 6144), (6144, 1024), (6144, 16384), (16384, 6144))
+MOE_LONG_PROMPT = 4500
+
+
+def check_moe_shapes(torch, dev, target, timer, results: dict) -> None:
+    """Phase 2, Mixtral-8x22B's shapes, each against its plain version: the
+    projections (MOE_KN) in bf16 at 1 and 4 decode rows (fused_gemv) and at
+    the expert buffer of a MOE_LONG_PROMPT-token prefill (cap = int(1.25 x
+    4500 x 2 / 8) = 1406 rows, fused_pack_mmt4d), and in w8a8
+    (fused_gemv_q8, mmt4d_q8_rows, bit for bit); the router (N = 8, one
+    128-column pack tile) in f32 and int8 at 1, 4 and 4500 rows; windowed
+    flash prefill at Sq = Sk = 4608, window 4096, G = 6 (48/8 heads, D =
+    128); the ring dense decode at S_c = 4096 with rows in their first
+    window, at its edge and wrapped.  The attention rows hold f32 to 1e-4
+    and bf16 to bf16_attn_limit, element by element.  matmul,
+    torch._int_mm + epilogue and SDPA with the window mask are the library
+    times."""
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core import encoding
+    from repro_torch.core.encoding import Phase
+    from repro_torch.kernels import attn, fused_gemv, fused_pack_mmt4d, mmt4d_q8, ops, ref
+    from repro_torch.models import layers as model_layers
+
+    cfg = cfg_registry.get_config("mixtral-8x22b")
+    cap = model_layers.moe_capacity(cfg, MOE_LONG_PROMPT)[1]
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape, scale=1.0, dt=torch.bfloat16):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
+
+    def check(name, key, fn, plain, *, tol, library_ms, bytes_moved, flops, dname,
+              plain_iters=3, limit=None):
+        """`limit(want)`, where given, is a per-element limit (bf16_attn_limit)
+        that replaces `tol`: the row keeps the worst error / limit, the error
+        and the limit at that element, and as `tol` the loosest limit."""
+        got, want = fn(), plain()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        if tol == 0.0 and not torch.equal(got, want):
+            raise AssertionError(f"{name} {key}: not equal to its plain version bit for bit "
+                                 f"(max abs error {err})")
+        extra = {}
+        if limit is not None:
+            lim = limit(want)
+            ratio = diff / lim
+            worst = int(ratio.argmax().item())
+            extra = dict(err_over_limit=ratio.max().item(), err_at_worst=diff.flatten()[worst].item(),
+                         limit_at_worst=lim.flatten()[worst].item(),
+                         tol_rule="per element: 6 sd of bf16 P rounding + 2 ulp + 1e-5")
+            tol = lim.max().item()  # the loosest element's limit
+            del lim, ratio
+            if not extra["err_over_limit"] <= 1.0:
+                raise AssertionError(f"{name} {key}: error {extra['err_at_worst']} exceeds its "
+                                     f"per-element limit {extra['limit_at_worst']}")
+        del diff
+        add_row(results, target, name, key, err=err, tol=tol, ms=timer.ms(fn),
+                plain_ms=timer.ms(plain, iters=plain_iters), library_ms=library_ms,
+                bytes_moved=bytes_moved, flops=flops, dname=dname, **extra)
+
+    def projection(tag, w_t, rows, dname):
+        n, k = w_t.shape
+        s = 2 if dname == "bf16" else 4
+        rhs4 = ref.pack(w_t, (128, 128))
+        for m in rows:
+            x = rnd(m, k, dt=w_t.dtype)
+            kw = dict(tol=1e-3, library_ms=timer.ms(lambda: torch.matmul(x, w_t.t())),
+                      bytes_moved=(m * k + n * k) * s + m * n * 4, flops=2 * m * n * k,
+                      dname=dname)
+            if m <= encoding.GEMV_MAX_ROWS:
+                check("fused_gemv", f"moe {tag} M={m} K={k} N={n}",
+                      lambda: fused_gemv.fused_gemv(x, rhs4),
+                      lambda: fused_gemv.fused_gemv_plain(x, rhs4), **kw)
+            else:
+                check("fused_pack_mmt4d", f"moe {tag} M={m} K={k} N={n}",
+                      lambda: fused_pack_mmt4d.fused_pack_mmt4d(x, rhs4),
+                      lambda: fused_pack_mmt4d.fused_pack_mmt4d_plain(x, rhs4), **kw)
+        del rhs4
+        rhs4_q, s_w = ops.pack_rhs_q8(w_t)
+        w_q = ref.unpack(rhs4_q, (n, k)).contiguous()
+        s_w_flat = s_w.reshape(-1)[:n]
+        for m in rows:
+            xq, s_a = ref.quantize_rows(rnd(m, k))
+            kw = dict(tol=0.0, library_ms=int_mm_time(torch, timer, xq, w_q, s_a, s_w_flat),
+                      bytes_moved=m * k + n * k + m * 4 + n * 4 + m * n * 4,
+                      flops=2 * m * n * k, dname="int8")
+            if m <= encoding.GEMV_MAX_ROWS:
+                sa1 = s_a[:, None]
+                check("fused_gemv_q8", f"moe w8a8 {tag} M={m} K={k} N={n}",
+                      lambda: fused_gemv.fused_gemv_q8(xq, rhs4_q, sa1, s_w),
+                      lambda: fused_gemv.fused_gemv_q8_plain(xq, rhs4_q, sa1, s_w), **kw)
+            else:
+                m0 = encoding.select_tile_sizes(Phase.PREFILL, m_hint=m).m0
+                check("mmt4d_q8", f"moe w8a8 {tag} rows M={m} K={k} N={n}",
+                      lambda: mmt4d_q8.mmt4d_q8_rows(xq, rhs4_q, s_a, s_w, m0),
+                      lambda: mmt4d_q8.mmt4d_q8_rows_plain(xq, rhs4_q, s_a, s_w, m0), **kw)
+        del rhs4_q, w_q
+
+    for k, n in MOE_KN:
+        projection("bf16", rnd(n, k, scale=k**-0.5), (1, 4, cap), "bf16")
+        torch.cuda.empty_cache()
+    d, e = cfg.d_model, cfg.num_experts
+    projection("router f32", rnd(e, d, scale=d**-0.5, dt=torch.float32),
+               (1, 4, MOE_LONG_PROMPT), "f32")
+
+    h, kvh, hd, window = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.sliding_window
+    g = h // kvh
+    sq = sk = 4608
+    qpos = torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(sk, device=dev)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    pairs = int(mask.sum().item())
+    b, s_c = 4, window
+    pos_list = [37, 4095, 5000, 8000]  # first window, its last slot, wrapped twice
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    slot = torch.arange(s_c, device=dev)
+    rpos = pos.long()[:, None]
+    valid = torch.where(rpos < window, slot <= rpos,
+                        torch.remainder(rpos - slot, s_c) < torch.clamp(rpos + 1, max=window))
+    keys = int(valid.sum().item())
+    for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        s = 2 if dname == "bf16" else 4
+        bf16 = dname == "bf16"
+        q, kp, vp = rnd(1, sq, h, hd, dt=dt), rnd(1, sk, kvh, hd, dt=dt), rnd(1, sk, kvh, hd, dt=dt)
+        check("flash_prefill_attention",
+              f"moe {dname} D=128 G={g} B=1 Sq={sq} Sk={sk} window={window}",
+              lambda: attn.flash_prefill_attention(q, kp, vp, window=window),
+              lambda: attn.flash_prefill_attention_plain(q, kp, vp, window=window),
+              tol=1e-4, limit=(lambda want: bf16_attn_limit(torch, q, kp, vp, mask[None], want))
+              if bf16 else None, library_ms=timer.ms(sdpa_call(torch, q, kp, vp, mask, g)),
+              bytes_moved=(2 * sq * h * hd + 2 * sk * kvh * hd) * s, flops=4 * h * hd * pairs,
+              dname=dname, plain_iters=1)
+        del q, kp, vp
+        torch.cuda.empty_cache()
+        k, v, q = rnd(b, s_c, kvh, hd, dt=dt), rnd(b, s_c, kvh, hd, dt=dt), rnd(b, 1, h, hd, dt=dt)
+        check("dense_decode_attention",
+              f"moe ring {dname} D=128 G={g} B={b} S_c={s_c} window={window} L=1",
+              lambda: attn.dense_decode_attention(q, k, v, pos, window=window),
+              lambda: attn.dense_decode_attention_plain(q, k, v, pos, window=window),
+              tol=1e-4, limit=(lambda want: bf16_attn_limit(torch, q, k, v, valid[:, None], want))
+              if bf16 else None, library_ms=timer.ms(sdpa_call(torch, q, k, v, valid[:, None, None, :], g)),
+              bytes_moved=2 * b * h * hd * s + 2 * keys * kvh * hd * s + b * 4,
+              flops=4 * h * hd * keys, dname=dname)
+        del k, v, q
+    torch.cuda.synchronize()
+
+
 def profiled(torch, fn) -> tuple[int, float] | tuple[None, None]:
     """(device kernels and copies one call of `fn` launches, the sum of their
     durations in ms: device busy time), by torch.profiler; (None, None)
@@ -1188,17 +1393,23 @@ def check_sampler(torch, dev, timer) -> dict:
     return out
 
 
+def layer_projections(cfg) -> int:
+    """Projection weights a layer holds: 4 attention projections, then 3
+    (SwiGLU) or, for an MoE layer, the router and 3 a expert."""
+    return 4 + (1 + 3 * cfg.num_experts if cfg.num_experts else 3)
+
+
 def init_model(cfg, enc, seed: int, dev):
     """T.model_init on the card, where every projection weight is packed by
     the pack kernel (int4 packs its codes and its scales): its launches must
-    equal the weights made, 7 x layers (+1 for an untied head), doubled
-    for int4."""
+    equal the weights made, layer_projections x layers (+1 for an untied
+    head), doubled for int4."""
     from repro_torch.kernels import pack
     from repro_torch.models import transformer as T
 
     before = pack.pack.launches
     params = T.model_init(cfg, enc, seed=seed, device=dev)
-    weights = 7 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
+    weights = layer_projections(cfg) * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
     want = weights * (2 if enc.weight_quant == "int4" else 1)
     got = pack.pack.launches - before
     if got != want:
@@ -1556,10 +1767,17 @@ class DispatchTally:
     before each dispatch, the rows it feeds the model (the token tensor's
     size: batch x padded length at prefill, slots at decode, slots x L for a
     verify or mixed window), the weight format and the registry decide which
-    kernel its 7 projections and its attention resolve to, as kernels/ops.py
+    kernel its projections and its attention resolve to, as kernels/ops.py
     and models/layers.py route them; each adds layers launches per
     projection (a packed projection is one launch of its GEMM's plain-row
-    entry: no pack, no unpack, so their tallies stay 0).
+    entry: no pack, no unpack, so their tallies stay 0).  A dense layer has
+    7 projections at the dispatch's rows.  An MoE layer has 4 attention
+    projections and the router at those rows, and 3 a expert at each
+    expert buffer's rows (models/layers.moe_expert_rows: groups x cap, or
+    every row under moe_dense_decode at decode), dead and padded rows
+    taking capacity.  An untied head adds one projection a dispatch at its
+    logit rows (the batch at prefill, every window row of a verify, the
+    logits_idx columns of a mixed step).
     Each step's watchdog duration is kept under the kinds it dispatched
     (verify and mixed windows with their width L)."""
 
@@ -1569,6 +1787,7 @@ class DispatchTally:
         from repro_torch.core.encoding import GEMV_MAX_ROWS, Phase
         from repro_torch.core.packed import QUANT_KEYS
         from repro_torch.kernels import registry
+        from repro_torch.models import layers as model_layers
 
         self.want = collections.Counter()
         self.by_kind = collections.Counter()  # (kind, kernel) -> launches
@@ -1598,11 +1817,23 @@ class DispatchTally:
                              else LAYOUT_NAMES[("paged" if paged else "dense", kv)])
             return mm_kernel, at_kernel
 
+        cfg = eng.cfg
+
         def counted_dispatch(kind, fn, *args):
             rows = int(args[0].numel())
             mm_kernel, at_kernel = routed(kind, rows)
             out = dispatch(kind, fn, *args)
-            launched = [(mm_kernel, 7 * layers), (at_kernel, layers)]
+            if cfg.num_experts:
+                phase = Phase.PREFILL if kind == "prefill" else Phase.DECODE
+                expert_kernel = routed(kind, model_layers.moe_expert_rows(cfg, rows, phase))[0]
+                launched = [(mm_kernel, 5 * layers), (at_kernel, layers),
+                            (expert_kernel, 3 * cfg.num_experts * layers)]
+            else:
+                launched = [(mm_kernel, 7 * layers), (at_kernel, layers)]
+            if not cfg.tie_embeddings:
+                logit_rows = (args[0].shape[0] if kind == "prefill"
+                              else int(args[2].numel()) if kind == "mixed" else rows)
+                launched.append((routed(kind, logit_rows)[0], 1))
             for kernel, n in launched:
                 if kernel is not None:
                     self.want[kernel] += n
@@ -1641,7 +1872,7 @@ def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
 
     kernels = kernel_fns()
     eng = engine_lib.Engine(params, cfg, enc, device=dev,
-                            config=EngineConfig(max_seq=1024, block_size=16, **config))
+                            config=EngineConfig(**{"max_seq": 1024, "block_size": 16, **config}))
     tally = DispatchTally(eng, cfg.num_layers)
     for k in kernels.values():
         k.launches = 0
@@ -2136,6 +2367,144 @@ def serve_dense_family(torch, dev, seed: int) -> dict:
     return runs
 
 
+def moe_prompts(rng, vocab: int) -> list:
+    """Phase 11's trace (phase 3 serves it too): 8 prompts of 100-500
+    tokens, then one of MOE_LONG_PROMPT tokens, longer than Mixtral's 4096
+    window and not a multiple of it."""
+    import numpy as np
+
+    prompts = [rng.randint(1, vocab, int(n)).astype(np.int32) for n in rng.randint(100, 501, 8)]
+    return prompts + [rng.randint(1, vocab, MOE_LONG_PROMPT).astype(np.int32)]
+
+
+def moe_forward_check(torch, dev, seed: int) -> dict:
+    """Phase 3, Mixtral-8x22B at full width, depth 2, f32 (8 experts, top-2,
+    capacity 1.25, window 4096 on a 4096-slot ring, max_seq 8192): phase
+    11's trace with 8 new tokens a request, served through the kernels and
+    through the plain backends in the same engine configuration, since MoE
+    capacity drops depend on the batch: phase-split (backend "fused"),
+    backend "pallas", grouped decode and 12 slots (the attention projections
+    take the packed GEMM there) against backend "reference" with the plain
+    attention; then int8 and int4 weights (backend "fused" against the
+    plain quantized projections, "xla", both on the attention kernels).
+    Every pair must emit identical tokens, the 4500-token prompt included."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+
+    cfg = dataclasses.replace(cfg_registry.get_config("mixtral-8x22b"), num_layers=2,
+                              dtype="float32")
+    prompts = moe_prompts(np.random.RandomState(seed + 11), cfg.vocab_size)
+    plain = EncodingConfig(backend="reference", attn_backend="xla")
+    outs = {}
+
+    def serve_tokens(params, enc, config):
+        eng = engine_lib.Engine(params, cfg, enc, device=dev,
+                                config=EngineConfig(max_seq=8192, **config))
+        for i, p in enumerate(prompts):
+            if not eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=8)):
+                raise AssertionError(f"request {i} rejected")
+        done = eng.run()
+        st = eng.stats
+        if st["cache_mode"] != "dense" or st["degraded"] or any(
+                r.status != "ok" or len(r.generated) != 8 for r in done):
+            raise AssertionError(f"mixtral {config}: {st['cache_mode']} {st['degraded']} "
+                                 f"{[(r.uid, r.status) for r in done]}")
+        return {r.uid: r.generated for r in done}, st["dispatches"]
+
+    cases = [
+        ("phase-split", "none", EncodingConfig(backend="fused", attn_backend="auto"), plain,
+         dict(slots=4)),
+        ("pallas", "none", EncodingConfig(backend="pallas", attn_backend="auto"), plain,
+         dict(slots=4)),
+        ("grouped", "none", EncodingConfig(backend="fused", attn_backend="auto"), plain,
+         dict(slots=4, decode_mode="grouped")),
+        ("slots12", "none", EncodingConfig(backend="auto", attn_backend="auto"), plain,
+         dict(slots=12)),
+    ]
+    for wq in ("int8", "int4"):
+        cases.append((f"{wq} phase-split", wq,
+                      EncodingConfig(backend="fused", attn_backend="auto", weight_quant=wq),
+                      EncodingConfig(backend="xla", attn_backend="auto", weight_quant=wq),
+                      dict(slots=4)))
+    params, made = None, None
+    plain_runs: dict = {}
+    for label, wq, enc, ref_enc, config in cases:
+        if made != wq:
+            del params
+            torch.cuda.empty_cache()
+            params, made = init_model(cfg, EncodingConfig(weight_quant=wq), seed, dev), wq
+        t0 = time.perf_counter()
+        key = (wq, ref_enc.backend, tuple(sorted(config.items())))
+        if key not in plain_runs:
+            plain_runs[key] = serve_tokens(params, ref_enc, config)[0]
+        t1 = time.perf_counter()
+        got, disp = serve_tokens(params, enc, config)
+        same = got == plain_runs[key]
+        log(f"[forward] mixtral-8x22b depth-2 f32 {label}: kernel tokens == plain tokens "
+            f"(prompts {[len(p) for p in prompts]}, dispatches {disp}; plain "
+            f"{t1 - t0:.1f}s, kernels {time.perf_counter() - t1:.1f}s): {same}")
+        if not same:
+            raise AssertionError(f"mixtral {label}: tokens differ: {got} vs {plain_runs[key]}")
+        outs[label] = got
+    del params
+    torch.cuda.empty_cache()
+    return outs
+
+
+def serve_moe(torch, dev, seed: int) -> dict:
+    """Phase 11: Mixtral-8x22B at full width and depth 8 of 56 in bf16 (the
+    depth cut: 56 layers hold 282 GB of bf16 weights, 141 GB in int8, one
+    card 80 GB), 4 slots, max_seq 8192 (a 4096-slot ring a layer): phase
+    11's trace of 9 requests, 32 new tokens each, with bf16 and with w8a8
+    weights (backend "fused"), each run's launches equal to its tally.
+    Reports tokens/s, step p50/p99 by kind, peak memory and the weight bytes
+    a decode step streams."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core import targets
+    from repro_torch.core.packed import QUANT_KEYS, EncodingConfig
+    from repro_torch.models import transformer as T
+
+    full = cfg_registry.get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(full, num_layers=8)
+    reduced = [f"depth cut to {cfg.num_layers} of {full.num_layers} layers (full width): one "
+               "card holds 80 GB"]
+    runs = {}
+    for wq in ("none", "int8"):
+        quant = QUANT_KEYS[wq]
+        tag = "bf16" if wq == "none" else quant
+        enc = EncodingConfig(backend="fused", attn_backend="auto", weight_quant=wq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = init_model(cfg, enc, seed, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gib = torch.cuda.memory_allocated(dev) / 2**30
+        stream = T.decode_weight_stream_bytes(cfg, enc)
+        floor_ms = 1e3 * sum(stream.values()) / targets.H100.hbm_bytes_per_s
+        log(f"[moe] {cfg.name} depth {cfg.num_layers} {tag}: init {init_s:.1f}s, "
+            f"{weights_gib:.2f} GiB on the card; a decode step streams "
+            f"{stream['projections'] / 1e9:.3f} GB of projections (router and all "
+            f"{cfg.num_experts} experts) + {stream['head'] / 1e9:.3f} GB of head: floor "
+            f"{floor_ms:.3f} ms at the data-sheet rate; reduced: {reduced}")
+        prompts = moe_prompts(np.random.RandomState(seed + 11), cfg.vocab_size)
+        _, out = counted_run(torch, dev, params, cfg, enc, dict(slots=4, max_seq=8192),
+                             submit_all(prompts, 32), f"{cfg.name} {tag} trace", "moe")
+        if out["cache_mode"] != "dense" or out["max_rows"].get("prefill", 0) < MOE_LONG_PROMPT:
+            raise AssertionError(f"{tag}: not the ring or no long prefill: {out}")
+        runs[f"{tag} trace"] = dict(out, init_s=init_s, weights_gib=weights_gib,
+                                    stream_bytes=stream, stream_floor_ms=floor_ms,
+                                    layers=cfg.num_layers, reduced=reduced)
+        del params
+        torch.cuda.empty_cache()
+    return runs
+
+
 def chaos_check(torch, dev, seed: int) -> dict:
     """Phase 10, the chaos harness on the card: Qwen2-1.5B at full width,
     depth 2, f32, nonzero biases, served through the kernels (backend
@@ -2277,6 +2646,9 @@ def main() -> int:
     identity.update(check_dense_family_attention(torch, dev, targets.H100, timer, results))
     check_dense_family_projections(torch, dev, targets.H100, timer, results)
     log(f"[kernel] dense-family shapes checked in {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    check_moe_shapes(torch, dev, targets.H100, timer, results)
+    log(f"[kernel] Mixtral shapes checked in {time.perf_counter() - t1:.1f}s")
     check_pack_kernels(torch, dev, targets.H100, timer, results)
     sampler = check_sampler(torch, dev, timer)
     log(f"[kernel] checks done in {time.perf_counter() - t0:.1f}s")
@@ -2287,6 +2659,7 @@ def main() -> int:
     kv_forward_check(torch, dev, args.seed)
     sampled_forward_check(torch, dev, args.seed)
     dense_forward = dense_family_forward_check(torch, dev, args.seed)
+    moe_forward = moe_forward_check(torch, dev, args.seed)
     loads = len(WEIGHT_PACKS)  # models made before the serving phases
     served = serve(torch, dev, args.seed)
     windows = serve_windows(torch, dev, args.seed)
@@ -2294,12 +2667,13 @@ def main() -> int:
     kv = serve_kv(torch, dev, args.seed)
     sampled = serve_sampled(torch, dev, args.seed, sampler)
     dense = serve_dense_family(torch, dev, args.seed)
+    moe = serve_moe(torch, dev, args.seed)
     served_packs = sum(WEIGHT_PACKS[loads:])  # the weight packs of the served models
     chaos = chaos_check(torch, dev, args.seed)
     launches = {name: served["launches"][name]
                 + sum(r["launches"][name] for r in (*windows.values(), *quant.values(),
                                                     *kv.values(), *sampled.values(),
-                                                    *dense.values()))
+                                                    *dense.values(), *moe.values()))
                 for name in REPLACES}
     if launches["pack"] or launches["unpack"]:
         raise AssertionError(f"serving runs launched activation packs or unpacks: {launches}")
@@ -2325,6 +2699,7 @@ def main() -> int:
                    "identity": identity, "sampler": sampler, "serve": served,
                    "windows": windows, "quant": quant, "kv": kv, "sampled": sampled,
                    "dense_forward": dense_forward, "dense": dense, "chaos": chaos,
+                   "moe_forward": moe_forward, "moe": moe,
                    "table": table}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution (counterpart of
-repro/configs/registry.py).  The paper's own model and the dense family
-are ported so far; the other families wait for their slices (ROADMAP)."""
+repro/configs/registry.py).  The paper's own model, the dense family and
+Mixtral-8x22B (MoE, sliding window) are ported so far; the other families
+wait for their slices (ROADMAP)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import importlib
 from repro_torch.configs.base import ModelConfig, reduced
 
 _ARCH_MODULES = {
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",

@@ -12,6 +12,11 @@ every bit survives.  Quantized projections (`enc.weight_quant` "int8" or
 "int4") carry their leaves as they are: w_q (int8), w_scale (f32), w_q4
 (uint8 nibbles) and w_scale4 (bf16), bit for bit, so the port serves the
 JAX package's quantized weights, not a requantization of its own.
+
+An MoE layer's experts are stacked once more in JAX, (layers, E, ...) on
+every leaf of w_gate, w_up and w_down; the port keeps a list of E
+per-expert projections, each leaf split along that axis as it is (packed
+layouts are never repacked).  The router is one projection per layer.
 """
 
 from __future__ import annotations
@@ -59,6 +64,12 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, enc: EncodingConfig,
                          f"another weight format than weight_quant={enc.weight_quant!r}")
     n_layers = cfg.num_layers
     layers = [_tree(group, lambda a, i=i: to_torch(a[i], device)) for i in range(n_layers)]
+    for layer in layers:
+        if "moe" in layer:
+            moe = layer["moe"]
+            for name in ("w_gate", "w_up", "w_down"):
+                moe[name] = [{key: leaf[j] for key, leaf in moe[name].items()}
+                             for j in range(cfg.num_experts)]
     out = {
         "embed": to_torch(np_params["embed"], device),
         "final_norm": _tree(np_params["final_norm"], lambda a: to_torch(a, device)),

@@ -1,7 +1,7 @@
 """Where a decode (or prefill) step's time goes on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode [--prefill] [--slots N]
-      [--arch qwen2-1.5b]
+      [--arch qwen2-1.5b | --arch mixtral-8x22b --layers 8 --max-seq 8192]
 
 Serves --slots (default 4) requests of the full-width bf16 --arch model
 (Llama-3.2-1B by default; random weights from --seed; as many slots, max_seq 1024, block 16, the
@@ -22,13 +22,17 @@ temperatures join each step).  --prefill profiles the step that admits
 batched 4 x 512 = 2048-row prefill (and the first decode of the four
 slots), --steps times, each after the previous requests have drained (a
 warm-up batch runs first, outside the profile); it writes
-chiprun_out/profile_prefill.json.
+chiprun_out/profile_prefill.json.  --layers N cuts the depth to N layers at
+full width (Mixtral-8x22B's 56 layers do not fit one card in bf16; the
+output names the cut); --max-seq sets the engine's max_seq (1024 by
+default; a windowed model's ring holds min(max_seq, window) slots).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import itertools
 import json
 import os
@@ -53,6 +57,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=None,
                     help="tokens a prompt (default 300; 512 with --prefill)")
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (full width)")
+    ap.add_argument("--max-seq", dest="max_seq", type=int, default=1024)
     ap.add_argument("--prefill", action="store_true",
                     help="profile the step that runs a batched prefill")
     ap.add_argument("--out", default=None)
@@ -68,13 +75,17 @@ def main(argv: list[str] | None = None) -> dict:
 
     dev = T.resolve_device("cuda")
     cfg = registry.get_config(args.arch)
+    depth = cfg.num_layers
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     weight_quant = {v: k for k, v in QUANT_KEYS.items()}[args.quant]
     backend = "fused" if args.slots <= encoding.GEMV_MAX_ROWS else "auto"
     enc = EncodingConfig(backend=backend, attn_backend="auto", weight_quant=weight_quant,
                          quant_group=args.quant_group)
     params = T.model_init(cfg, enc, seed=args.seed, device=dev)
     eng = engine_lib.Engine(params, cfg, enc,
-                            config=EngineConfig(slots=args.slots, max_seq=1024, block_size=16,
+                            config=EngineConfig(slots=args.slots, max_seq=args.max_seq,
+                                                block_size=16,
                                                 kv_quant=args.kv_quant, sample=args.sample),
                             device=dev)
     rng = np.random.RandomState(args.seed)
@@ -126,6 +137,12 @@ def main(argv: list[str] | None = None) -> dict:
     out = {
         "card": torch.cuda.get_device_name(0),
         "arch": args.arch,
+        "layers": cfg.num_layers,
+        "reduced": ([] if cfg.num_layers == depth
+                    else [f"depth cut to {cfg.num_layers} of {depth} layers, full width"]),
+        "max_seq": args.max_seq,
+        "decode_weight_stream_bytes": sum(T.decode_weight_stream_bytes(cfg, enc).values()),
+        "cache_mode": eng.cache_mode,
         "step_kind": kind,
         "prompt_len": prompt_len,
         "quant": args.quant,
@@ -143,6 +160,8 @@ def main(argv: list[str] | None = None) -> dict:
             key=lambda r: -r["ms_per_step"],
         ),
     }
+    for cut in out["reduced"]:
+        print(f"[profile] reduced: {cut}")
     print(f"[profile] {out['card']} {args.arch} ({args.quant}, {args.kv_quant}, {args.sample}, "
           f"{args.slots} slots): "
           f"{args.steps} {kind} steps, host {step_ms:.3f} ms/step, "

@@ -1,5 +1,6 @@
 """Serving CLI of the port: a random-weight model of the registry on the card
-(Llama-3.2-1B by default; --arch qwen2-1.5b, qwen2.5-14b, qwen2.5-32b or yi-9b).
+(Llama-3.2-1B by default; --arch qwen2-1.5b, qwen2.5-14b, qwen2.5-32b, yi-9b
+or mixtral-8x22b).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
 
@@ -21,12 +22,21 @@ dense decode kernel, and --decode-mode grouped decodes one group of slots at
 the same position per dispatch (on the dense cache).  --sample temperature
 samples every request at --temperature (0.8 by default; 0 keeps a request
 greedy) with JAX's Threefry-2x32 noise from --seed; it switches spec decode
-and the token budget off, as in the JAX engine.
+and the token budget off, as in the JAX engine.  --layers N cuts the depth
+to N layers at full width (the run reports the cut): Mixtral-8x22B's 56
+layers hold 282 GB of bf16 weights, so one card serves it at depth 8, e.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+      --layers 8 --max-seq 8192 --prompt-len 4500
+
+Mixtral has a 4096-token sliding window: it serves on the dense ring cache
+(min(max_seq, window) slots), and prompts may be longer than the window.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -47,6 +57,8 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     ap.add_argument("--reduced", action="store_true",
                     help="serve the CPU smoke-test size of --arch (f32)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (full width; reported as a cut)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
@@ -90,6 +102,9 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
 
     config = EngineConfig.from_args(args)
     cfg = registry.get_reduced(args.arch) if args.reduced else registry.get_config(args.arch)
+    depth = cfg.num_layers
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     weight_quant = {v: k for k, v in QUANT_KEYS.items()}[args.quant]
     enc = EncodingConfig(enabled=True, backend=args.backend, attn_backend=args.attn_backend,
                          weight_quant=weight_quant, quant_group=args.quant_group)
@@ -112,6 +127,8 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     dt = time.perf_counter() - t0
     total_new = sum(len(r.generated) for r in done)
     stats = eng.stats_view()
+    if cfg.num_layers != depth:
+        print(f"[serve] reduced: depth cut to {cfg.num_layers} of {depth} layers, full width")
     print(f"[serve] {cfg.name} on {eng.device}: {len(done)} requests, {total_new} tokens "
           f"in {dt:.2f}s ({total_new / dt:.2f} tok/s incl. prefill)")
     print(f"[serve] attn_backend={stats['attn_backend'][0]} "

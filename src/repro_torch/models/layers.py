@@ -5,7 +5,12 @@ paper's encoding applies to all of them.  Caches are updated in place where
 the JAX package donates buffers: the decode write goes straight into the
 per-layer page pool (quantized on write for kv8/kv4 pools) or dense cache
 with index_put_, and prefill writes its K/V into the dense cache it was
-handed.
+handed.  A sliding-window model's dense cache is a ring of
+S_c = min(max_seq, window) slots: position p lives in slot p mod S_c.
+
+The MoE block (moe_init, moe_apply) is the JAX package's capacity-bounded
+token-choice top-k dispatch, rule for rule; its experts are a list of
+projections, each run on its own capacity buffer as JAX's vmap runs them.
 """
 
 from __future__ import annotations
@@ -122,17 +127,15 @@ def attention_apply(
       live pages;
       dense {"k", "v": (B, S_c, KV, D)}: row b writes slot pos+j (a (B,) pos
       clamps at the cache edge; a shared pos writes one slot column), then
-      attends slots <= pos+j.
-    At PREFILL an int pos > 0 attends cache[:, :pos] before the new keys
-    (suffix prefill over a cached prefix), and the new K/V are written to
-    cache[:, pos:pos+S]."""
+      attends slots <= pos+j; under a sliding window the cache is a ring
+      (slot (pos+j) mod S_c, L = 1) read with JAX's ring mask.
+    At PREFILL an int pos > 0 attends the cached keys before the new ones
+    (cache[:, :pos], or under a window the last min(pos, S_c) positions from
+    the ring), and the new K/V are written to cache[:, pos:pos+S], or under
+    a window each position p to ring slot p mod S_c (_prefill_write)."""
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     window = cfg.sliding_window
-    if window and cache is not None:
-        raise NotImplementedError(
-            "sliding-window caches wait for their family's slice (ROADMAP)"
-        )
     q = packed.linear_apply(params["wq"], x, n=h * hd, phase=phase, enc=enc).reshape(b, s, h, hd)
     k = packed.linear_apply(params["wk"], x, n=kvh * hd, phase=phase, enc=enc).reshape(b, s, kvh, hd)
     v = packed.linear_apply(params["wv"], x, n=kvh * hd, phase=phase, enc=enc).reshape(b, s, kvh, hd)
@@ -158,9 +161,10 @@ def attention_apply(
         q_off = 0
         k_att, v_att = k, v
         if pos > 0 and cache is not None:
-            k_att = torch.cat([cache["k"][:, :pos], k], dim=1)
-            v_att = torch.cat([cache["v"][:, :pos], v], dim=1)
-            q_off = pos
+            k_prior, v_prior = _cached_prefix(cache, pos, window)
+            k_att = torch.cat([k_prior, k], dim=1)
+            v_att = torch.cat([v_prior, v], dim=1)
+            q_off = k_prior.shape[1]
         choice = registry_lib.select_attn(
             phase=Phase.PREFILL, s=k_att.shape[1], target=enc.target,
             requested=enc.attn_backend,
@@ -178,9 +182,49 @@ def attention_apply(
             if "table" in cache:
                 raise ValueError("paged caches are decode-only; prefill writes a "
                                  "temporary dense cache the engine scatters into pages")
-            cache["k"][:, q_off:q_off + s] = k
-            cache["v"][:, q_off:q_off + s] = v
+            _prefill_write(cache, k, v, pos, window)
     return packed.linear_apply(params["wo"], out.reshape(b, s, h * hd), n=d, phase=phase, enc=enc)
+
+
+def _cached_prefix(cache: dict, pos: int, window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cached K/V a prefill at offset `pos` attends before its own keys,
+    in position order: cache[:, :pos], or under a window the last
+    min(pos, S_c) positions gathered from their ring slots (the window mask
+    is relative, so the shorter key run starting at pos - n is exact).  JAX
+    attends no cached keys under a window; the port's chunked prefill needs
+    them to equal a single-shot prefill."""
+    if not window:
+        return cache["k"][:, :pos], cache["v"][:, :pos]
+    s_c = cache["k"].shape[1]
+    n = min(pos, s_c)
+    slots = torch.arange(pos - n, pos, device=cache["k"].device) % s_c
+    return cache["k"][:, slots], cache["v"][:, slots]
+
+
+def _prefill_write(cache: dict, k: torch.Tensor, v: torch.Tensor, pos: int,
+                   window: int) -> None:
+    """Write a prefill's K/V (positions pos .. pos+S-1) into the dense cache,
+    in place: rows pos .. pos+S-1, or under a window each position p to ring
+    slot p mod S_c, so a prompt longer than the ring keeps its last S_c keys,
+    rolled onto their own slots.
+
+    Where S is a multiple of S_c, or pos + S <= S_c, this equals JAX's write
+    bit for bit.  Elsewhere JAX writes the last S_c keys to slots 0..S_c-1
+    (repro/models/layers.py, the `window > 0 and s >= s_c` branch), which
+    the decode's ring mask and ring write do not assume; the port follows
+    JAX's uncached windowed forward there (tests/test_torch_window.py)."""
+    s_c, s = cache["k"].shape[1], k.shape[1]
+    if not window:
+        cache["k"][:, pos:pos + s] = k
+        cache["v"][:, pos:pos + s] = v
+    elif s >= s_c:
+        shift = (pos + s) % s_c  # the first kept position, pos + s - s_c, lands there
+        cache["k"].copy_(torch.roll(k[:, s - s_c:], shift, dims=1))
+        cache["v"].copy_(torch.roll(v[:, s - s_c:], shift, dims=1))
+    else:
+        slots = torch.arange(pos, pos + s, device=k.device) % s_c
+        cache["k"][:, slots] = k
+        cache["v"][:, slots] = v
 
 
 def _paged_decode(q, k, v, cache: dict, positions: torch.Tensor, *, enc) -> torch.Tensor:
@@ -232,17 +276,19 @@ def _dense_decode(q, k, v, cache: dict, positions: torch.Tensor, shared_pos: int
     cache edge (the engine caps every window so a clamped slot is only ever
     a pad colliding with other pads); a shared pos writes one slot column,
     its start clamped so the window fits, as JAX's dynamic_update_slice.
+    Under a sliding window both write slot pos mod S_c of the ring instead.
     Rejected draft and pad slots stay masked until a real write lands."""
     b, s = positions.shape
     s_c = cache["k"].shape[1]
     if shared_pos is None:
         rows = torch.arange(b, device=q.device)[:, None].expand(b, s)
-        wslot = torch.clamp(positions, max=s_c - 1)
+        wslot = (torch.remainder(positions, s_c) if window
+                 else torch.clamp(positions, max=s_c - 1))
         cache["k"].index_put_((rows, wslot), k)
         cache["v"].index_put_((rows, wslot), v)
         pos = positions[:, 0]
     else:
-        start = min(shared_pos, s_c - s)
+        start = shared_pos % s_c if window else min(shared_pos, s_c - s)
         cache["k"][:, start:start + s] = k
         cache["v"][:, start:start + s] = v
         pos = shared_pos
@@ -256,7 +302,10 @@ def _dense_decode(q, k, v, cache: dict, positions: torch.Tensor, shared_pos: int
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> dict:
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    """The dense (batch, S_c, KV, D) K/V rows; S_c is max_seq, or the ring
+    width min(max_seq, window) under a sliding window."""
+    s_c = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+    shape = (batch, s_c, cfg.num_kv_heads, cfg.head_dim)
     dt = cfg.activation_dtype
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -319,3 +368,154 @@ def mlp_apply(params, x, *, cfg: ModelConfig, enc, phase: Phase) -> torch.Tensor
         up = packed.linear_apply(params["w_up"], x, n=f, phase=phase, enc=enc)
         hidden = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     return packed.linear_apply(params["w_down"], hidden, n=d, phase=phase, enc=enc)
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, capacity-bounded scatter dispatch)
+
+
+def moe_init(gen, cfg: ModelConfig, enc: packed.EncodingConfig, *, device) -> dict:
+    """The router (f32 in the unquantized formats, as in JAX) and E experts'
+    SwiGLU projections, each a list of E per-expert projections drawn from
+    `gen` in order: router, gates, ups, downs."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    kw = dict(enc=enc, dtype=cfg.activation_dtype, device=device)
+    return {
+        "router": packed.linear_init(gen, d, e, enc=enc, dtype=torch.float32, device=device),
+        "w_gate": [packed.linear_init(gen, d, f, **kw) for _ in range(e)],
+        "w_up": [packed.linear_init(gen, d, f, **kw) for _ in range(e)],
+        "w_down": [packed.linear_init(gen, f, d, **kw) for _ in range(e)],
+    }
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """jax.lax.top_k over the last axis: the k largest values and their
+    indices, equal values in index order (a stable descending sort), never
+    torch.topk's unspecified order among ties."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(cfg: ModelConfig, t: int) -> tuple[int, int]:
+    """(groups, cap) of a dispatch of `t` rows, dead and padded rows
+    included: group-local queues when moe_dispatch_groups > 1 divides t,
+    and cap = max(1, int(capacity_factor * (t / groups) * k / E)) rows per
+    expert and group."""
+    groups = cfg.moe_dispatch_groups if cfg.moe_dispatch_groups > 1 else 1
+    if t % groups:
+        groups = 1
+    tg = t // groups
+    return groups, max(1, int(cfg.capacity_factor * tg * cfg.experts_per_token / cfg.num_experts))
+
+
+def moe_runs_dense(cfg: ModelConfig, phase: Phase) -> bool:
+    """Whether every expert runs on every row (moe_dense_decode, at decode)."""
+    return cfg.moe_dense_decode and phase is Phase.DECODE
+
+
+def moe_expert_rows(cfg: ModelConfig, t: int, phase: Phase) -> int:
+    """Rows each expert's projections take in a dispatch of `t` rows: all t
+    where moe_runs_dense, else its groups x cap buffer."""
+    if moe_runs_dense(cfg, phase):
+        return t
+    groups, cap = moe_capacity(cfg, t)
+    return groups * cap
+
+
+def moe_route(params: dict, xt: torch.Tensor, *, cfg: ModelConfig, enc,
+              phase: Phase) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router of rows xt (T, D): (probs (T, E), gate (T, k), expert ids
+    (T, k)).  f32 logits of the router projection on the rows cast to f32
+    (exact; JAX's contraction promotes a bf16 row the same way against the
+    f32 router), softmax, top_k (ties to the lower expert), and the gate
+    renormalised by max(sum, 1e-9)."""
+    logits = packed.linear_apply(params["router"], xt.float(), n=cfg.num_experts,
+                                 phase=phase, enc=enc, out_dtype=torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = top_k(probs, cfg.experts_per_token)
+    return probs, gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9), eidx
+
+
+def moe_positions(eidx: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each (row, choice)'s place in its expert's queue and whether it is
+    kept, both (groups, T / groups, k): slot-major (every row's first
+    choice before any row's second), group-local (moe_capacity), kept while
+    the place is below cap."""
+    t, k = eidx.shape
+    e = cfg.num_experts
+    groups, cap = moe_capacity(cfg, t)
+    tg = t // groups
+    onehot = F.one_hot(eidx, e)  # (T, k, E) int64
+    oh_g = onehot.reshape(groups, tg, k, e).transpose(1, 2).reshape(groups, k * tg, e)
+    pos_flat = (torch.cumsum(oh_g, dim=1) - oh_g) * oh_g
+    position = pos_flat.sum(-1).reshape(groups, k, tg).transpose(1, 2)
+    return position, position < cap
+
+
+def _expert_apply(params: dict, i: int, xe: torch.Tensor, *, cfg: ModelConfig, enc,
+                  phase: Phase) -> torch.Tensor:
+    """Expert i's SwiGLU on its rows, as JAX's vmapped _expert_matmul runs
+    each expert: three projections through the registry at xe's row count."""
+    f, d = cfg.d_ff, cfg.d_model
+    gate = packed.linear_apply(params["w_gate"][i], xe, n=f, phase=phase, enc=enc)
+    up = packed.linear_apply(params["w_up"][i], xe, n=f, phase=phase, enc=enc)
+    hidden = F.silu(gate.float()).to(xe.dtype) * up
+    return packed.linear_apply(params["w_down"][i], hidden, n=d, phase=phase, enc=enc)
+
+
+def moe_apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig, enc,
+              phase: Phase) -> torch.Tensor:
+    """Capacity-bounded token-choice top-k MoE (JAX layers.moe_apply, rule
+    for rule).  x (B, S, D) -> (B, S, D).
+
+    Router: moe_route.  Every one of the B x S rows routes and takes
+    capacity, dead and padded slots included.  Rank: moe_positions; a pair
+    past `cap` is dropped: it adds 0 at cap - 1 and its gate weight is 0.
+    Each expert runs on its buffer of moe_expert_rows rows (groups x cap);
+    the combine sums gate x keep x y over the k choices in f32.  Where
+    moe_runs_dense, every expert runs on every row and the combine goes
+    through the (T, E) gate matrix.  moe_shard_map falls back to this grouped path, as JAX's does
+    without a mesh (one card).
+    The load-balance aux loss is training's and is left out here."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    xt = x.reshape(t, d)
+    _, gate, eidx = moe_route(params, xt, cfg=cfg, enc=enc, phase=phase)
+
+    rows = moe_expert_rows(cfg, t, phase)
+    if moe_runs_dense(cfg, phase):
+        ys = torch.stack([_expert_apply(params, i, xt, cfg=cfg, enc=enc, phase=phase)
+                          for i in range(e)])  # (E, T, D)
+        wfull = torch.zeros((t, e), dtype=torch.float32, device=x.device)
+        wfull.scatter_(1, eidx, gate)
+        out = torch.einsum("etd,te->td", ys.float(), wfull)
+        return out.to(x.dtype).reshape(b, s, d)
+
+    groups, cap = moe_capacity(cfg, t)
+    tg = t // groups
+    position, keep = moe_positions(eidx, cfg)
+    eidx_g = eidx.reshape(groups, tg, k)
+    gate_g = gate.reshape(groups, tg, k)
+    xt_g = xt.reshape(groups, tg, d)
+
+    # Dispatch into (G, E, cap, D) buffers: kept pairs own distinct slots,
+    # dropped ones add 0 at cap - 1, as JAX's scatter-add does.
+    safe_pos = torch.where(keep, position, cap - 1)
+    contrib = keep.to(x.dtype)
+    gsel = torch.arange(groups, device=x.device)[:, None, None].expand(groups, tg, k)
+    buf = torch.zeros((groups, e, cap, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((gsel, eidx_g, safe_pos), xt_g[:, :, None, :] * contrib[..., None],
+                   accumulate=True)
+
+    buf_e = buf.transpose(0, 1)  # (E, G, cap, D)
+    ys = torch.stack([
+        _expert_apply(params, i, buf_e[i].reshape(rows, d), cfg=cfg, enc=enc,
+                      phase=phase).reshape(groups, cap, d)
+        for i in range(e)
+    ])  # (E, G, cap, D)
+
+    gathered = ys.transpose(0, 1)[gsel, eidx_g, safe_pos]  # (G, tg, k, D)
+    w = (gate_g * keep).float()[..., None]
+    out = (gathered.float() * w).sum(dim=2).to(x.dtype)
+    return out.reshape(b, s, d)

@@ -1,5 +1,5 @@
 """Full model (counterpart of repro/models/transformer.py) for the `dense`
-family: embedding, a Python loop over layers, final norm, head.
+and `moe` families: embedding, a Python loop over layers, final norm, head.
 
 Parameters are plain dicts of tensors: {"embed", "final_norm", "layers":
 [block params per layer], and "head" when embeddings are untied}.  Caches
@@ -32,7 +32,7 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or tuple(cfg.block_pattern) != ("attn",):
+    if cfg.family not in ("dense", "moe") or tuple(cfg.block_pattern) != ("attn",):
         raise NotImplementedError(
             f"family {cfg.family!r} / pattern {cfg.block_pattern} waits for its "
             "family's slice (ROADMAP, modules to port: other model families)"
@@ -67,7 +67,8 @@ def cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, cache_mode: str = 
                device: torch.device | str = "cuda") -> dict:
     """Per-layer caches.  "dense": (batch, max_seq) K/V rows in the
     activation dtype (the dense serving cache, and the paged engine's
-    temporary prefill cache).  "paged": one page pool per layer plus a block
+    temporary prefill cache), a ring of min(max_seq, window) rows under a
+    sliding window.  "paged": one page pool per layer plus a block
     table shared by all layers (page 0 is scratch); `kv_quant` kv8/kv4 pools
     carry float32 scale pages (layers.attn_paged_cache_init).  Quantized
     layouts live in the paged pool only, as in the JAX package."""
@@ -92,22 +93,28 @@ def cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, cache_mode: str = 
 def decode_weight_stream_bytes(cfg: ModelConfig, enc: packed.EncodingConfig) -> dict[str, int]:
     """Weight bytes one decode step reads from device memory: every layer's
     projections in `enc`'s weight format (encoding.quant_weight_stream_bytes)
-    and the head (the tied embedding in the activation dtype)."""
+    and the head (the tied embedding in the activation dtype).  An MoE
+    layer streams its router (f32 in the unquantized formats) and all E
+    experts: every expert runs on its capacity rows at every step."""
     _check_family(cfg)
     quant = packed.QUANT_KEYS[enc.weight_quant] if enc.enabled else "none"
     itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
     d, f = cfg.d_model, cfg.d_ff
     hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     shapes = [(hd, d), (kvd, d), (kvd, d), (d, hd)]
-    shapes += [(f, d), (f, d), (d, f)] if cfg.mlp_kind == "swiglu" else [(f, d), (d, f)]
+    ffn = [(f, d), (f, d), (d, f)] if cfg.mlp_kind == "swiglu" else [(f, d), (d, f)]
+    shapes += ffn * max(1, cfg.num_experts)
 
-    def stream(n, k):
-        return encoding.quant_weight_stream_bytes(n, k, quant=quant, weight_itemsize=itemsize,
+    def stream(n, k, size=itemsize):
+        return encoding.quant_weight_stream_bytes(n, k, quant=quant, weight_itemsize=size,
                                                   group=enc.quant_group)
 
+    per_layer = sum(stream(n, k) for n, k in shapes)
+    if cfg.num_experts:
+        per_layer += stream(cfg.num_experts, d, size=4)
     v = cfg.vocab_size
     head = (v + (-v) % 256) * d * itemsize if cfg.tie_embeddings else stream(v, d)
-    return {"projections": cfg.num_layers * sum(stream(n, k) for n, k in shapes), "head": head}
+    return {"projections": cfg.num_layers * per_layer, "head": head}
 
 
 def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,

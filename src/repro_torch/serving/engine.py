@@ -67,6 +67,13 @@ switches spec decode and the token budget off under sampling, as in JAX.
 A preempted sampled request replays with fresh keys, so sampled engines
 under pool pressure are not replay-deterministic.
 
+Sliding-window models (Mixtral) serve on the dense cache as a ring of
+min(max_seq, window) slots; resolve() turns the paged cache, batched
+prefill, spec decode and the token budget off for them, as in JAX.  MoE
+models route every dispatch's rows, dead slots included, through the
+capacity-bounded dispatch (models/layers.moe_apply): the engine keeps the
+JAX engine's batch shapes in every decode mode, so the same rows drop.
+
 Not in this slice (raises NotImplementedError at construction, naming its
 ROADMAP slice): meshes larger than one card.
 """
@@ -237,6 +244,37 @@ def slot_merge(caches: dict, part: dict, slots_sel: list[int],
         src_t = torch.as_tensor(src, dtype=torch.long, device=dev)
         for name, leaf in full.items():
             leaf[dst_t] = p[name][src_t]
+
+
+def make_chunked_prefill_step(cfg, enc: EncodingConfig, *, chunk: int = 512) -> Callable:
+    """Prefill long prompts in fixed chunks (bounded activation memory), as
+    JAX's make_chunked_prefill_step: each chunk runs as a PREFILL at offset
+    `pos`, attending the keys cached before it, so the caches end as a
+    single-shot prefill leaves them.
+
+    Returns prefill_chunked(params, tokens, caches) -> (last_logits, caches)
+    (the caches are updated in place and returned).  A chunk narrower than
+    a sliding window is refused with JAX's message.  Under a window the
+    port's chunks attend the last min(pos, S_c) positions of the ring (JAX's
+    windowed prefill attends none), so a chunk of at least the window equals
+    the single-shot prefill."""
+    if 0 < chunk < cfg.sliding_window:
+        raise ValueError(
+            f"chunked prefill requires sliding_window <= chunk: window "
+            f"{cfg.sliding_window} > chunk {chunk} would silently drop "
+            "cross-chunk attention (grow chunk, or prefill single-shot)"
+        )
+
+    def prefill_chunked(params, tokens, caches):
+        logits = None
+        with torch.no_grad():
+            for lo in range(0, tokens.shape[1], chunk):
+                logits = T.forward(params, tokens[:, lo:lo + chunk], cfg=cfg, enc=enc,
+                                   phase=Phase.PREFILL, caches=caches, pos=lo,
+                                   last_logits_only=True)
+        return logits, caches
+
+    return prefill_chunked
 
 
 def _check_supported(config: EngineConfig, enc: EncodingConfig) -> None:
@@ -524,10 +562,15 @@ class Engine:
 
     def _attn_s(self, phase: Phase) -> int:
         """The logical KV length the next dispatch of `phase` attends: the
-        live table width of a paged cache, the cache width of a dense one."""
-        if phase is Phase.PREFILL or self.cache_mode != "paged":
+        live table width of a paged cache, the cache width of a dense one
+        (the ring width min(max_seq, window) under a sliding window)."""
+        if phase is Phase.PREFILL:
             return self.max_seq
-        return self._live_table_width() * self.block_size
+        if self.cache_mode == "paged":
+            return self._live_table_width() * self.block_size
+        if self.cfg.sliding_window:
+            return min(self.max_seq, self.cfg.sliding_window)
+        return self.max_seq
 
     def _dispatch_keys(self, kind: str) -> tuple[str, str]:
         """Registry keys the imminent dispatch resolves through (what

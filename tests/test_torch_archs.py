@@ -110,6 +110,21 @@ def test_config_matches_jax_field_by_field(arch):
     assert cfg.tie_embeddings == (arch == "qwen2-1.5b")
 
 
+def test_mixtral_config_matches_jax_and_its_assignment():
+    """Mixtral-8x22B: the JAX config field by field, reduced too, and its
+    assigned hyperparameters (arXiv:2401.04088; hf:mistralai/Mixtral-8x22B-v0.1)."""
+    arch = "mixtral-8x22b"
+    cfg, jcfg = cfg_registry.get_config(arch), jcfg_registry.get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert (dataclasses.asdict(cfg_registry.get_reduced(arch))
+            == dataclasses.asdict(jcfg_registry.get_reduced(arch)))
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.num_experts, cfg.experts_per_token,
+            cfg.sliding_window) == (56, 6144, 48, 8, 16384, 32768, 8, 2, 4096)
+    assert cfg.family == "moe" and cfg.head_dim == 128 and not cfg.tie_embeddings
+    assert cfg.capacity_factor == 1.25 and cfg.rope_theta == 1e6
+
+
 def test_registry_refuses_unknown_arch():
     with pytest.raises(KeyError, match="unknown arch 'gpt-7'; ported so far"):
         cfg_registry.get_config("gpt-7")

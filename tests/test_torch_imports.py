@@ -40,7 +40,9 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.launch.serve", "repro_torch.convert",
                 "repro_torch.serving.faults", "repro_torch.configs.qwen2_1_5b",
                 "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.qwen2_5_32b",
-                "repro_torch.configs.yi_9b"):
+                "repro_torch.configs.yi_9b", "repro_torch.configs.mixtral_8x22b",
+                "repro_torch.models.blocks", "repro_torch.models.layers",
+                "repro_torch.launch.profile_decode"):
         assert mod in got["modules"]
 
 
