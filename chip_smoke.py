@@ -60,7 +60,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
              expert buffer of a 4500-token prefill, the router (6144 x 8)
              in f32 and int8 at rows 1, 4 and 4500, windowed flash prefill
              at Sq = Sk = 4608, window 4096, G = 6, and the ring dense
-             decode at S_c = 4096 with rows wrapped;
+             decode at S_c = 4096 with rows wrapped; then the recurrent
+             families' shapes: RecurrentGemma-9B's local attention at head
+             dim 256 (G = 16, window 2048: windowed flash prefill at Sq =
+             Sk = 2560, the ring dense decode at S_c = 2048 with rows before
+             and past the wrap) and the projections at RecurrentGemma's and
+             RWKV6-1.6B's K x N (and RWKV's untied head) at rows 1, 4 and
+             2048.  Every bf16 attention row, at every shape, is held
+             element by element to bf16_attn_limit (kv8/kv4 rows against
+             the dequantized K/V), every f32 one to 1e-4;
   3. forward a depth-2, full-width f32 model served through the kernels and
              through the plain backends on the card: identical tokens, for
              the phase-split engine and for speculative decode (registry
@@ -84,7 +92,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
              kernels phase-split, on `pallas`, grouped and with 12 slots
              against the plain backends in the same configuration (MoE
              capacity drops depend on the batch), and int8 and int4
-             weights against the plain quantized projections;
+             weights against the plain quantized projections; then
+             RWKV6-1.6B at depth 2 and RecurrentGemma-9B at depth 3 (one
+             rec, rec, attn group), full width, f32, 4 slots, phase 12's 9
+             requests (a 2500-token prompt past the 2048 window; every slot
+             reused), and Grok-1-314B at depth 1 on the paged cache and
+             with spec decode: kernel tokens == plain tokens in each;
   4. serve   the full-depth, full-width bf16 Llama-3.2-1B (random weights from
              --seed): 8 requests, half sharing a 256-token prefix so the second
              wave runs the suffix prefill;
@@ -122,20 +135,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
              max_seq 8192: 8 requests of 100-500 tokens and one of 4500,
              32 new each, in bf16 and in w8a8, with tokens/s, step p50/p99
              by kind, peak memory and the weight bytes a decode step
-             streams (the router and all 8 experts of every layer).
+             streams (the router and all 8 experts of every layer);
+ 12. recurrent RWKV6-1.6B (24 layers) and RecurrentGemma-9B (38 layers) at
+             full width and depth in bf16, 4 slots, max_seq 4096 (dense
+             cache, grouped decode): 8 requests of 100-500 tokens and one
+             of 2500, 32 new each; Grok-1-314B at depth 4 of 64 in bf16,
+             paged, phase 4's trace and spec decode on phase 5's prompts;
+             with tokens/s, step p50/p99 by kind, the weight bytes a
+             decode step streams, the cache bytes a slot holds and the
+             launches by layer type.
 
-In phases 4 to 9 and 11 every kernel's launch count (per KV layout for the
+In phases 4 to 9, 11 and 12 every kernel's launch count (per KV layout for the
 decode kernels), set to 0 before each run and read after it, must equal the
 dispatches that resolved to it (tallied here from each dispatch's rows,
 weight format, cache and KV layout, and the registry) x layers x (7
 projections, or for an MoE layer 5 at the dispatch's rows and 3 a expert
-at its capacity buffer's rows, or 1 attention), plus an untied head's one
+at its capacity buffer's rows, or 1 attention; 8 projections and no
+attention for an RG-LRU or RWKV layer), plus an untied head's one
 projection a dispatch; pack and unpack must not launch at all (the
 packed projections run their GEMMs' plain-row entries), and every other
 kernel of the table but batch_mmt4d must have launched in these runs.
 Every model made on the card must launch one weight pack per projection
 weight (two for int4: codes and scales); the table's pack launches are
-those of the models of phases 4-9 and 11.
+those of the models of phases 4-9, 11 and 12.
 
 The third line from the end is the kernel table as JSON, the next the card's
 name and power limit, and the last {"ok": true, "device": {...}}.  Details go
@@ -336,6 +358,46 @@ def bf16_attn_limit(torch, q, k, v, valid, want):
     return 6.0 * sd + 2.0 * ulp + 1e-5
 
 
+def attn_row(torch, timer, results: dict, target, name: str, key: str, fn, plain, *,
+             q, k, v, valid, library_ms, bytes_moved, flops, dname, plain_iters=10,
+             **aside) -> None:
+    """Record one attention kernel shape: f32 held to 1e-4 abs, bf16 element
+    by element to bf16_attn_limit over the keys the rows read (k, v: the
+    (B, Sk, KV, D) view the plain version attends, dequantized for kv8/kv4;
+    valid (B, Sq, Sk)).  A bf16 row keeps the worst error / limit, the error
+    and the limit at that element, and as `tol` the loosest limit.  `aside`
+    (other library times) joins the row."""
+    got, want = fn(), plain()
+    diff = (got.float() - want.float()).abs()
+    err, tol, extra = diff.max().item(), 1e-4, {}
+    if dname == "bf16":
+        lim = bf16_attn_limit(torch, q, k, v, valid, want)
+        ratio = diff / lim
+        worst = int(ratio.argmax().item())
+        extra = dict(err_over_limit=ratio.max().item(),
+                     err_at_worst=diff.flatten()[worst].item(),
+                     limit_at_worst=lim.flatten()[worst].item(),
+                     tol_rule="per element: 6 sd of bf16 P rounding + 2 ulp + 1e-5")
+        tol = lim.max().item()  # the loosest element's limit
+        del lim, ratio
+        log(f"[kernel] {name} {key}: worst error / limit {extra['err_over_limit']:.3f} "
+            f"(error {extra['err_at_worst']:.3e}, limit {extra['limit_at_worst']:.3e})")
+        if not extra["err_over_limit"] <= 1.0:
+            raise AssertionError(f"{name} {key}: error {extra['err_at_worst']} exceeds its "
+                                 f"per-element limit {extra['limit_at_worst']}")
+    del diff
+    add_row(results, target, name, key, err=err, tol=tol, ms=timer.ms(fn),
+            plain_ms=timer.ms(plain, iters=plain_iters), library_ms=library_ms,
+            bytes_moved=bytes_moved, flops=flops, dname=dname, **extra, **aside)
+
+
+def decode_valid(torch, pos, L: int, live: int):
+    """(B, L, live) mask of the keys decode rows at pos[b] + l attend:
+    slots <= pos[b] + l (full attention, masked-causal inside a window)."""
+    qpos = pos[:, None].long() + torch.arange(L, device=pos.device)
+    return torch.arange(live, device=pos.device) <= qpos[..., None]
+
+
 def rows_entry(torch, timer, results: dict, target, name: str, key: str, fn, plain, route, *,
                tol: float, plain_iters: int, **kw) -> None:
     """Record a packed GEMM's plain-row entry: `fn()` must equal `route()`
@@ -466,11 +528,8 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
     b, h, kvh, d = 4, 32, 8, 64
     for dname, dt in dtypes:
         s = 2 if dname == "bf16" else 4
-        tol = 2e-2 if dname == "bf16" else 1e-4
         for sq, sk, q_off in ((512, 512, 0), (256, 512, 256)):
             q, k, v = rnd(b, sq, h, d).to(dt), rnd(b, sk, kvh, d).to(dt), rnd(b, sk, kvh, d).to(dt)
-            got = attn.flash_prefill_attention(q, k, v, q_offset=q_off)
-            want = attn.flash_prefill_attention_plain(q, k, v, q_offset=q_off)
             qpos = q_off + torch.arange(sq, device=dev)
             mask = torch.arange(sk, device=dev)[None, :] <= qpos[:, None]
             pairs = int(mask.sum().item())  # causal (query, key) pairs this run needs
@@ -487,22 +546,21 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
                         qg, kg, vg, is_causal=True, enable_gqa=True))
                 except TypeError:
                     extra["sdpa_causal_ms"] = None
-            record("flash_prefill_attention", f"{dname} B={b} Sq={sq} Sk={sk} q_offset={q_off}",
-                   err=(got.float() - want.float()).abs().max().item(), tol=tol,
-                   ms=timer.ms(lambda: attn.flash_prefill_attention(q, k, v, q_offset=q_off)),
-                   plain_ms=timer.ms(lambda: attn.flash_prefill_attention_plain(
-                       q, k, v, q_offset=q_off), iters=3),
-                   library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, attn_mask=mask)),
-                   bytes_moved=(2 * b * sq * h * d + 2 * b * sk * kvh * d) * s,
-                   flops=4 * b * h * d * pairs, dname=dname, **extra)
+            attn_row(torch, timer, results, target, "flash_prefill_attention",
+                     f"{dname} B={b} Sq={sq} Sk={sk} q_offset={q_off}",
+                     lambda: attn.flash_prefill_attention(q, k, v, q_offset=q_off),
+                     lambda: attn.flash_prefill_attention_plain(q, k, v, q_offset=q_off),
+                     q=q, k=k, v=v, valid=mask[None].expand(b, -1, -1), plain_iters=3,
+                     library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, attn_mask=mask)),
+                     bytes_moved=(2 * b * sq * h * d + 2 * b * sk * kvh * d) * s,
+                     flops=4 * b * h * d * pairs, dname=dname, **extra)
 
     bs, pages = 16, 257
     pos_list = [37, 300, 511, 900]
     rng = np.random.RandomState(0)
     for dname, dt in dtypes:
         s = 2 if dname == "bf16" else 4
-        tol = 2e-2 if dname == "bf16" else 1e-4
         k_pool = rnd(pages, bs, kvh, d).to(dt)
         v_pool = rnd(pages, bs, kvh, d).to(dt)
         full_table = torch.from_numpy(
@@ -516,26 +574,20 @@ def check_kernels(torch, dev, target, timer, results: dict) -> None:
             table = full_table[:, :nb].contiguous()
             pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
             q = rnd(b, L, h, d).to(dt)
-            got = attn.paged_decode_attention(q, k_pool, v_pool, table, pos)
-            want = attn.paged_decode_attention_plain(q, k_pool, v_pool, table, pos)
             live = max(pos_list) + L
-            kview, vview = (attn.paged_gather(p, table)[:, :live]
-                            .repeat_interleave(h // kvh, dim=2).transpose(1, 2)
-                            for p in (k_pool, v_pool))
-            qpos = pos[:, None].long() + torch.arange(L, device=dev)
-            amask = (torch.arange(live, device=dev) <= qpos[..., None])[:, None]
+            k_view, v_view = (attn.paged_gather(p, table)[:, :live] for p in (k_pool, v_pool))
+            valid = decode_valid(torch, pos, L, live)
             keys = sum(p + L for p in pos_list)  # distinct cached keys each row reads
             pairs = sum(p + j + 1 for p in pos_list for j in range(L))
-            qt = q.transpose(1, 2)
-            record("paged_decode_attention", f"{dname} B={b} L={L}",
-                   err=(got.float() - want.float()).abs().max().item(), tol=tol,
-                   ms=timer.ms(lambda: attn.paged_decode_attention(q, k_pool, v_pool, table, pos)),
-                   plain_ms=timer.ms(lambda: attn.paged_decode_attention_plain(
-                       q, k_pool, v_pool, table, pos)),
-                   library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                       qt, kview, vview, attn_mask=amask)),
-                   bytes_moved=(2 * b * L * h * d + 2 * keys * kvh * d) * s + b * nb * 4 + b * 4,
-                   flops=4 * h * d * pairs, dname=dname)
+            attn_row(torch, timer, results, target, "paged_decode_attention",
+                     f"{dname} B={b} L={L}",
+                     lambda: attn.paged_decode_attention(q, k_pool, v_pool, table, pos),
+                     lambda: attn.paged_decode_attention_plain(q, k_pool, v_pool, table, pos),
+                     q=q, k=k_view, v=v_view, valid=valid,
+                     library_ms=timer.ms(sdpa_call(torch, q, k_view, v_view, valid[:, None],
+                                                   h // kvh)),
+                     bytes_moved=(2 * b * L * h * d + 2 * keys * kvh * d) * s + b * nb * 4
+                     + b * 4, flops=4 * h * d * pairs, dname=dname)
     torch.cuda.synchronize()
 
 
@@ -741,12 +793,11 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def check(name, key, fn, plain, library, *, dname, bytes_moved, flops):
-        got, want = fn(), plain()
-        add_row(results, target, name, key, err=(got.float() - want.float()).abs().max().item(),
-                tol=2e-2 if dname == "bf16" else 1e-4, ms=timer.ms(fn),
-                plain_ms=timer.ms(plain), library_ms=timer.ms(library),
-                bytes_moved=bytes_moved, flops=flops, dname=dname)
+    def check(name, key, fn, plain, *, q, k_view, v_view, valid, dname, bytes_moved, flops):
+        attn_row(torch, timer, results, target, name, key, fn, plain, q=q, k=k_view, v=v_view,
+                 valid=valid, library_ms=timer.ms(sdpa_call(torch, q, k_view, v_view,
+                                                            valid[:, None], g)),
+                 bytes_moved=bytes_moved, flops=flops, dname=dname)
 
     rng = np.random.RandomState(1)
     full_table = torch.from_numpy(
@@ -766,15 +817,14 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
                 k_view, v_view = (kv_dequant(kv, attn.paged_gather(x, table)[:, :live],
                                           attn.paged_gather(sc, table)[:, :live])
                                   for x, sc in ((k_pool, k_sc), (v_pool, v_sc)))
-                qpos = pos[:, None].long() + torch.arange(L, device=dev)
-                mask = (torch.arange(live, device=dev) <= qpos[..., None])[:, None]
                 keys = sum(p + L for p in pos_list)  # distinct cached keys the rows read
                 pairs = sum(p + j + 1 for p in pos_list for j in range(L))
                 check(f"paged_decode_attention_{kv}", f"{kv} {dname} B={b} L={L}",
                       lambda: attn.paged_decode_attention(q, k_pool, v_pool, table, pos, **kw),
                       lambda: attn.paged_decode_attention_plain(q, k_pool, v_pool, table, pos,
                                                                 **kw),
-                      sdpa_call(torch, q, k_view, v_view, mask, g), dname=dname,
+                      q=q, k_view=k_view, v_view=v_view,
+                      valid=decode_valid(torch, pos, L, live), dname=dname,
                       bytes_moved=2 * b * L * h * d * s + 2 * keys * kvh * kv_row_bytes(kv, d, s)
                       + b * nb * 4 + b * 4, flops=4 * h * d * pairs)
 
@@ -791,15 +841,14 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
                 live = max(pos_list) + L
                 k_view, v_view = (kv_dequant(kv, x[:, :live], None if sc is None else sc[:, :live])
                                   for x, sc in ((k, k_sc), (v, v_sc)))
-                qpos = pos[:, None].long() + torch.arange(L, device=dev)
-                mask = (torch.arange(live, device=dev) <= qpos[..., None])[:, None]
                 keys = sum(p + L for p in pos_list)
                 pairs = sum(p + j + 1 for p in pos_list for j in range(L))
                 prefix = "" if kv == "bf16" else f"{kv} "
                 check(name, f"{prefix}{dname} B={b} S_c={s_c} L={L}",
                       lambda: attn.dense_decode_attention(q, k, v, pos, **kw),
                       lambda: attn.dense_decode_attention_plain(q, k, v, pos, **kw),
-                      sdpa_call(torch, q, k_view, v_view, mask, g), dname=dname,
+                      q=q, k_view=k_view, v_view=v_view,
+                      valid=decode_valid(torch, pos, L, live), dname=dname,
                       bytes_moved=2 * b * L * h * d * s + 2 * keys * kvh * kv_row_bytes(kv, d, s)
                       + b * 4, flops=4 * h * d * pairs)
             del k, v, k_sc, v_sc
@@ -819,7 +868,7 @@ def check_decode_kernels(torch, dev, target, timer, results: dict) -> dict:
         check("dense_decode_attention", f"{dname} B={b} S_c={ring} window={window} L=1",
               lambda: attn.dense_decode_attention(q, k, v, pos, window=window),
               lambda: attn.dense_decode_attention_plain(q, k, v, pos, window=window),
-              sdpa_call(torch, q, k, v, valid[:, None, None, :], g), dname=dname,
+              q=q, k_view=k, v_view=v, valid=valid[:, None], dname=dname,
               bytes_moved=2 * b * h * d * s + 2 * keys * kvh * d * s + b * 4,
               flops=4 * h * d * keys)
 
@@ -969,12 +1018,12 @@ def check_dense_family_attention(torch, dev, target, timer, results: dict) -> di
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def check(name, key, fn, plain, library, *, dname, bytes_moved, flops):
-        got, want = fn(), plain()
-        add_row(results, target, name, key, err=(got.float() - want.float()).abs().max().item(),
-                tol=2e-2 if dname == "bf16" else 1e-4, ms=timer.ms(fn),
-                plain_ms=timer.ms(plain, iters=3), library_ms=timer.ms(library),
-                bytes_moved=bytes_moved, flops=flops, dname=dname)
+    def check(name, key, fn, plain, *, q, k_view, v_view, valid, dname, bytes_moved, flops):
+        attn_row(torch, timer, results, target, name, key, fn, plain, q=q, k=k_view, v=v_view,
+                 valid=valid, library_ms=timer.ms(sdpa_call(torch, q, k_view, v_view,
+                                                            valid[:, None], q.shape[2]
+                                                            // k_view.shape[2])),
+                 bytes_moved=bytes_moved, flops=flops, dname=dname, plain_iters=3)
 
     identity = {}
     for g, (h, kvh) in sorted(DENSE_HEADS.items()):
@@ -995,8 +1044,6 @@ def check_dense_family_attention(torch, dev, target, timer, results: dict) -> di
                                               None if sc is None else
                                               attn.paged_gather(sc, table)[:, :live])
                                       for x, sc in ((k_pool, k_sc), (v_pool, v_sc)))
-                    qpos = pos[:, None].long() + torch.arange(L, device=dev)
-                    mask = (torch.arange(live, device=dev) <= qpos[..., None])[:, None]
                     keys = sum(p + L for p in pos_list)
                     pairs = sum(p + j + 1 for p in pos_list for j in range(L))
                     prefix = "" if kv == "bf16" else f"{kv} "
@@ -1005,7 +1052,8 @@ def check_dense_family_attention(torch, dev, target, timer, results: dict) -> di
                                                               **kw),
                           lambda: attn.paged_decode_attention_plain(q, k_pool, v_pool, table,
                                                                     pos, **kw),
-                          sdpa_call(torch, q, k_view, v_view, mask, g), dname=dname,
+                          q=q, k_view=k_view, v_view=v_view,
+                          valid=decode_valid(torch, pos, L, live), dname=dname,
                           bytes_moved=2 * b * L * h * d * s
                           + 2 * keys * kvh * kv_row_bytes(kv, d, s) + b * nb * 4 + b * 4,
                           flops=4 * h * d * pairs)
@@ -1018,14 +1066,13 @@ def check_dense_family_attention(torch, dev, target, timer, results: dict) -> di
             for L in ((1, 3, 5, 16, 256) if dname == "bf16" else (1, 16)):
                 q = rnd(b, L, h, d).to(dt)
                 live = max(pos_list) + L
-                qpos = pos[:, None].long() + torch.arange(L, device=dev)
-                mask = (torch.arange(live, device=dev) <= qpos[..., None])[:, None]
                 keys = sum(p + L for p in pos_list)
                 pairs = sum(p + j + 1 for p in pos_list for j in range(L))
                 check("dense_decode_attention", f"{dname} D=128 G={g} B={b} S_c={s_c} L={L}",
                       lambda: attn.dense_decode_attention(q, k, v, pos),
                       lambda: attn.dense_decode_attention_plain(q, k, v, pos),
-                      sdpa_call(torch, q, k[:, :live], v[:, :live], mask, g), dname=dname,
+                      q=q, k_view=k[:, :live], v_view=v[:, :live],
+                      valid=decode_valid(torch, pos, L, live), dname=dname,
                       bytes_moved=2 * b * L * h * d * s + 2 * keys * kvh * d * s + b * 4,
                       flops=4 * h * d * pairs)
 
@@ -1039,7 +1086,8 @@ def check_dense_family_attention(torch, dev, target, timer, results: dict) -> di
                       f"{dname} D=128 G={g} B={b} Sq={sq} Sk={sk} q_offset={q_off}",
                       lambda: attn.flash_prefill_attention(q, kp, vp, q_offset=q_off),
                       lambda: attn.flash_prefill_attention_plain(q, kp, vp, q_offset=q_off),
-                      sdpa_call(torch, q, kp, vp, mask, g), dname=dname,
+                      q=q, k_view=kp, v_view=vp, valid=mask[None].expand(b, -1, -1),
+                      dname=dname,
                       bytes_moved=(2 * b * sq * h * d + 2 * b * sk * kvh * d) * s,
                       flops=4 * b * h * d * pairs)
             del k, v
@@ -1205,34 +1253,15 @@ def check_moe_shapes(torch, dev, target, timer, results: dict) -> None:
     def rnd(*shape, scale=1.0, dt=torch.bfloat16):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
 
-    def check(name, key, fn, plain, *, tol, library_ms, bytes_moved, flops, dname,
-              plain_iters=3, limit=None):
-        """`limit(want)`, where given, is a per-element limit (bf16_attn_limit)
-        that replaces `tol`: the row keeps the worst error / limit, the error
-        and the limit at that element, and as `tol` the loosest limit."""
+    def check(name, key, fn, plain, *, tol, library_ms, bytes_moved, flops, dname):
         got, want = fn(), plain()
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
+        err = (got.float() - want.float()).abs().max().item()
         if tol == 0.0 and not torch.equal(got, want):
             raise AssertionError(f"{name} {key}: not equal to its plain version bit for bit "
                                  f"(max abs error {err})")
-        extra = {}
-        if limit is not None:
-            lim = limit(want)
-            ratio = diff / lim
-            worst = int(ratio.argmax().item())
-            extra = dict(err_over_limit=ratio.max().item(), err_at_worst=diff.flatten()[worst].item(),
-                         limit_at_worst=lim.flatten()[worst].item(),
-                         tol_rule="per element: 6 sd of bf16 P rounding + 2 ulp + 1e-5")
-            tol = lim.max().item()  # the loosest element's limit
-            del lim, ratio
-            if not extra["err_over_limit"] <= 1.0:
-                raise AssertionError(f"{name} {key}: error {extra['err_at_worst']} exceeds its "
-                                     f"per-element limit {extra['limit_at_worst']}")
-        del diff
         add_row(results, target, name, key, err=err, tol=tol, ms=timer.ms(fn),
-                plain_ms=timer.ms(plain, iters=plain_iters), library_ms=library_ms,
-                bytes_moved=bytes_moved, flops=flops, dname=dname, **extra)
+                plain_ms=timer.ms(plain, iters=3), library_ms=library_ms,
+                bytes_moved=bytes_moved, flops=flops, dname=dname)
 
     def projection(tag, w_t, rows, dname):
         n, k = w_t.shape
@@ -1296,28 +1325,112 @@ def check_moe_shapes(torch, dev, target, timer, results: dict) -> None:
     keys = int(valid.sum().item())
     for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         s = 2 if dname == "bf16" else 4
-        bf16 = dname == "bf16"
         q, kp, vp = rnd(1, sq, h, hd, dt=dt), rnd(1, sk, kvh, hd, dt=dt), rnd(1, sk, kvh, hd, dt=dt)
-        check("flash_prefill_attention",
-              f"moe {dname} D=128 G={g} B=1 Sq={sq} Sk={sk} window={window}",
-              lambda: attn.flash_prefill_attention(q, kp, vp, window=window),
-              lambda: attn.flash_prefill_attention_plain(q, kp, vp, window=window),
-              tol=1e-4, limit=(lambda want: bf16_attn_limit(torch, q, kp, vp, mask[None], want))
-              if bf16 else None, library_ms=timer.ms(sdpa_call(torch, q, kp, vp, mask, g)),
-              bytes_moved=(2 * sq * h * hd + 2 * sk * kvh * hd) * s, flops=4 * h * hd * pairs,
-              dname=dname, plain_iters=1)
+        attn_row(torch, timer, results, target, "flash_prefill_attention",
+                 f"moe {dname} D=128 G={g} B=1 Sq={sq} Sk={sk} window={window}",
+                 lambda: attn.flash_prefill_attention(q, kp, vp, window=window),
+                 lambda: attn.flash_prefill_attention_plain(q, kp, vp, window=window),
+                 q=q, k=kp, v=vp, valid=mask[None],
+                 library_ms=timer.ms(sdpa_call(torch, q, kp, vp, mask, g)),
+                 bytes_moved=(2 * sq * h * hd + 2 * sk * kvh * hd) * s, flops=4 * h * hd * pairs,
+                 dname=dname, plain_iters=1)
         del q, kp, vp
         torch.cuda.empty_cache()
         k, v, q = rnd(b, s_c, kvh, hd, dt=dt), rnd(b, s_c, kvh, hd, dt=dt), rnd(b, 1, h, hd, dt=dt)
-        check("dense_decode_attention",
-              f"moe ring {dname} D=128 G={g} B={b} S_c={s_c} window={window} L=1",
-              lambda: attn.dense_decode_attention(q, k, v, pos, window=window),
-              lambda: attn.dense_decode_attention_plain(q, k, v, pos, window=window),
-              tol=1e-4, limit=(lambda want: bf16_attn_limit(torch, q, k, v, valid[:, None], want))
-              if bf16 else None, library_ms=timer.ms(sdpa_call(torch, q, k, v, valid[:, None, None, :], g)),
-              bytes_moved=2 * b * h * hd * s + 2 * keys * kvh * hd * s + b * 4,
-              flops=4 * h * hd * keys, dname=dname)
+        attn_row(torch, timer, results, target, "dense_decode_attention",
+                 f"moe ring {dname} D=128 G={g} B={b} S_c={s_c} window={window} L=1",
+                 lambda: attn.dense_decode_attention(q, k, v, pos, window=window),
+                 lambda: attn.dense_decode_attention_plain(q, k, v, pos, window=window),
+                 q=q, k=k, v=v, valid=valid[:, None],
+                 library_ms=timer.ms(sdpa_call(torch, q, k, v, valid[:, None, None, :], g)),
+                 bytes_moved=2 * b * h * hd * s + 2 * keys * kvh * hd * s + b * 4,
+                 flops=4 * h * hd * keys, dname=dname, plain_iters=3)
         del k, v, q
+    torch.cuda.synchronize()
+
+# K x N of the recurrent families' projections: RecurrentGemma-9B's q/o and
+# RG-LRU (4096 x 4096), gate/up (4096 x 12288), k/v (one kv head of 256),
+# down (12288 x 4096); RWKV6-1.6B's time mix (2048 x 2048), channel mix
+# (2048 x 7168, 7168 x 2048) and untied head (2048 x 65536).
+RECURRENT_KN = ((4096, 4096), (4096, 12288), (4096, 256), (12288, 4096), (2048, 2048),
+                (2048, 7168), (7168, 2048), (2048, 65536))
+RECURRENT_LONG_PROMPT = 2500
+
+
+def check_recurrent_shapes(torch, dev, target, timer, results: dict) -> None:
+    """Phase 2, the recurrent families' shapes, each against its plain
+    version: RecurrentGemma's local attention at head dim 256 (16 query
+    heads on one kv head, G = 16; window 2048): windowed flash prefill at B
+    = 1, Sq = Sk = 2560, and the ring dense decode at S_c = 2048 with 4 rows
+    in their first window, at its last slot and wrapped; bf16 element by
+    element to bf16_attn_limit and f32 to 1e-4, SDPA with the window mask
+    as the library time.  Then the projections (RECURRENT_KN) in bf16 at 1
+    and 4 decode rows (fused_gemv) and a 2048-row prefill
+    (fused_pack_mmt4d), to 1e-3, matmul as the library time."""
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.kernels import attn, fused_gemv, fused_pack_mmt4d, ref
+
+    cfg = cfg_registry.get_config("recurrentgemma-9b")
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def rnd(*shape, scale=1.0, dt=torch.bfloat16):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
+
+    h, kvh, hd, window = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.sliding_window
+    g = h // kvh
+    sq = sk = 2560
+    qpos = torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(sk, device=dev)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    pairs = int(mask.sum().item())
+    b, s_c = 4, window
+    pos = torch.tensor([37, 2047, 3000, 5000], dtype=torch.int32, device=dev)
+    slot = torch.arange(s_c, device=dev)
+    rpos = pos.long()[:, None]
+    valid = torch.where(rpos < window, slot <= rpos,
+                        torch.remainder(rpos - slot, s_c) < torch.clamp(rpos + 1, max=window))
+    keys = int(valid.sum().item())
+    for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        s = 2 if dname == "bf16" else 4
+        q, kp, vp = rnd(1, sq, h, hd, dt=dt), rnd(1, sk, kvh, hd, dt=dt), rnd(1, sk, kvh, hd, dt=dt)
+        attn_row(torch, timer, results, target, "flash_prefill_attention",
+                 f"recurrentgemma {dname} D={hd} G={g} B=1 Sq={sq} Sk={sk} window={window}",
+                 lambda: attn.flash_prefill_attention(q, kp, vp, window=window),
+                 lambda: attn.flash_prefill_attention_plain(q, kp, vp, window=window),
+                 q=q, k=kp, v=vp, valid=mask[None],
+                 library_ms=timer.ms(sdpa_call(torch, q, kp, vp, mask, g)),
+                 bytes_moved=(2 * sq * h * hd + 2 * sk * kvh * hd) * s, flops=4 * h * hd * pairs,
+                 dname=dname, plain_iters=1)
+        del q, kp, vp
+        k, v, q = rnd(b, s_c, kvh, hd, dt=dt), rnd(b, s_c, kvh, hd, dt=dt), rnd(b, 1, h, hd, dt=dt)
+        attn_row(torch, timer, results, target, "dense_decode_attention",
+                 f"recurrentgemma ring {dname} D={hd} G={g} B={b} S_c={s_c} window={window} L=1",
+                 lambda: attn.dense_decode_attention(q, k, v, pos, window=window),
+                 lambda: attn.dense_decode_attention_plain(q, k, v, pos, window=window),
+                 q=q, k=k, v=v, valid=valid[:, None],
+                 library_ms=timer.ms(sdpa_call(torch, q, k, v, valid[:, None, None, :], g)),
+                 bytes_moved=2 * b * h * hd * s + 2 * keys * kvh * hd * s + b * 4,
+                 flops=4 * h * hd * keys, dname=dname, plain_iters=3)
+        del k, v, q
+        torch.cuda.empty_cache()
+
+    for k, n in RECURRENT_KN:
+        w_t = rnd(n, k, scale=k**-0.5)
+        rhs4 = ref.pack(w_t, (128, 128))
+        for m in (1, 4, 2048):
+            x = rnd(m, k)
+            fn, plain = ((fused_gemv.fused_gemv, fused_gemv.fused_gemv_plain) if m <= 8 else
+                         (fused_pack_mmt4d.fused_pack_mmt4d,
+                          fused_pack_mmt4d.fused_pack_mmt4d_plain))
+            got, want = fn(x, rhs4), plain(x, rhs4)
+            add_row(results, target, fn.__name__, f"recurrent bf16 M={m} K={k} N={n}",
+                    err=(got.float() - want.float()).abs().max().item(), tol=1e-3,
+                    ms=timer.ms(lambda: fn(x, rhs4)),
+                    plain_ms=timer.ms(lambda: plain(x, rhs4), iters=3),
+                    library_ms=timer.ms(lambda: torch.matmul(x, w_t.t())),
+                    bytes_moved=(m * k + n * k) * 2 + m * n * 4, flops=2 * m * n * k,
+                    dname="bf16")
+        del w_t, rhs4
     torch.cuda.synchronize()
 
 
@@ -1393,23 +1506,28 @@ def check_sampler(torch, dev, timer) -> dict:
     return out
 
 
-def layer_projections(cfg) -> int:
-    """Projection weights a layer holds: 4 attention projections, then 3
-    (SwiGLU) or, for an MoE layer, the router and 3 a expert."""
+def layer_projections(cfg, block: str) -> int:
+    """Projection weights a layer of type `block` holds: an attention
+    layer's 4 projections, then 3 (SwiGLU) or, for an MoE layer, the router
+    and 3 a expert; an RG-LRU layer's 5 and its SwiGLU's 3; an RWKV layer's
+    5 time-mix and 3 channel-mix projections."""
+    if block in ("rec", "rwkv"):
+        return 8
     return 4 + (1 + 3 * cfg.num_experts if cfg.num_experts else 3)
 
 
 def init_model(cfg, enc, seed: int, dev):
     """T.model_init on the card, where every projection weight is packed by
     the pack kernel (int4 packs its codes and its scales): its launches must
-    equal the weights made, layer_projections x layers (+1 for an untied
-    head), doubled for int4."""
+    equal the weights made, layer_projections of every layer (+1 for an untied
+    head), doubled for int4; the layers by their block type."""
     from repro_torch.kernels import pack
     from repro_torch.models import transformer as T
 
     before = pack.pack.launches
     params = T.model_init(cfg, enc, seed=seed, device=dev)
-    weights = layer_projections(cfg) * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
+    weights = (sum(layer_projections(cfg, t) for t in T.layer_types(cfg))
+               + (0 if cfg.tie_embeddings else 1))
     want = weights * (2 if enc.weight_quant == "int4" else 1)
     got = pack.pack.launches - before
     if got != want:
@@ -1771,17 +1889,20 @@ class DispatchTally:
     and models/layers.py route them; each adds layers launches per
     projection (a packed projection is one launch of its GEMM's plain-row
     entry: no pack, no unpack, so their tallies stay 0).  A dense layer has
-    7 projections at the dispatch's rows.  An MoE layer has 4 attention
-    projections and the router at those rows, and 3 a expert at each
-    expert buffer's rows (models/layers.moe_expert_rows: groups x cap, or
-    every row under moe_dense_decode at decode), dead and padded rows
-    taking capacity.  An untied head adds one projection a dispatch at its
-    logit rows (the batch at prefill, every window row of a verify, the
-    logits_idx columns of a mixed step).
-    Each step's watchdog duration is kept under the kinds it dispatched
-    (verify and mixed windows with their width L)."""
+    7 projections at the dispatch's rows and one attention launch.  An MoE
+    layer has 4 attention projections and the router at those rows, and 3
+    a expert at each expert buffer's rows (models/layers.moe_expert_rows:
+    groups x cap, or every row under moe_dense_decode at decode), dead and
+    padded rows taking capacity.  An RG-LRU or RWKV layer has 8 projections
+    at the dispatch's rows and no attention (its recurrence is plain
+    PyTorch).  An untied head adds one projection a dispatch at its logit
+    rows (the batch at prefill, every window row of a verify, the
+    logits_idx columns of a mixed step); a tied head is torch.matmul, no
+    kernel.  `by_type` keeps the launches by layer type ("head" for the
+    head).  Each step's watchdog duration is kept under the kinds it
+    dispatched (verify and mixed windows with their width L)."""
 
-    def __init__(self, eng, layers: int):
+    def __init__(self, eng):
         import collections
 
         from repro_torch.core.encoding import GEMV_MAX_ROWS, Phase
@@ -1789,8 +1910,11 @@ class DispatchTally:
         from repro_torch.kernels import registry
         from repro_torch.models import layers as model_layers
 
+        from repro_torch.models import transformer as T
+
         self.want = collections.Counter()
         self.by_kind = collections.Counter()  # (kind, kernel) -> launches
+        self.by_type = collections.Counter()  # (layer type, kernel) -> launches
         self.max_rows = collections.Counter()  # kind -> most rows of one dispatch
         self.step_ms: dict[str, list[float]] = collections.defaultdict(list)
         kinds: list[str] = []
@@ -1818,26 +1942,31 @@ class DispatchTally:
             return mm_kernel, at_kernel
 
         cfg = eng.cfg
+        counts = collections.Counter(T.layer_types(cfg))
 
         def counted_dispatch(kind, fn, *args):
             rows = int(args[0].numel())
             mm_kernel, at_kernel = routed(kind, rows)
             out = dispatch(kind, fn, *args)
+            attn = counts["attn"]
+            launched = [("rec", mm_kernel, 8 * counts["rec"]),
+                        ("rwkv", mm_kernel, 8 * counts["rwkv"]), ("attn", at_kernel, attn)]
             if cfg.num_experts:
                 phase = Phase.PREFILL if kind == "prefill" else Phase.DECODE
                 expert_kernel = routed(kind, model_layers.moe_expert_rows(cfg, rows, phase))[0]
-                launched = [(mm_kernel, 5 * layers), (at_kernel, layers),
-                            (expert_kernel, 3 * cfg.num_experts * layers)]
+                launched += [("attn", mm_kernel, 5 * attn),
+                             ("attn", expert_kernel, 3 * cfg.num_experts * attn)]
             else:
-                launched = [(mm_kernel, 7 * layers), (at_kernel, layers)]
+                launched.append(("attn", mm_kernel, 7 * attn))
             if not cfg.tie_embeddings:
                 logit_rows = (args[0].shape[0] if kind == "prefill"
                               else int(args[2].numel()) if kind == "mixed" else rows)
-                launched.append((routed(kind, logit_rows)[0], 1))
-            for kernel, n in launched:
-                if kernel is not None:
+                launched.append(("head", routed(kind, logit_rows)[0], 1))
+            for block, kernel, n in launched:
+                if kernel is not None and n:
                     self.want[kernel] += n
                     self.by_kind[(kind, kernel)] += n
+                    self.by_type[(block, kernel)] += n
             self.max_rows[kind] = max(self.max_rows[kind], rows)
             kinds.append(kind if kind in ("prefill", "decode") else f"{kind} L={rows // eng.slots}")
             return out
@@ -1867,13 +1996,14 @@ def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
     dispatch tally; every request must finish ok with all its tokens and no
     page may leak or key be quarantined."""
     from repro_torch.core import encoding
+    from repro_torch.models import transformer as T
     from repro_torch.serving import engine as engine_lib
     from repro_torch.serving.config import EngineConfig
 
     kernels = kernel_fns()
     eng = engine_lib.Engine(params, cfg, enc, device=dev,
                             config=EngineConfig(**{"max_seq": 1024, "block_size": 16, **config}))
-    tally = DispatchTally(eng, cfg.num_layers)
+    tally = DispatchTally(eng)
     for k in kernels.values():
         k.launches = 0
     gc.collect()  # earlier runs' engines sit in reference cycles (DispatchTally's wrappers)
@@ -1901,12 +2031,15 @@ def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
     out = {"requests": len(done), "tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
            "steps": st["steps"], "dispatches": st["dispatches"], "launches": launches,
            "mmt4d_by_kind": {k: n for (k, name), n in tally.by_kind.items() if name == "mmt4d"},
+           "launches_by_layer_type": {f"{block} {name}": n
+                                      for (block, name), n in sorted(tally.by_type.items())},
            "max_rows": dict(tally.max_rows), "step_ms": tally.step_summary(),
            "watchdog": st["watchdog"], "preemptions": st.get("preemptions", 0),
            "start_gib": start_gib, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
            "prefix_hit_tokens": st.get("prefix_cache", {}).get("hit_tokens", 0),
            "cache_mode": st["cache_mode"], "decode_mode": st["decode_mode"],
            "kv_quant": st["kv_quant"],
+           "cache_bytes_per_slot": T.cache_bytes(eng.caches) // eng.slots,
            "kv_bytes_per_token": encoding.kv_bytes_per_token(
                cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, itemsize=itemsize,
                kv_quant=st["kv_quant"])}
@@ -2059,7 +2192,7 @@ def serve(torch, dev, seed: int) -> dict:
         if not eng.submit(engine_lib.Request(uid=i, prompt=prompt, max_new_tokens=32)):
             raise AssertionError(f"request {i} rejected")
 
-    tally = DispatchTally(eng, cfg.num_layers)
+    tally = DispatchTally(eng)
     kernels = kernel_fns()
     for k in kernels.values():
         k.launches = 0
@@ -2505,6 +2638,229 @@ def serve_moe(torch, dev, seed: int) -> dict:
     return runs
 
 
+def recurrent_prompts(rng, vocab: int) -> list:
+    """Phase 12's trace (phase 3 serves it too): 8 prompts of 100-500
+    tokens, then one of RECURRENT_LONG_PROMPT tokens, longer than
+    RecurrentGemma's 2048-token window and not a multiple of it."""
+    import numpy as np
+
+    prompts = [rng.randint(1, vocab, int(n)).astype(np.int32) for n in rng.randint(100, 501, 8)]
+    return prompts + [rng.randint(1, vocab, RECURRENT_LONG_PROMPT).astype(np.int32)]
+
+
+def recurrent_forward_check(torch, dev, seed: int) -> dict:
+    """Phase 3, the recurrent families and Grok-1 at full width, f32, each
+    through the kernels (backend "fused", attention "auto") and through the
+    plain backends ("reference", "xla") in the same engine configuration:
+    RWKV6-1.6B at depth 2 and RecurrentGemma-9B at depth 3 (one rec, rec,
+    attn group), 4 slots (dense, grouped: resolve()), max_seq 4096, phase
+    12's 9 requests (the 2500-token one past the window), 8 new tokens, so
+    every slot is reused; Grok-1-314B at depth 1 on the paged cache (4
+    slots, phase 4's trace), and with spec decode (backend "auto", phase
+    5's tiled prompts).  Every pair must emit identical tokens."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+
+    plain = EncodingConfig(backend="reference", attn_backend="xla")
+    outs = {}
+
+    def serve_tokens(params, cfg, enc, config, prompts):
+        eng = engine_lib.Engine(params, cfg, enc, device=dev, config=EngineConfig(**config))
+        for i, p in enumerate(prompts):
+            if not eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=8)):
+                raise AssertionError(f"{cfg.name}: request {i} rejected")
+        done = eng.run()
+        st = eng.stats
+        if st["degraded"] or any(r.status != "ok" or len(r.generated) != 8 for r in done):
+            raise AssertionError(f"{cfg.name} {config}: {st['degraded']} "
+                                 f"{[(r.uid, r.status) for r in done]}")
+        return {r.uid: r.generated for r in done}, st
+
+    cases = [("rwkv6-1.6b", 2, "kernels", EncodingConfig(backend="fused", attn_backend="auto"),
+              dict(slots=4, max_seq=4096), "trace"),
+             ("recurrentgemma-9b", 3, "kernels",
+              EncodingConfig(backend="fused", attn_backend="auto"), dict(slots=4, max_seq=4096),
+              "trace"),
+             ("grok-1-314b", 1, "paged", EncodingConfig(backend="fused", attn_backend="auto"),
+              dict(slots=4, max_seq=1024, block_size=16), "shared"),
+             ("grok-1-314b", 1, "spec", EncodingConfig(backend="auto", attn_backend="auto"),
+              dict(slots=4, max_seq=1024, block_size=16, spec_decode=True, draft_k=4), "tiled")]
+    params, made = None, None
+    for arch, depth, label, enc, config, trace in cases:
+        cfg = dataclasses.replace(cfg_registry.get_config(arch), num_layers=depth,
+                                  dtype="float32")
+        if made != arch:
+            del params
+            torch.cuda.empty_cache()
+            params, made = init_model(cfg, EncodingConfig(), seed, dev), arch
+        rng = np.random.RandomState(seed + 12)
+        prompts = {"trace": recurrent_prompts, "shared": shared_prefix_prompts,
+                   "tiled": tiled_prompts}[trace](rng, cfg.vocab_size)
+        t0 = time.perf_counter()
+        want, pst = serve_tokens(params, cfg, plain, config, prompts)
+        t1 = time.perf_counter()
+        got, st = serve_tokens(params, cfg, enc, config, prompts)
+        same = got == want
+        log(f"[forward] {arch} depth-{depth} f32 {label}: kernel tokens == plain tokens "
+            f"(prompts {[len(p) for p in prompts]}, {st['cache_mode']} {st['decode_mode']}, "
+            f"dispatches {st['dispatches']}; plain {t1 - t0:.1f}s, kernels "
+            f"{time.perf_counter() - t1:.1f}s): {same}")
+        if not same:
+            raise AssertionError(f"{arch} {label}: tokens differ: {got} vs {want}")
+        if arch != "grok-1-314b" and (st["cache_mode"], st["decode_mode"]) != ("dense",
+                                                                                "grouped"):
+            raise AssertionError(f"{arch}: resolved to {st['cache_mode']} {st['decode_mode']}")
+        if label == "spec" and not (st["spec"]["proposed"] > 0
+                                    and st["dispatches"].get("verify", 0) > 0):
+            raise AssertionError(f"grok spec: no drafts verified: {st['spec']}")
+        outs[f"{arch} {label}"] = got
+    del params
+    torch.cuda.empty_cache()
+    return outs
+
+
+def recurrence_share(torch, dev, params, cfg, enc, prompt) -> dict:
+    """Host-clock ms of one prefill of `prompt` (a fresh one-slot cache; the
+    card synchronized before and after), and of the plain recurrences
+    inside it: RWKV's chunked wkv loop (S / 16 iterations a layer) or the
+    RG-LRU's associative scan, each call bracketed by synchronizations (so
+    the total here runs a little slower than unbracketed), beside the
+    prefill's unbracketed time."""
+    from repro_torch.core.encoding import Phase
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+
+    name = "_wkv_chunked" if "rwkv" in cfg.block_pattern else "associative_scan"
+    toks = torch.as_tensor(prompt[None], device=dev)
+
+    def prefill():
+        caches = T.cache_init(cfg, 1, len(prompt), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.forward(params, toks, cfg=cfg, enc=enc, phase=Phase.PREFILL, caches=caches,
+                  last_logits_only=True)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    prefill()  # warm
+    plain_ms = prefill()
+    inner = {"ms": 0.0, "calls": 0}
+    orig = getattr(R, name)
+
+    def timed(*a):
+        if name == "associative_scan" and inner.get("depth"):
+            return orig(*a)  # the scan's own recursion: timed at the top call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner["depth"] = 1
+        try:
+            out = orig(*a)
+            torch.cuda.synchronize()
+        finally:
+            inner["depth"] = 0
+        inner["ms"] += 1e3 * (time.perf_counter() - t0)
+        inner["calls"] += 1
+        return out
+
+    setattr(R, name, timed)
+    try:
+        bracketed_ms = prefill()
+    finally:
+        setattr(R, name, orig)
+    out = {"recurrence": name, "prompt": len(prompt), "prefill_ms": plain_ms,
+           "bracketed_prefill_ms": bracketed_ms, "recurrence_ms": inner["ms"],
+           "recurrence_calls": inner["calls"], "share": inner["ms"] / bracketed_ms}
+    if name == "_wkv_chunked":
+        out["chunk_iterations_a_layer"] = -(-len(prompt) // R.RWKV_CHUNK)
+    log(f"[recurrent] {cfg.name}: a {len(prompt)}-token prefill takes {plain_ms:.1f} ms; "
+        f"with each {name} call bracketed by syncs {bracketed_ms:.1f} ms, of which "
+        f"{name} {inner['ms']:.1f} ms over {inner['calls']} calls (share {out['share']:.3f})")
+    return out
+
+
+def serve_recurrent(torch, dev, seed: int) -> dict:
+    """Phase 12: RWKV6-1.6B (24 layers) and RecurrentGemma-9B (38 layers) at
+    full width and full depth in bf16, 4 slots, max_seq 4096 (dense cache,
+    grouped decode, one prefill an admission: resolve()), phase 12's 9
+    requests with 32 new tokens; then Grok-1-314B at full width and depth 4
+    of 64 in bf16 (the cut: 64 layers hold ~620 GB, one card 80 GB), paged,
+    4 slots, phase 4's trace, and with spec decode (backend "auto") on phase
+    5's tiled prompts.  Each run's launches equal its tally (by layer type
+    too).  Reports tokens/s, step p50/p99 by kind, the weight bytes a decode
+    step streams and the cache bytes a slot holds (K/V rows and state), and
+    for the recurrent families the share of a 2500-token prefill spent in
+    the plain recurrence (recurrence_share)."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core import targets
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.models import transformer as T
+
+    runs = {}
+    fused = EncodingConfig(backend="fused", attn_backend="auto")
+    plan = [("rwkv6-1.6b", None, [("trace", fused, dict(slots=4, max_seq=4096), "trace")]),
+            ("recurrentgemma-9b", None,
+             [("trace", fused, dict(slots=4, max_seq=4096), "trace")]),
+            ("grok-1-314b", 4,
+             [("trace", fused, dict(slots=4), "shared"),
+              ("spec", EncodingConfig(backend="auto", attn_backend="auto"),
+               dict(slots=4, spec_decode=True, draft_k=4), "tiled")])]
+    for arch, depth, served in plan:
+        full = cfg_registry.get_config(arch)
+        cfg = full if depth is None else dataclasses.replace(full, num_layers=depth)
+        reduced = ([] if depth is None else
+                   [f"depth cut to {depth} of {full.num_layers} layers (full width): one card "
+                    "holds 80 GB"])
+        gc.collect()  # earlier phases' engines sit in reference cycles
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        params = init_model(cfg, fused, seed, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gib = (torch.cuda.memory_allocated(dev) - before) / 2**30
+        stream = T.decode_weight_stream_bytes(cfg, fused)
+        floor_ms = 1e3 * sum(stream.values()) / targets.H100.hbm_bytes_per_s
+        log(f"[recurrent] {cfg.name} depth {cfg.num_layers} bf16: init {init_s:.1f}s, "
+            f"{weights_gib:.2f} GiB on the card; a decode step streams "
+            f"{stream['projections'] / 1e9:.3f} GB of projections + {stream['head'] / 1e9:.3f} "
+            f"GB of head: floor {floor_ms:.3f} ms at the data-sheet rate; reduced: {reduced}")
+        for label, enc, config, trace in served:
+            rng = np.random.RandomState(seed + 12)
+            prompts = {"trace": recurrent_prompts, "shared": shared_prefix_prompts,
+                       "tiled": tiled_prompts}[trace](rng, cfg.vocab_size)
+            eng, out = counted_run(torch, dev, params, cfg, enc, config,
+                                   submit_all(prompts, 32), f"{cfg.name} bf16 {label}",
+                                   "recurrent")
+            if arch != "grok-1-314b" and (
+                    (out["cache_mode"], out["decode_mode"]) != ("dense", "grouped")
+                    or out["max_rows"].get("prefill", 0) < RECURRENT_LONG_PROMPT):
+                raise AssertionError(f"{arch}: not dense grouped or no long prefill: {out}")
+            if arch == "grok-1-314b" and (out["cache_mode"] != "paged" or (
+                    label == "spec" and not out["dispatches"].get("verify", 0))):
+                raise AssertionError(f"grok {label}: not paged or no verify window: {out}")
+            log(f"[recurrent] {cfg.name} {label}: cache bytes a slot "
+                f"{out['cache_bytes_per_slot']}; launches by layer type "
+                f"{out['launches_by_layer_type']}")
+            runs[f"{arch} {label}"] = dict(out, init_s=init_s, weights_gib=weights_gib,
+                                           stream_bytes=stream, stream_floor_ms=floor_ms,
+                                           layers=cfg.num_layers, reduced=reduced)
+            del eng
+            if arch != "grok-1-314b":
+                runs[f"{arch} {label}"]["recurrence"] = recurrence_share(
+                    torch, dev, params, cfg, enc, prompts[-1])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
 def chaos_check(torch, dev, seed: int) -> dict:
     """Phase 10, the chaos harness on the card: Qwen2-1.5B at full width,
     depth 2, f32, nonzero biases, served through the kernels (backend
@@ -2649,6 +3005,9 @@ def main() -> int:
     t1 = time.perf_counter()
     check_moe_shapes(torch, dev, targets.H100, timer, results)
     log(f"[kernel] Mixtral shapes checked in {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    check_recurrent_shapes(torch, dev, targets.H100, timer, results)
+    log(f"[kernel] recurrent shapes (head dim 256) checked in {time.perf_counter() - t1:.1f}s")
     check_pack_kernels(torch, dev, targets.H100, timer, results)
     sampler = check_sampler(torch, dev, timer)
     log(f"[kernel] checks done in {time.perf_counter() - t0:.1f}s")
@@ -2660,6 +3019,7 @@ def main() -> int:
     sampled_forward_check(torch, dev, args.seed)
     dense_forward = dense_family_forward_check(torch, dev, args.seed)
     moe_forward = moe_forward_check(torch, dev, args.seed)
+    recurrent_forward = recurrent_forward_check(torch, dev, args.seed)
     loads = len(WEIGHT_PACKS)  # models made before the serving phases
     served = serve(torch, dev, args.seed)
     windows = serve_windows(torch, dev, args.seed)
@@ -2668,12 +3028,14 @@ def main() -> int:
     sampled = serve_sampled(torch, dev, args.seed, sampler)
     dense = serve_dense_family(torch, dev, args.seed)
     moe = serve_moe(torch, dev, args.seed)
+    recurrent = serve_recurrent(torch, dev, args.seed)
     served_packs = sum(WEIGHT_PACKS[loads:])  # the weight packs of the served models
     chaos = chaos_check(torch, dev, args.seed)
     launches = {name: served["launches"][name]
                 + sum(r["launches"][name] for r in (*windows.values(), *quant.values(),
                                                     *kv.values(), *sampled.values(),
-                                                    *dense.values(), *moe.values()))
+                                                    *dense.values(), *moe.values(),
+                                                    *recurrent.values()))
                 for name in REPLACES}
     if launches["pack"] or launches["unpack"]:
         raise AssertionError(f"serving runs launched activation packs or unpacks: {launches}")
@@ -2700,6 +3062,7 @@ def main() -> int:
                    "windows": windows, "quant": quant, "kv": kv, "sampled": sampled,
                    "dense_forward": dense_forward, "dense": dense, "chaos": chaos,
                    "moe_forward": moe_forward, "moe": moe,
+                   "recurrent_forward": recurrent_forward, "recurrent": recurrent,
                    "table": table}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)

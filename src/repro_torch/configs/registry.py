@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution (counterpart of
-repro/configs/registry.py).  The paper's own model, the dense family and
-Mixtral-8x22B (MoE, sliding window) are ported so far; the other families
-wait for their slices (ROADMAP)."""
+repro/configs/registry.py).  The paper's own model, the dense family, the
+MoE family (Mixtral-8x22B, Grok-1-314B) and the recurrent families
+(RWKV6-1.6B, RecurrentGemma-9B) are ported so far; the encoder-decoder and
+VLM families wait for their slices (ROADMAP)."""
 
 from __future__ import annotations
 
@@ -11,10 +12,13 @@ from repro_torch.configs.base import ModelConfig, reduced
 
 _ARCH_MODULES = {
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "yi-9b": "repro_torch.configs.yi_9b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
 }
 

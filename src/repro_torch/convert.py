@@ -3,9 +3,14 @@
     np_params = jax.tree.map(np.asarray, jax_params)
     params = params_from_jax(np_params, cfg, enc, device="cpu")
 
-The JAX model stacks layers along a leading group axis (one group per
-repetition of `block_pattern`); the port keeps a list of per-layer dicts,
-so every stacked leaf is split along that axis.  bfloat16 arrays move as
+The JAX model stacks layers along a leading group axis: params["groups"]
+holds one tree per position of `block_pattern`, each stacked over the
+repetitions of the pattern, and params["tail"] (where num_layers is not a
+multiple of the pattern) one unstacked tree per position of the partial
+group.  The port keeps a list of per-layer dicts in layer order: position
+i of group g is layer g * len(pattern) + i, and the tail follows, so every
+stacked leaf is split along its group axis.  Recurrent blocks' leaves
+(mu, w0, w_lora_*, u, cm_mu, conv_w, conv_b, lam) carry over as they are.  bfloat16 arrays move as
 raw 16-bit words (`torch.from_numpy` has no bfloat16): the ml_dtypes array
 is viewed as uint16, handed to torch, and viewed back as torch.bfloat16, so
 every bit survives.  Quantized projections (`enc.weight_quant` "int8" or
@@ -55,15 +60,22 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, enc: EncodingConfig,
                     device: torch.device | str) -> dict:
     """Port params from the JAX pytree (leaves as numpy arrays)."""
     pattern = tuple(cfg.block_pattern)
-    if pattern != ("attn",) or "tail" in np_params:
-        raise NotImplementedError(f"block pattern {pattern} waits for its family's slice")
-    (group,) = np_params["groups"]  # one block per pattern position
+    if cfg.family in ("encdec", "vlm"):
+        raise NotImplementedError(f"family {cfg.family!r} waits for its family's slice")
+    groups = tuple(np_params["groups"])  # one stacked tree per pattern position
+    tail = tuple(np_params.get("tail", ()))
+    n_groups = cfg.num_layers // len(pattern)
+    if len(groups) != len(pattern) or len(tail) != cfg.num_layers % len(pattern):
+        raise ValueError(f"the JAX params hold {len(groups)} pattern positions and a tail "
+                         f"of {len(tail)}, not the layout of {cfg.num_layers} layers of "
+                         f"pattern {pattern}")
     want = _WEIGHT_KEY[enc.weight_quant] if enc.enabled else "w_t"
-    if want not in _keys(group):
+    if want not in _keys(groups[0]):
         raise ValueError(f"the JAX params hold no {want!r} leaves: they were made for "
                          f"another weight format than weight_quant={enc.weight_quant!r}")
-    n_layers = cfg.num_layers
-    layers = [_tree(group, lambda a, i=i: to_torch(a[i], device)) for i in range(n_layers)]
+    layers = [_tree(groups[i], lambda a, g=g: to_torch(a[g], device))
+              for g in range(n_groups) for i in range(len(pattern))]
+    layers += [_tree(t, lambda a: to_torch(a, device)) for t in tail]
     for layer in layers:
         if "moe" in layer:
             moe = layer["moe"]

@@ -66,12 +66,24 @@
 //      (bf16 in, f32 accumulate) on the staged tiles, a flash-attention
 //      tile over the page table (online softmax in registers, P rounded to
 //      bf16 for the second product, its row sums from the rounded values).
-//      kv8/kv4 tiles are dequantized to bf16 in shared memory first.
+//      kv8/kv4 tiles enter the products as their integer codes, which bf16
+//      holds exactly: each key's scale multiplies its f32 score after Q K^T,
+//      and each value's scale its weight p before p is rounded to bf16 for
+//      P V (the row sums then from the unrounded f32 p), so the only bf16
+//      rounding is P's, as in the unquantized path.
 //   4. CUDA cores otherwise (f32 queries, whose 1e-4 tolerance and token
 //      identity need f32 products; L*G < 16, e.g. plain decode at G = 4;
-//      ring windows): scores of (row, key) pairs from the staged rows, one
-//      warp per row for the online softmax, then acc += p * V with a
-//      thread per (row, dim).
+//      ring windows; head dim 256): scores of (row, key) pairs from the
+//      staged rows, one warp per row for the online softmax, then acc += p
+//      * V with a thread per (row, dim), or at D = 256 two dims (d, d +
+//      128) of every row per thread.
+//   Head dim 256 (RecurrentGemma's local attention) takes the CUDA cores in
+//   bf16 too: the tensor-core tile would hold 128 f32 accumulators and 64
+//   Q fragment registers a thread.  Its staged tiles are 528-byte (bf16) or
+//   1040-byte (f32) rows: double-buffered bf16 K/V tiles (132 KB) and the
+//   f32 query, score and state rows of 64 query rows (81 KB) fit the 227 KB
+//   of an SM; in f32 the K/V tiles take one buffer (130 KB), copied after
+//   the tile before it is consumed (NBUF, below).
 // What each part does about the limits of a key walk by one warp per query
 // row: the split fills the card where one block per (tile, kv, b) would
 // not (32 blocks at L = 1, B = 4, on 132 SMs; the split makes 512);
@@ -240,6 +252,8 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool full) 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // Wait until at most one copy group (the newest) is in flight.
 __device__ __forceinline__ void cp_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
+// Wait until no copy group is in flight.
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
 __device__ __forceinline__ void mma16816(float* c, const unsigned* a, unsigned b0,
@@ -283,13 +297,19 @@ struct Geo {
   static constexpr int SB = D + 8;          // bf16 elements a tensor-core row
   static constexpr int STAGE = KT * SRB;    // one K or V tile
   static constexpr bool DEQ = TC && S::kQuant;  // dequantized bf16 tiles
-  // [K buf 0, K buf 1, V buf 0, V buf 1] [K scales x2, V scales x2]
-  // [TC kv8/kv4: Kb, Vb bf16] [CUDA cores: qs, scores, m, l, corr]
-  static constexpr int OFF_SC = 4 * STAGE;
-  static constexpr int OFF_X = OFF_SC + (S::kQuant ? 4 * KT * 4 : 0);
+  // [K buf 0 (, K buf 1), V buf 0 (, V buf 1)] [K scales x NBUF, V scales x
+  // NBUF] [TC kv8/kv4: Kb, Vb bf16] [CUDA cores: qs, scores, m, l, corr]
+  static constexpr int BYTES_TC = DEQ ? 2 * KT * SB * 2 : 0;
+  static constexpr int BUF = 2 * STAGE + (S::kQuant ? 2 * KT * 4 : 0);  // K, V + scales
+  // Double-buffered K/V tiles where 64 query rows fit beside them in an
+  // SM's 227 KB, else one buffer (f32 at D = 256).
+  static constexpr int SMEM_MAX = 227 * 1024;
+  static constexpr int NBUF =
+      2 * BUF + BYTES_TC + (TC ? 0 : (QT * D + QT * (KT + 1) + 3 * QT) * 4) <= SMEM_MAX ? 2 : 1;
+  static constexpr int OFF_SC = 2 * NBUF * STAGE;
+  static constexpr int OFF_X = NBUF * BUF;
   // Sized by the launch's rows a tile (qt = min(64, L*G)): a decode step's
   // 4 rows leave room for more blocks on an SM.  The merge reuses it all.
-  static constexpr int BYTES_TC = DEQ ? 2 * KT * SB * 2 : 0;
   __host__ __device__ static constexpr int bytes(int qt) {
     const int run = OFF_X + BYTES_TC + (TC ? 0 : (qt * D + qt * (KT + 1) + 3 * qt) * 4);
     const int merge = (qt * MAXS + qt) * 4;
@@ -370,16 +390,16 @@ decode_kernel(const Params p, const Addr addr) {
   const int ntile = lo < hi ? (hi - lo + KT - 1) / KT : 0;
 
   unsigned char* stage_k = smem;
-  unsigned char* stage_v = smem + 2 * Gm::STAGE;
+  unsigned char* stage_v = smem + Gm::NBUF * Gm::STAGE;
   float* sc_k = reinterpret_cast<float*>(smem + Gm::OFF_SC);
-  float* sc_v = sc_k + 2 * KT;
+  float* sc_v = sc_k + Gm::NBUF * KT;
   const unsigned char* kbase = static_cast<const unsigned char*>(p.k);
   const unsigned char* vbase = static_cast<const unsigned char*>(p.v);
 
-  // Issue the copies of key tile i (keys lo + i*KT ..) into buffer i & 1.
+  // Issue the copies of key tile i (keys lo + i*KT ..) into buffer i % NBUF.
   auto stage = [&](int i) {
     const int t0 = lo + i * KT;
-    const int buf = i & 1;
+    const int buf = i % Gm::NBUF;
     for (int c = tid; c < KT * Gm::NCH; c += NT) {
       const int kk = c / Gm::NCH;
       const int part = c % Gm::NCH;
@@ -424,6 +444,25 @@ decode_kernel(const Params p, const Addr addr) {
 
   if (ntile > 0) stage(0);
   cp_commit();
+  // Tile i staged and visible to the block: with two buffers the copies of
+  // tile i + 1 go out first; with one they wait for tile_done(i).
+  auto tile_ready = [&](int i) {
+    if constexpr (Gm::NBUF == 2) {
+      if (i + 1 < ntile) stage(i + 1);
+      cp_commit();
+      cp_wait_prev();
+    } else {
+      cp_wait_all();
+    }
+    __syncthreads();
+  };
+  auto tile_done = [&](int i) {  // every thread is past tile i
+    __syncthreads();
+    if constexpr (Gm::NBUF == 1) {
+      if (i + 1 < ntile) stage(i + 1);
+      cp_commit();
+    }
+  };
 
   if constexpr (TC) {
     // ---------------- tensor cores: warp w owns tile rows 16w .. 16w+15
@@ -460,11 +499,8 @@ decode_kernel(const Params p, const Addr addr) {
     bf16* vb = kb + KT * Gm::SB;
 
     for (int i = 0; i < ntile; ++i) {
-      if (i + 1 < ntile) stage(i + 1);
-      cp_commit();
-      cp_wait_prev();
-      __syncthreads();
-      const int buf = i & 1;
+      tile_ready(i);
+      const int buf = i % Gm::NBUF;
       const int t0 = lo + i * KT;
       const bf16* kt;
       const bf16* vt;
@@ -472,17 +508,15 @@ decode_kernel(const Params p, const Addr addr) {
         const E* sk = reinterpret_cast<const E*>(stage_k + buf * Gm::STAGE);
         const E* sv = reinterpret_cast<const E*>(stage_v + buf * Gm::STAGE);
         constexpr int ROW_E = Gm::SRB / static_cast<int>(sizeof(E));
-        for (int e = tid; e < KT * (D / 2); e += NT) {
+        for (int e = tid; e < KT * (D / 2); e += NT) {  // the codes, exact in bf16
           const int kk = e / (D / 2);
           const int d = (e % (D / 2)) * 2;
-          const float ck = sc_k[buf * KT + kk];
-          const float cv = sc_v[buf * KT + kk];
           const E* rk = sk + kk * ROW_E;
           const E* rv = sv + kk * ROW_E;
           *reinterpret_cast<unsigned*>(kb + kk * Gm::SB + d) =
-              pack_bf16(S::val(rk, d, ck), S::val(rk, d + 1, ck));
+              pack_bf16(S::val(rk, d, 1.f), S::val(rk, d + 1, 1.f));
           *reinterpret_cast<unsigned*>(vb + kk * Gm::SB + d) =
-              pack_bf16(S::val(rv, d, cv), S::val(rv, d + 1, cv));
+              pack_bf16(S::val(rv, d, 1.f), S::val(rv, d + 1, 1.f));
         }
         __syncthreads();
         kt = kb;
@@ -514,7 +548,9 @@ decode_kernel(const Params p, const Addr addr) {
             const int t = t0 + n * 8 + 2 * q4 + (e & 1);
             const int te = e < 2 ? te_a : te_b;
             const int tb = e < 2 ? tb_a : tb_b;
-            const float x = (t < hi && t <= te && t >= tb) ? __fmul_rn(s[n][e], p.scale) : NEG_INF;
+            float qk = s[n][e];
+            if constexpr (Gm::DEQ) qk = __fmul_rn(qk, sc_k[buf * KT + (t - t0)]);  // key's scale
+            const float x = (t < hi && t <= te && t >= tb) ? __fmul_rn(qk, p.scale) : NEG_INF;
             s[n][e] = x;
             mt[e >> 1] = fmaxf(mt[e >> 1], x);
           }
@@ -531,17 +567,32 @@ decode_kernel(const Params p, const Addr addr) {
           mu[hh] = m_new == NEG_INF ? 0.f : m_new;
           m[hh] = m_new;
         }
-        // P in bf16 (A fragments of the second product) and its row sums.
+        // P in bf16 (A fragments of the second product) and its row sums;
+        // kv8/kv4: p times its value's scale, the sums from the f32 p.
         unsigned pa[KT / 16][4];
         float ps[2] = {0.f, 0.f};
 #pragma unroll
         for (int n = 0; n < KT / 8; ++n) {
-          const unsigned w0 = pack_bf16(expf(s[n][0] - mu[0]), expf(s[n][1] - mu[0]));
-          const unsigned w1 = pack_bf16(expf(s[n][2] - mu[1]), expf(s[n][3] - mu[1]));
-          const float2 f0 = unpack_bf16(w0);
-          const float2 f1 = unpack_bf16(w1);
-          ps[0] = __fadd_rn(ps[0], __fadd_rn(f0.x, f0.y));
-          ps[1] = __fadd_rn(ps[1], __fadd_rn(f1.x, f1.y));
+          const float p0 = expf(s[n][0] - mu[0]);
+          const float p1 = expf(s[n][1] - mu[0]);
+          const float p2 = expf(s[n][2] - mu[1]);
+          const float p3 = expf(s[n][3] - mu[1]);
+          unsigned w0, w1;
+          if constexpr (Gm::DEQ) {
+            const float v0 = sc_v[buf * KT + n * 8 + 2 * q4];
+            const float v1 = sc_v[buf * KT + n * 8 + 2 * q4 + 1];
+            w0 = pack_bf16(__fmul_rn(p0, v0), __fmul_rn(p1, v1));
+            w1 = pack_bf16(__fmul_rn(p2, v0), __fmul_rn(p3, v1));
+            ps[0] = __fadd_rn(ps[0], __fadd_rn(p0, p1));
+            ps[1] = __fadd_rn(ps[1], __fadd_rn(p2, p3));
+          } else {
+            w0 = pack_bf16(p0, p1);
+            w1 = pack_bf16(p2, p3);
+            const float2 f0 = unpack_bf16(w0);
+            const float2 f1 = unpack_bf16(w1);
+            ps[0] = __fadd_rn(ps[0], __fadd_rn(f0.x, f0.y));
+            ps[1] = __fadd_rn(ps[1], __fadd_rn(f1.x, f1.y));
+          }
           pa[n >> 1][(n & 1) * 2 + 0] = w0;
           pa[n >> 1][(n & 1) * 2 + 1] = w1;
         }
@@ -568,7 +619,7 @@ decode_kernel(const Params p, const Addr addr) {
           }
         }
       }
-      __syncthreads();
+      tile_done(i);
     }
 
     // Each row's sum lies in the 4 lanes of its quad.
@@ -625,21 +676,22 @@ decode_kernel(const Params p, const Addr addr) {
       rm[r] = NEG_INF;
       rl[r] = 0.f;
     }
-    // acc: thread owns dim d of rows rb0 + step*i.
-    constexpr int STEP = NT / D > 0 ? NT / D : 1;
+    // acc: thread owns dims d_own + NT*j (j < DPT) of rows rb0 + STEP*i.
+    constexpr int DPT = D > NT ? D / NT : 1;    // dims a thread (2 at D = 256)
+    constexpr int STEP = D >= NT ? 1 : NT / D;  // threads a dim
     constexpr int NR = QT / STEP;
     const int d_own = tid % D;
-    const int rb0 = tid / D;  // D <= 128 = NT
-    float acc[NR];
+    const int rb0 = D >= NT ? 0 : tid / D;
+    float acc[NR][DPT];
 #pragma unroll
-    for (int i = 0; i < NR; ++i) acc[i] = 0.f;
+    for (int i = 0; i < NR; ++i) {
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+    }
 
     for (int it = 0; it < ntile; ++it) {
-      if (it + 1 < ntile) stage(it + 1);
-      cp_commit();
-      cp_wait_prev();
-      __syncthreads();
-      const int buf = it & 1;
+      tile_ready(it);
+      const int buf = it % Gm::NBUF;
       const int t0 = lo + it * KT;
       const E* sk = reinterpret_cast<const E*>(stage_k + buf * Gm::STAGE);
       const E* sv = reinterpret_cast<const E*>(stage_v + buf * Gm::STAGE);
@@ -689,27 +741,40 @@ decode_kernel(const Params p, const Addr addr) {
       for (int i = 0; i < NR; ++i) {
         const int r = rb0 + STEP * i;
         if (r >= R) break;
-        acc[i] = __fmul_rn(acc[i], rc[r]);
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) acc[i][j] = __fmul_rn(acc[i][j], rc[r]);
       }
+      auto vals = [&](int kk, float* vx) {
+        const float sc = S::kQuant ? sc_v[buf * KT + kk] : 1.f;
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) vx[j] = S::val(sv + kk * ROW_E, d_own + NT * j, sc);
+      };
       if (rb0 + STEP * (NR - 1) < R) {  // all NR rows live: no exit tests
         for (int kk = 0; kk < kn; ++kk) {
-          const float vx = S::val(sv + kk * ROW_E, d_own, S::kQuant ? sc_v[buf * KT + kk] : 1.f);
+          float vx[DPT];
+          vals(kk, vx);
 #pragma unroll
-          for (int i = 0; i < NR; ++i)
-            acc[i] = __fmaf_rn(ss[(rb0 + STEP * i) * (KT + 1) + kk], vx, acc[i]);
+          for (int i = 0; i < NR; ++i) {
+            const float pk = ss[(rb0 + STEP * i) * (KT + 1) + kk];
+#pragma unroll
+            for (int j = 0; j < DPT; ++j) acc[i][j] = __fmaf_rn(pk, vx[j], acc[i][j]);
+          }
         }
       } else {
         for (int kk = 0; kk < kn; ++kk) {
-          const float vx = S::val(sv + kk * ROW_E, d_own, S::kQuant ? sc_v[buf * KT + kk] : 1.f);
+          float vx[DPT];
+          vals(kk, vx);
 #pragma unroll
           for (int i = 0; i < NR; ++i) {
             const int r = rb0 + STEP * i;
             if (r >= R) break;
-            acc[i] = __fmaf_rn(ss[r * (KT + 1) + kk], vx, acc[i]);
+            const float pk = ss[r * (KT + 1) + kk];
+#pragma unroll
+            for (int j = 0; j < DPT; ++j) acc[i][j] = __fmaf_rn(pk, vx[j], acc[i][j]);
           }
         }
       }
-      __syncthreads();
+      tile_done(it);
     }
     __syncthreads();  // rm / rl of a split with no tile
 
@@ -719,7 +784,9 @@ decode_kernel(const Params p, const Addr addr) {
         const int r = rb0 + STEP * i;
         if (r >= R) break;
         const float inv = rl[r] > 0.f ? __frcp_rn(rl[r]) : 0.f;
-        out_at(r)[d_own] = from_f32<T>(__fmul_rn(acc[i], inv));
+#pragma unroll
+        for (int j = 0; j < DPT; ++j)
+          out_at(r)[d_own + NT * j] = from_f32<T>(__fmul_rn(acc[i][j], inv));
       }
       return;
     }
@@ -731,7 +798,9 @@ decode_kernel(const Params p, const Addr addr) {
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       const int r = rb0 + STEP * i;
-      if (r < R && rm[r] != NEG_INF) part_acc[(pidx * p.qt + r) * D + d_own] = acc[i];
+      if (r >= R || rm[r] == NEG_INF) continue;
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) part_acc[(pidx * p.qt + r) * D + d_own + NT * j] = acc[i][j];
     }
   }
 
@@ -767,44 +836,49 @@ decode_kernel(const Params p, const Addr addr) {
   }
   __syncthreads();
   // Then acc = sum_s w_s acc_s in split order, four dims (one float4) an
-  // output and up to MJ outputs a thread, whose loads of one split are all
-  // in flight together (an acc a split left unwritten is masked by its
-  // zero weight).
-  constexpr int MJ = QT * D / (4 * NT);
+  // output and up to MJ outputs a thread at a time (MJ_ALL in passes of 16
+  // at D = 256), whose loads of one split are all in flight together (an
+  // acc a split left unwritten is masked by its zero weight).
+  constexpr int MJ_ALL = QT * D / (4 * NT);
+  constexpr int MJ = MJ_ALL < 16 ? MJ_ALL : 16;
   const int n4 = R * D / 4;
-  float4 a[MJ];
+  for (int j0 = 0; j0 < MJ_ALL; j0 += MJ) {
+    const int e0 = tid + NT * j0;
+    if (e0 >= n4) break;
+    float4 a[MJ];
 #pragma unroll
-  for (int j = 0; j < MJ; ++j) a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int sp = 0; sp < p.splits; ++sp) {
-    const float4* src = reinterpret_cast<const float4*>(part_acc + (pbase + sp) * p.qt * D);
-    float4 x[MJ];
+    for (int j = 0; j < MJ; ++j) a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < p.splits; ++sp) {
+      const float4* src = reinterpret_cast<const float4*>(part_acc + (pbase + sp) * p.qt * D);
+      float4 x[MJ];
 #pragma unroll
-    for (int j = 0; j < MJ; ++j) {
-      if (tid + NT * j < n4) x[j] = __ldcg(src + tid + NT * j);
+      for (int j = 0; j < MJ; ++j) {
+        if (e0 + NT * j < n4) x[j] = __ldcg(src + e0 + NT * j);
+      }
+#pragma unroll
+      for (int j = 0; j < MJ; ++j) {
+        const int e4 = e0 + NT * j;
+        if (e4 >= n4) break;
+        const float w = ws[(e4 * 4 / D) * MAXS + sp];
+        const bool on = w != 0.f;
+        a[j].x = __fmaf_rn(on ? x[j].x : 0.f, w, a[j].x);
+        a[j].y = __fmaf_rn(on ? x[j].y : 0.f, w, a[j].y);
+        a[j].z = __fmaf_rn(on ? x[j].z : 0.f, w, a[j].z);
+        a[j].w = __fmaf_rn(on ? x[j].w : 0.f, w, a[j].w);
+      }
     }
 #pragma unroll
     for (int j = 0; j < MJ; ++j) {
-      const int e4 = tid + NT * j;
+      const int e4 = e0 + NT * j;
       if (e4 >= n4) break;
-      const float w = ws[(e4 * 4 / D) * MAXS + sp];
-      const bool on = w != 0.f;
-      a[j].x = __fmaf_rn(on ? x[j].x : 0.f, w, a[j].x);
-      a[j].y = __fmaf_rn(on ? x[j].y : 0.f, w, a[j].y);
-      a[j].z = __fmaf_rn(on ? x[j].z : 0.f, w, a[j].z);
-      a[j].w = __fmaf_rn(on ? x[j].w : 0.f, w, a[j].w);
+      const int r = e4 * 4 / D;
+      const float sc = inv[r];
+      T* o = out_at(r) + (e4 * 4) % D;
+      o[0] = from_f32<T>(__fmul_rn(a[j].x, sc));
+      o[1] = from_f32<T>(__fmul_rn(a[j].y, sc));
+      o[2] = from_f32<T>(__fmul_rn(a[j].z, sc));
+      o[3] = from_f32<T>(__fmul_rn(a[j].w, sc));
     }
-  }
-#pragma unroll
-  for (int j = 0; j < MJ; ++j) {
-    const int e4 = tid + NT * j;
-    if (e4 >= n4) break;
-    const int r = e4 * 4 / D;
-    const float sc = inv[r];
-    T* o = out_at(r) + (e4 * 4) % D;
-    o[0] = from_f32<T>(__fmul_rn(a[j].x, sc));
-    o[1] = from_f32<T>(__fmul_rn(a[j].y, sc));
-    o[2] = from_f32<T>(__fmul_rn(a[j].z, sc));
-    o[3] = from_f32<T>(__fmul_rn(a[j].w, sc));
   }
   if (tid == 0) *counter = 0;  // ready for the next launch
 }
@@ -858,10 +932,10 @@ int launch(const Args& a, const Addr& addr, cudaStream_t stream) {
 }
 
 // bf16 windows (full attention or a prefill band) of at least 16 query
-// rows take the tensor cores; everything else the CUDA cores.
+// rows take the tensor cores up to D = 128; everything else the CUDA cores.
 template <typename T, int KVC, int D, bool RING, typename Addr>
 int launch_path(const Args& a, const Addr& addr, cudaStream_t s) {
-  if constexpr (sizeof(T) == 2 && !RING) {
+  if constexpr (sizeof(T) == 2 && !RING && D <= 128) {
     if (a.L * (a.h / a.kvh) >= 16) return launch<T, KVC, D, RING, true>(a, addr, s);
   }
   return launch<T, KVC, D, RING, false>(a, addr, s);
@@ -874,6 +948,9 @@ int launch_d(int d, const Args& a, const Addr& addr, cudaStream_t s) {
     case 32: return launch_path<T, KVC, 32, RING>(a, addr, s);
     case 64: return launch_path<T, KVC, 64, RING>(a, addr, s);
     case 128: return launch_path<T, KVC, 128, RING>(a, addr, s);
+    case 256:  // unquantized caches only (the dense/ring decode and prefill)
+      if constexpr (KVC == KV_RAW) return launch_path<T, KVC, 256, RING>(a, addr, s);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

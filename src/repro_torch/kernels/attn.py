@@ -42,6 +42,33 @@ DECODE_TILE_ROWS = 64
 DECODE_KEY_TILE = 64
 DECODE_TARGET_BLOCKS = 264
 DECODE_MAX_SPLITS = 64  # the merge's weights fill a (64 rows, 64 splits) table
+SMEM_MAX = 227 * 1024   # shared memory an H100 block may take
+# Head dims the body is built for; 256 (RecurrentGemma) on unquantized
+# dense caches and prefill only, on the CUDA cores.
+HEAD_DIMS = (16, 32, 64, 128)
+WIDE_HEAD_DIM = 256
+
+
+def decode_smem_bytes(itemsize: int, d: int, qt: int, *, tc: bool,
+                      kv_quant: str = "bf16") -> tuple[int, int]:
+    """(dynamic shared-memory bytes a block takes, K/V buffers) for `qt`
+    query rows a tile, mirroring Geo in csrc/decode_attn.cuh: 64-key K and
+    V tiles of padded rows, double-buffered where 64 query rows' CUDA-core
+    state fits beside them in SMEM_MAX, else single-buffered."""
+    lay = encoding.kv_layout(kv_quant)
+    elem = 1 if lay.quantized else itemsize
+    rb = d * elem // (2 if kv_quant == "kv4" else 1)  # bytes a staged row
+    ch = min(rb, 16)
+    stage = DECODE_KEY_TILE * (rb + ch)
+    buf = 2 * stage + (2 * DECODE_KEY_TILE * 4 if lay.quantized else 0)
+    deq = 2 * DECODE_KEY_TILE * (d + 8) * 2 if tc and lay.quantized else 0
+
+    def cuda_rows(n):
+        return 0 if tc else (n * d + n * (DECODE_KEY_TILE + 1) + 3 * n) * 4
+
+    nbuf = 2 if 2 * buf + deq + cuda_rows(DECODE_TILE_ROWS) <= SMEM_MAX else 1
+    run = nbuf * buf + deq + cuda_rows(qt)
+    return max(run, (qt * DECODE_MAX_SPLITS + qt) * 4), nbuf
 
 
 def decode_split_plan(b: int, kvh: int, L: int, g: int, live_keys: int) -> tuple[int, int]:
@@ -231,13 +258,17 @@ def _check_decode(name, q, k, v, k_scale, v_scale, kv_quant, lead_ok) -> None:
             raise ValueError(f"{name}: scales must be float32 of shape {sshape}")
 
 
-def _check_card(name: str, q: torch.Tensor, kvh: int) -> None:
-    """What the shared body takes on the card (csrc/decode_attn.cuh)."""
+def _check_card(name: str, q: torch.Tensor, kvh: int, *, wide: bool) -> None:
+    """What the shared body takes on the card (csrc/decode_attn.cuh): D in
+    HEAD_DIMS, or WIDE_HEAD_DIM where `wide` (unquantized dense caches and
+    prefill).  A shape it refuses raises; it never falls back to the plain
+    version."""
     if q.device.type != "cuda":
         raise RuntimeError(f"{name} runs on cuda (or cpu: plain), not {q.device}")
     b, L, h, d = q.shape
-    if d not in (16, 32, 64, 128) or h // kvh > 32 or L > 65535:
-        raise ValueError(f"{name} kernel takes D in 16/32/64/128, G <= 32 and "
+    dims = HEAD_DIMS + ((WIDE_HEAD_DIM,) if wide else ())
+    if d not in dims or h // kvh > 32 or L > 65535:
+        raise ValueError(f"{name} kernel takes D in {dims}, G <= 32 and "
                          f"L <= 65535, got D={d}, G={h // kvh}, L={L}")
 
 
@@ -274,7 +305,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, table, pos, k_scale=k_scale,
                                             v_scale=v_scale, kv_quant=kv_quant)
-    _check_card("paged_decode_attention", q, kvh)
+    _check_card("paged_decode_attention", q, kvh, wide=False)
     q, k_pool, v_pool = build.aligned(q), build.aligned(k_pool), build.aligned(v_pool)
     ks, vs = _scale_ptrs(k_scale, v_scale)
     table = table.to(torch.int32).contiguous()
@@ -327,7 +358,7 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
         return dense_decode_attention_plain(q, k_cache, v_cache, pos, window=window,
                                             k_scale=k_scale, v_scale=v_scale,
                                             kv_quant=kv_quant)
-    _check_card("dense_decode_attention", q, kvh)
+    _check_card("dense_decode_attention", q, kvh, wide=kv_quant == "bf16")
     q, k_cache, v_cache = build.aligned(q), build.aligned(k_cache), build.aligned(v_cache)
     ks, vs = _scale_ptrs(k_scale, v_scale)
     posv = _row_positions(pos, b, q.device).to(torch.int32).contiguous()
@@ -402,7 +433,7 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
     if q.device.type == "cpu":
         return flash_prefill_attention_plain(q, k, v, causal=causal, window=window,
                                              q_offset=q_offset)
-    _check_card("flash_prefill_attention", q, kvh)
+    _check_card("flash_prefill_attention", q, kvh, wide=True)
     if sk < 1 or q_offset < 0 or window < 0:
         raise ValueError(f"flash kernel takes Sk >= 1, q_offset >= 0 and window >= 0, "
                          f"got Sk={sk}, q_offset={q_offset}, window={window}")

@@ -1,7 +1,8 @@
 """Where a decode (or prefill) step's time goes on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode [--prefill] [--slots N]
-      [--arch qwen2-1.5b | --arch mixtral-8x22b --layers 8 --max-seq 8192]
+      [--arch qwen2-1.5b | --arch mixtral-8x22b --layers 8 --max-seq 8192
+       | --arch grok-1-314b --layers 4 | --arch rwkv6-1.6b | --arch recurrentgemma-9b]
 
 Serves --slots (default 4) requests of the full-width bf16 --arch model
 (Llama-3.2-1B by default; random weights from --seed; as many slots, max_seq 1024, block 16, the
@@ -23,8 +24,9 @@ batched 4 x 512 = 2048-row prefill (and the first decode of the four
 slots), --steps times, each after the previous requests have drained (a
 warm-up batch runs first, outside the profile); it writes
 chiprun_out/profile_prefill.json.  --layers N cuts the depth to N layers at
-full width (Mixtral-8x22B's 56 layers do not fit one card in bf16; the
-output names the cut); --max-seq sets the engine's max_seq (1024 by
+full width (Mixtral-8x22B's 56 layers and Grok-1-314B's 64 do not fit one
+card in bf16; the output names the cut; the recurrent families decode
+grouped on the dense cache, one dispatch per group of slots at a position); --max-seq sets the engine's max_seq (1024 by
 default; a windowed model's ring holds min(max_seq, window) slots).
 """
 

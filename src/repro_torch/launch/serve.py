@@ -1,6 +1,6 @@
 """Serving CLI of the port: a random-weight model of the registry on the card
-(Llama-3.2-1B by default; --arch qwen2-1.5b, qwen2.5-14b, qwen2.5-32b, yi-9b
-or mixtral-8x22b).
+(Llama-3.2-1B by default; --arch qwen2-1.5b, qwen2.5-14b, qwen2.5-32b, yi-9b,
+mixtral-8x22b, grok-1-314b, rwkv6-1.6b or recurrentgemma-9b).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
 
@@ -31,6 +31,12 @@ layers hold 282 GB of bf16 weights, so one card serves it at depth 8, e.g.
 
 Mixtral has a 4096-token sliding window: it serves on the dense ring cache
 (min(max_seq, window) slots), and prompts may be longer than the window.
+Grok-1-314B (MoE, no window) serves on the paged cache; its 64 layers hold
+~620 GB of bf16 weights, so one card serves it at --layers 4.  RWKV6-1.6B
+and RecurrentGemma-9B (recurrent state; RecurrentGemma's local attention
+has a 2048-token window and head dim 256) serve on the dense cache with
+grouped decode, one prefill per admission; the run prints the state bytes
+a slot holds.
 """
 
 from __future__ import annotations
@@ -140,6 +146,9 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
     print(f"[serve] cache={stats['cache_mode']} decode={stats['decode_mode']} "
           f"kv={stats['kv_quant']} ({kv_bytes} bytes per cached token) sample={stats['sample']} "
           f"downgrades={stats.get('config_downgrades', [])}")
+    if not T.attention_only(cfg):
+        print(f"[serve] cache bytes a slot (K/V rows and recurrent state): "
+              f"{T.cache_bytes(eng.caches) // eng.slots}")
     wb = T.decode_weight_stream_bytes(cfg, enc)
     print(f"[serve] weights streamed per decode step ({args.quant}): projections "
           f"{wb['projections'] / 1e6:.1f} MB + head {wb['head'] / 1e6:.1f} MB = "

@@ -1,11 +1,16 @@
-"""Full model (counterpart of repro/models/transformer.py) for the `dense`
-and `moe` families: embedding, a Python loop over layers, final norm, head.
+"""Full model (counterpart of repro/models/transformer.py) for the `dense`,
+`moe`, `rwkv` and `hybrid` families: embedding, a Python loop over layers,
+final norm, head.
 
-Parameters are plain dicts of tensors: {"embed", "final_norm", "layers":
-[block params per layer], and "head" when embeddings are untied}.  Caches
-are {"layers": [per-layer cache dict]} and are updated in place.  The entry
-points run on the card by default (`device="cuda"`) and raise when CUDA is
-absent; tests pass device="cpu" explicitly.
+Layer i is a block of type block_pattern[i % len(pattern)]: the JAX
+package's full pattern groups followed by its partial tail group (e.g.
+RecurrentGemma's 38 = 12 x (rec, rec, attn) + (rec, rec)), in the same
+order.  Parameters are plain dicts of tensors: {"embed", "final_norm",
+"layers": [block params per layer], and "head" when embeddings are untied}.
+Caches are {"layers": [per-layer cache dict]} and are updated in place: an
+attention layer's K/V rows, a recurrent layer's state.  The entry points run
+on the card by default (`device="cuda"`) and raise when CUDA is absent;
+tests pass device="cpu" explicitly.
 """
 
 from __future__ import annotations
@@ -32,11 +37,23 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or tuple(cfg.block_pattern) != ("attn",):
+    if cfg.family not in ("dense", "moe", "rwkv", "hybrid") or not all(
+            t in blocks.BLOCKS for t in cfg.block_pattern):
         raise NotImplementedError(
             f"family {cfg.family!r} / pattern {cfg.block_pattern} waits for its "
             "family's slice (ROADMAP, modules to port: other model families)"
         )
+
+
+def layer_types(cfg: ModelConfig) -> list[str]:
+    """The block type of every layer, in order: the pattern's full groups,
+    then its partial tail group."""
+    pat = cfg.block_pattern
+    return [pat[i % len(pat)] for i in range(cfg.num_layers)]
+
+
+def attention_only(cfg: ModelConfig) -> bool:
+    return all(t == "attn" for t in cfg.block_pattern)
 
 
 def model_init(cfg: ModelConfig, enc: packed.EncodingConfig, *, seed: int = 0,
@@ -54,8 +71,8 @@ def model_init(cfg: ModelConfig, enc: packed.EncodingConfig, *, seed: int = 0,
     params = {
         "embed": (d**-0.5 * torch.randn((v_pad, d), generator=gen, device=device)).to(dt),
         "final_norm": L.norm_init(cfg, device=device),
-        "layers": [blocks.attn_block_init(gen, cfg, enc, device=device)
-                   for _ in range(cfg.num_layers)],
+        "layers": [blocks.BLOCKS[t][0](gen, cfg, enc, device=device)
+                   for t in layer_types(cfg)],
     }
     if not cfg.tie_embeddings:
         params["head"] = packed.linear_init(gen, d, v, enc=enc, dtype=dt, device=device)
@@ -65,22 +82,26 @@ def model_init(cfg: ModelConfig, enc: packed.EncodingConfig, *, seed: int = 0,
 def cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, cache_mode: str = "dense",
                block_size: int = 16, num_pages: int | None = None, kv_quant: str = "bf16",
                device: torch.device | str = "cuda") -> dict:
-    """Per-layer caches.  "dense": (batch, max_seq) K/V rows in the
-    activation dtype (the dense serving cache, and the paged engine's
-    temporary prefill cache), a ring of min(max_seq, window) rows under a
-    sliding window.  "paged": one page pool per layer plus a block
-    table shared by all layers (page 0 is scratch); `kv_quant` kv8/kv4 pools
-    carry float32 scale pages (layers.attn_paged_cache_init).  Quantized
-    layouts live in the paged pool only, as in the JAX package."""
+    """Per-layer caches.  "dense": an attention layer's (batch, max_seq) K/V
+    rows in the activation dtype (the dense serving cache, and the paged
+    engine's temporary prefill cache), a ring of min(max_seq, window) rows
+    under a sliding window; a recurrent layer's state (zero).  "paged": one
+    page pool per layer plus a block table shared by all layers (page 0 is
+    scratch), for attention-only patterns; `kv_quant` kv8/kv4 pools carry
+    float32 scale pages (layers.attn_paged_cache_init).  Quantized layouts
+    live in the paged pool only, as in the JAX package."""
     _check_family(cfg)
     device = resolve_device(device)
     if cache_mode == "dense":
         if kv_quant != "bf16":
             raise ValueError(f"quantized KV layouts need the paged cache, got {kv_quant!r}")
-        return {"layers": [L.attn_cache_init(cfg, batch, max_seq, device=device)
-                           for _ in range(cfg.num_layers)]}
+        return {"layers": [blocks.BLOCKS[t][2](cfg, batch, max_seq, device=device)
+                           for t in layer_types(cfg)]}
     if cache_mode != "paged":
         raise ValueError(f"cache_mode must be 'dense' or 'paged', got {cache_mode!r}")
+    if not attention_only(cfg):
+        raise ValueError("the paged KV cache needs an attention-only pattern; recurrent "
+                         f"families keep dense state, got {cfg.block_pattern}")
     if num_pages is None:
         num_pages = 1 + batch * (-(-max_seq // block_size))
     kw = dict(block_size=block_size, num_pages=num_pages, device=device, kv_quant=kv_quant)
@@ -90,31 +111,71 @@ def cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, cache_mode: str = 
     return {"layers": [first] + rest}
 
 
+def layer_weight_shapes(cfg: ModelConfig, block: str) -> list[tuple[int, int]]:
+    """(N, K) of every projection weight a layer of type `block` holds, in
+    init order (an MoE layer's router, of shape (E, D), comes first of its
+    FFN's; each expert's three weights follow)."""
+    d, f = cfg.d_model, cfg.d_ff
+    ffn = [(f, d), (f, d), (d, f)] if cfg.mlp_kind == "swiglu" else [(f, d), (d, f)]
+    if block == "rwkv":
+        return [(d, d)] * 5 + [(f, d), (d, f), (d, d)]
+    if block == "rec":
+        rw = cfg.rnn_width or d
+        return [(rw, d), (rw, d), (rw, rw), (rw, rw), (d, rw)] + ffn
+    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    shapes = [(hd, d), (kvd, d), (kvd, d), (d, hd)]
+    if cfg.num_experts:
+        return shapes + [(cfg.num_experts, d)] + ffn * cfg.num_experts
+    return shapes + ffn
+
+
+def zero_state(cfg: ModelConfig, caches: dict) -> dict:
+    """Zero every recurrent layer's state in `caches` in place (attention
+    K/V rows are left as they are: their position masks hide them) and
+    return `caches`."""
+    for t, layer in zip(layer_types(cfg), caches["layers"]):
+        if t != "attn":
+            for leaf in layer.values():
+                leaf.zero_()
+    return caches
+
+
+def cache_bytes(caches: dict) -> int:
+    """Bytes of every leaf of `caches`: K/V rows, pools and recurrent state."""
+    return sum(leaf.numel() * leaf.element_size()
+               for layer in caches["layers"] for leaf in layer.values())
+
+
 def decode_weight_stream_bytes(cfg: ModelConfig, enc: packed.EncodingConfig) -> dict[str, int]:
     """Weight bytes one decode step reads from device memory: every layer's
     projections in `enc`'s weight format (encoding.quant_weight_stream_bytes)
     and the head (the tied embedding in the activation dtype).  An MoE
     layer streams its router (f32 in the unquantized formats) and all E
-    experts: every expert runs on its capacity rows at every step."""
+    experts: every expert runs on its capacity rows at every step.  An RWKV
+    layer streams its 5 time-mix and 3 channel-mix projections and its f32
+    decay LoRA; an RG-LRU layer its 5 projections and its MLP."""
     _check_family(cfg)
     quant = packed.QUANT_KEYS[enc.weight_quant] if enc.enabled else "none"
     itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
-    d, f = cfg.d_model, cfg.d_ff
-    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    shapes = [(hd, d), (kvd, d), (kvd, d), (d, hd)]
-    ffn = [(f, d), (f, d), (d, f)] if cfg.mlp_kind == "swiglu" else [(f, d), (d, f)]
-    shapes += ffn * max(1, cfg.num_experts)
+    d = cfg.d_model
 
     def stream(n, k, size=itemsize):
         return encoding.quant_weight_stream_bytes(n, k, quant=quant, weight_itemsize=size,
                                                   group=enc.quant_group)
 
-    per_layer = sum(stream(n, k) for n, k in shapes)
-    if cfg.num_experts:
-        per_layer += stream(cfg.num_experts, d, size=4)
+    def per_layer(block):
+        shapes = layer_weight_shapes(cfg, block)
+        if block == "attn" and cfg.num_experts:
+            router = shapes.pop(4)
+            return stream(*router, size=4) + sum(stream(n, k) for n, k in shapes)
+        total = sum(stream(n, k) for n, k in shapes)
+        if block == "rwkv":
+            total += 2 * d * max(16, d // 32) * 4  # w_lora_a, w_lora_b
+        return total
+
     v = cfg.vocab_size
     head = (v + (-v) % 256) * d * itemsize if cfg.tie_embeddings else stream(v, d)
-    return {"projections": cfg.num_layers * per_layer, "head": head}
+    return {"projections": sum(per_layer(t) for t in layer_types(cfg)), "head": head}
 
 
 def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
@@ -132,8 +193,8 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
     last_logits_only."""
     x = params["embed"][tokens].to(cfg.activation_dtype)
     layer_caches = caches["layers"] if caches is not None else [None] * len(params["layers"])
-    for lp, lc in zip(params["layers"], layer_caches):
-        x = blocks.attn_block_apply(lp, x, cfg=cfg, enc=enc, phase=phase, cache=lc, pos=pos)
+    for t, lp, lc in zip(layer_types(cfg), params["layers"], layer_caches):
+        x = blocks.BLOCKS[t][1](lp, x, cfg=cfg, enc=enc, phase=phase, cache=lc, pos=pos)
     if logits_idx is not None:
         idx = logits_idx.to(device=x.device, dtype=torch.int64)
         x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))

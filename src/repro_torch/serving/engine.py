@@ -74,6 +74,14 @@ models route every dispatch's rows, dead slots included, through the
 capacity-bounded dispatch (models/layers.moe_apply): the engine keeps the
 JAX engine's batch shapes in every decode mode, so the same rows drop.
 
+The recurrent families (RWKV-6; RecurrentGemma's RG-LRU layers beside
+its windowed attention) serve on the dense cache with grouped decode and
+prefill one admission at a time, as resolve() routes them in JAX: their
+state has no position mask.  Every dense admission starts its slot's
+recurrent state from zero.  The JAX engine prefills from the state the
+slot's previous request left behind, so a reused slot emits other tokens
+there; the port diverges from it on purpose (ROADMAP Queue 3, item 1).
+
 Not in this slice (raises NotImplementedError at construction, naming its
 ROADMAP slice): meshes larger than one card.
 """
@@ -218,14 +226,18 @@ class TokenBudgetScheduler:
         return chunks
 
 
+def _rows(caches: dict, rows: list[int]) -> torch.Tensor:
+    """`rows` as an index tensor on the caches' device."""
+    leaf = next(iter(caches["layers"][0].values()))
+    return torch.as_tensor(rows, dtype=torch.long, device=leaf.device)
+
+
 def slot_gather(caches: dict, slots_sel: list[int]) -> dict:
-    """Batch rows `slots_sel` of every dense cache leaf, as one gather per
-    leaf (a copy)."""
-    out = []
-    for layer in caches["layers"]:
-        idx = torch.as_tensor(slots_sel, dtype=torch.long, device=layer["k"].device)
-        out.append({name: leaf[idx] for name, leaf in layer.items()})
-    return {"layers": out}
+    """Batch rows `slots_sel` of every dense cache leaf (K/V rows and
+    recurrent state alike), as one gather per leaf (a copy)."""
+    idx = _rows(caches, slots_sel)
+    return {"layers": [{name: leaf[idx] for name, leaf in layer.items()}
+                       for layer in caches["layers"]]}
 
 
 def slot_slice(caches: dict, s: int) -> dict:
@@ -237,11 +249,9 @@ def slot_merge(caches: dict, part: dict, slots_sel: list[int],
     """Write batch rows `src_idx` (default: the same as slots_sel) of `part`
     into rows `slots_sel` of `caches`, in place: one gather and one scatter
     per leaf."""
-    src = slots_sel if src_idx is None else src_idx
+    dst_t = _rows(caches, slots_sel)
+    src_t = _rows(caches, slots_sel if src_idx is None else src_idx)
     for full, p in zip(caches["layers"], part["layers"]):
-        dev = full["k"].device
-        dst_t = torch.as_tensor(slots_sel, dtype=torch.long, device=dev)
-        src_t = torch.as_tensor(src, dtype=torch.long, device=dev)
         for name, leaf in full.items():
             leaf[dst_t] = p[name][src_t]
 
@@ -257,7 +267,8 @@ def make_chunked_prefill_step(cfg, enc: EncodingConfig, *, chunk: int = 512) -> 
     a sliding window is refused with JAX's message.  Under a window the
     port's chunks attend the last min(pos, S_c) positions of the ring (JAX's
     windowed prefill attends none), so a chunk of at least the window equals
-    the single-shot prefill."""
+    the single-shot prefill.  Recurrent layers carry their state from chunk
+    to chunk in the caches."""
     if 0 < chunk < cfg.sliding_window:
         raise ValueError(
             f"chunked prefill requires sliding_window <= chunk: window "
@@ -707,7 +718,9 @@ class Engine:
         it; co-batched slots see the poison only through a page they share.
         Integer pools (kv8, kv4) cannot hold a NaN: their data pages get the
         dtype's largest value and the float32 scale pages NaN, so the
-        dequantized K/V are still non-finite.  Tables are never touched."""
+        dequantized K/V are still non-finite.  Tables are never touched.  A
+        dense cache follows the JAX engine's rule on every leaf, K/V rows
+        and recurrent state alike: leaf[s, pos mod leaf.shape[1]] = NaN."""
         if self.cache_mode == "paged":
             if not self.slot_pages[s]:
                 return
@@ -722,7 +735,7 @@ class Engine:
         else:
             pos = max(int(self.slot_pos[s]) - 1, 0)
             for layer in self.caches["layers"]:
-                for leaf in (layer["k"], layer["v"]):
+                for leaf in layer.values():
                     leaf[s, pos % leaf.shape[1]] = float("nan")
 
     # ---- paged admission / page management ------------------------------------
@@ -1511,7 +1524,8 @@ class Engine:
         two, at most max_seq) through their own cache rows (slot_gather /
         slot_merge): pad tokens write only slots the decode mask never reads
         before a real token lands there.  A lone admission (or batch_prefill
-        off) prefills its exact prompt."""
+        off) prefills its exact prompt.  Each admission's recurrent state
+        starts from zero (T.zero_state), never from its slot's last request."""
         free = [s for s in range(self.slots) if self.slot_req[s] is None]
         batch: list[tuple[int, Request]] = []
         while free and self.queue:
@@ -1532,12 +1546,12 @@ class Engine:
             toks = np.zeros((len(batch), maxlen), np.int32)
             for i, (_, r) in enumerate(batch):
                 toks[i, : len(r.prompt)] = r.prompt
-            part = slot_gather(self.caches, slots_sel)
+            part = T.zero_state(self.cfg, slot_gather(self.caches, slots_sel))
             self._dispatch("prefill", self._prefill, self._tensor(toks), part)
             slot_merge(self.caches, part, slots_sel, list(range(len(batch))))
         else:
             for s, r in batch:
-                part = slot_slice(self.caches, s)
+                part = T.zero_state(self.cfg, slot_slice(self.caches, s))
                 toks = np.asarray(r.prompt, np.int32)[None]
                 self._dispatch("prefill", self._prefill, self._tensor(toks), part)
                 slot_merge(self.caches, part, [s], [0])

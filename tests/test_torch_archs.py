@@ -125,6 +125,39 @@ def test_mixtral_config_matches_jax_and_its_assignment():
     assert cfg.capacity_factor == 1.25 and cfg.rope_theta == 1e6
 
 
+# Each arch's assigned hyperparameters: (layers, d_model, heads, kv heads,
+# head dim, d_ff, vocab, pattern, window, tied head).
+ASSIGNED = {
+    "grok-1-314b": (64, 6144, 48, 8, 128, 32768, 131072, ("attn",), 0, False),
+    "rwkv6-1.6b": (24, 2048, 32, 32, 64, 7168, 65536, ("rwkv",), 0, False),
+    "recurrentgemma-9b": (38, 4096, 16, 1, 256, 12288, 256000, ("rec", "rec", "attn"), 2048,
+                          True),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(ASSIGNED))
+def test_recurrent_and_grok_configs_match_jax(arch):
+    """Grok-1-314B (hf:xai-org/grok-1), RWKV6-1.6B (arXiv:2404.05892) and
+    RecurrentGemma-9B (arXiv:2402.19427): the JAX config field by field,
+    reduced too, and the assigned hyperparameters.  RecurrentGemma's
+    reduced() keeps the tail remainder: 38 = 12 x 3 + 2 at full size, 8 =
+    2 x 3 + 2 reduced."""
+    cfg, jcfg = cfg_registry.get_config(arch), jcfg_registry.get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert (dataclasses.asdict(cfg_registry.get_reduced(arch))
+            == dataclasses.asdict(jcfg_registry.get_reduced(arch)))
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab_size, cfg.block_pattern, cfg.sliding_window,
+            cfg.tie_embeddings) == ASSIGNED[arch]
+    if arch == "grok-1-314b":
+        assert (cfg.num_experts, cfg.experts_per_token, cfg.rope_theta) == (8, 2, 1e4)
+    if arch == "rwkv6-1.6b":
+        assert (cfg.rwkv_head_dim, cfg.norm_kind) == (64, "layernorm")
+    if arch == "recurrentgemma-9b":
+        assert (cfg.rnn_width, cfg.conv_width) == (4096, 4)
+        assert cfg_registry.get_reduced(arch).num_layers == 8
+
+
 def test_registry_refuses_unknown_arch():
     with pytest.raises(KeyError, match="unknown arch 'gpt-7'; ported so far"):
         cfg_registry.get_config("gpt-7")

@@ -109,3 +109,31 @@ def test_split_range_covers_a_band_once(first, n_live):
     rs = [attn.decode_split_range(s, splits, kps, n_live, first) for s in range(splits)]
     assert all(lo >= first and (lo - first) % KT == 0 and lo <= hi for lo, hi in rs)
     assert [t for lo, hi in rs for t in range(lo, hi)] == list(range(first, n_live))
+
+
+@pytest.mark.parametrize("kind,b,L,live", [
+    ("ring decode", 4, 1, 2048), ("ring decode", 1, 1, 2048), ("grouped decode", 4, 1, 2048),
+    ("prefill", 1, 2560, 2560), ("prefill", 1, 500, 500), ("prefill", 1, 37, 137),
+])
+def test_plan_at_head_dim_256(kind, b, L, live):
+    """RecurrentGemma's local attention (D = 256, 16 query heads on one kv
+    head, G = 16, a 2048-slot ring): the split plan covers every key of
+    every row once, and each launch's shared memory (Geo in
+    csrc/decode_attn.cuh, mirrored by attn.decode_smem_bytes) stays within
+    the H100's 227 KB a block, bf16 double-buffered and f32 single-buffered
+    on the CUDA cores (which take D = 256: csrc/decode_attn.cuh,
+    launch_path)."""
+    kvh, g, d = 1, 16, 256
+    splits, kps = attn.decode_split_plan(b, kvh, L, g, live)
+    tiles = -(-(L * g) // attn.DECODE_TILE_ROWS)
+    assert splits == 1 or b * kvh * tiles * splits >= TARGET or splits == -(-live // KT)
+    for last in {0, 1, live // 3, live - 1}:
+        _check_cover(splits, kps, last + 1)
+    qt = min(attn.DECODE_TILE_ROWS, L * g)
+    for itemsize, nbuf in ((2, 2), (4, 1)):
+        smem, got_nbuf = attn.decode_smem_bytes(itemsize, d, qt, tc=False)
+        assert smem <= attn.SMEM_MAX and got_nbuf == nbuf
+    # Every head dim below keeps two buffers on either path.
+    for dd in attn.HEAD_DIMS:
+        for tc, kv in ((True, "bf16"), (False, "bf16"), (True, "kv8"), (False, "kv4")):
+            assert attn.decode_smem_bytes(2, dd, qt, tc=tc, kv_quant=kv)[1] == 2

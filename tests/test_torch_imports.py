@@ -42,6 +42,8 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.qwen2_5_32b",
                 "repro_torch.configs.yi_9b", "repro_torch.configs.mixtral_8x22b",
                 "repro_torch.models.blocks", "repro_torch.models.layers",
+                "repro_torch.models.recurrent", "repro_torch.configs.grok_1_314b",
+                "repro_torch.configs.rwkv6_1_6b", "repro_torch.configs.recurrentgemma_9b",
                 "repro_torch.launch.profile_decode"):
         assert mod in got["modules"]
 
