@@ -66,9 +66,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
              Sk = 2560, the ring dense decode at S_c = 2048 with rows before
              and past the wrap) and the projections at RecurrentGemma's and
              RWKV6-1.6B's K x N (and RWKV's untied head) at rows 1, 4 and
-             2048.  Every bf16 attention row, at every shape, is held
-             element by element to bf16_attn_limit (kv8/kv4 rows against
-             the dequantized K/V), every f32 one to 1e-4;
+             2048; then Whisper-tiny's and InternVL2-26B's shapes: flash
+             prefill with causal=False at the encoder's Sq = Sk = 1500
+             (G = 1, a partial last key tile) and as cross attention (Sq =
+             64, 448 over Sk = 1500), the dense decode over a 1500-row cross
+             cache at pos 1499 and InternVL's (D = 128, G = 6, S_c = 1024),
+             and the projections at both models' K x N (K = 384, 1536, 3200,
+             6144, 16384; the untied heads N = 51865, 92553) at rows 1, 4
+             and their prefill rows.  Every bf16 attention row, at every
+             shape, is held element by element to bf16_attn_limit (kv8/kv4
+             rows against the dequantized K/V), every f32 one to 1e-4;
   3. forward a depth-2, full-width f32 model served through the kernels and
              through the plain backends on the card: identical tokens, for
              the phase-split engine and for speculative decode (registry
@@ -97,7 +104,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
              rec, rec, attn group), full width, f32, 4 slots, phase 12's 9
              requests (a 2500-token prompt past the 2048 window; every slot
              reused), and Grok-1-314B at depth 1 on the paged cache and
-             with spec decode: kernel tokens == plain tokens in each;
+             with spec decode: kernel tokens == plain tokens in each; then
+             Whisper-tiny at full width and depth and InternVL2-26B at
+             depth 2 of 48, f32, through models/transformer.greedy_generate
+             (4 requests, frames or patches from --seed, 8 new): kernel
+             tokens == plain tokens;
   4. serve   the full-depth, full-width bf16 Llama-3.2-1B (random weights from
              --seed): 8 requests, half sharing a 256-token prefix so the second
              wave runs the suffix prefill;
@@ -143,7 +154,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
              paged, phase 4's trace and spec decode on phase 5's prompts;
              with tokens/s, step p50/p99 by kind, the weight bytes a
              decode step streams, the cache bytes a slot holds and the
-             launches by layer type.
+             launches by layer type;
+ 13. encdec-vlm Whisper-tiny (4 encoder + 4 decoder layers, 1500 frames)
+             and InternVL2-26B (48 layers, 256 patches, ~40 GB) at full
+             width and depth in bf16 through greedy_generate (the engine
+             takes tokens only, as the JAX engine does): 4 requests, 4-64
+             / 100-500 text tokens, 32 new; tokens/s, prefill ms (and the
+             Whisper encoder's own), decode-step p50/p99, peak memory, the
+             weight bytes a decode step streams, the cache bytes a slot;
+             launches == forward_tally by layer type (an encoder layer 6
+             projections and a non-causal flash, a decoder layer 10 at
+             prefill and 8 at decode, a causal and a non-causal flash at
+             prefill, two dense decodes a step: self and cross).
 
 In phases 4 to 9, 11 and 12 every kernel's launch count (per KV layout for the
 decode kernels), set to 0 before each run and read after it, must equal the
@@ -157,7 +179,7 @@ packed projections run their GEMMs' plain-row entries), and every other
 kernel of the table but batch_mmt4d must have launched in these runs.
 Every model made on the card must launch one weight pack per projection
 weight (two for int4: codes and scales); the table's pack launches are
-those of the models of phases 4-9, 11 and 12.
+those of the models of phases 4-9 and 11-13.
 
 The third line from the end is the kernel table as JSON, the next the card's
 name and power limit, and the last {"ok": true, "device": {...}}.  Details go
@@ -1508,26 +1530,33 @@ def check_sampler(torch, dev, timer) -> dict:
 
 def layer_projections(cfg, block: str) -> int:
     """Projection weights a layer of type `block` holds: an attention
-    layer's 4 projections, then 3 (SwiGLU) or, for an MoE layer, the router
-    and 3 a expert; an RG-LRU layer's 5 and its SwiGLU's 3; an RWKV layer's
-    5 time-mix and 3 channel-mix projections."""
+    layer's 4 projections, then its MLP's 3 (SwiGLU) or 2 (GELU) or, for an
+    MoE layer, the router and 3 a expert; an RG-LRU layer's 5 and its
+    SwiGLU's 3; an RWKV layer's 5 time-mix and 3 channel-mix projections;
+    an encoder layer's 4 and its MLP's (6 for Whisper); an enc-dec decoder
+    layer's 4 self and 4 cross projections and its MLP's (10)."""
+    ffn = 3 if cfg.mlp_kind == "swiglu" else 2
     if block in ("rec", "rwkv"):
         return 8
-    return 4 + (1 + 3 * cfg.num_experts if cfg.num_experts else 3)
+    if block == "encdec_attn":
+        return 8 + ffn
+    return 4 + (1 + 3 * cfg.num_experts if cfg.num_experts else ffn)
 
 
 def init_model(cfg, enc, seed: int, dev):
     """T.model_init on the card, where every projection weight is packed by
     the pack kernel (int4 packs its codes and its scales): its launches must
     equal the weights made, layer_projections of every layer (+1 for an untied
-    head), doubled for int4; the layers by their block type."""
+    head; an enc-dec model's encoder layers, a VLM's 2 projector weights),
+    doubled for int4; the layers by their block type."""
     from repro_torch.kernels import pack
     from repro_torch.models import transformer as T
 
     before = pack.pack.launches
     params = T.model_init(cfg, enc, seed=seed, device=dev)
     weights = (sum(layer_projections(cfg, t) for t in T.layer_types(cfg))
-               + (0 if cfg.tie_embeddings else 1))
+               + cfg.encoder_layers * layer_projections(cfg, "enc_attn")
+               + (2 if cfg.family == "vlm" else 0) + (0 if cfg.tie_embeddings else 1))
     want = weights * (2 if enc.weight_quant == "int4" else 1)
     got = pack.pack.launches - before
     if got != want:
@@ -2861,6 +2890,401 @@ def serve_recurrent(torch, dev, seed: int) -> dict:
     return runs
 
 
+# Whisper-tiny (enc-dec) and InternVL2-26B (VLM): the K x N of their
+# projections with the rows phase 13 gives each.  Whisper: q/k/v/o 384 x
+# 384, up 384 x 1536, down 1536 x 384 at 1 and 4 decode rows (fused_gemv)
+# and at the encoder's 4 x 1500 rows and a 4 x 64 decoder prefill
+# (fused_pack_mmt4d); its untied head 384 x 51865 at 1 and 4 decode rows and
+# at the prefill's 4 logit rows.  InternVL: q/o 6144 x 6144, k/v 6144 x
+# 1024, gate/up 6144 x 16384, down 16384 x 6144 at 1, 4 and a 4 x (256 +
+# 500)-row prefill; the head 6144 x 92553 at 1, 4 and 4 prefill rows; the
+# projector's fc1 3200 x 6144 and fc2 at its 4 x 256 patch rows.
+# (K, N, decode rows, prefill rows) per model.
+ENCDEC_VLM_KN = {
+    "whisper": [(384, 384, (1, 4), (256, 6000)), (384, 1536, (1, 4), (256, 6000)),
+                (1536, 384, (1, 4), (256, 6000)), (384, 51865, (1, 4), (4,))],
+    "internvl": [(6144, 6144, (1, 4), (1024, 3024)), (6144, 1024, (1, 4), (3024,)),
+                 (6144, 16384, (1, 4), (3024,)), (16384, 6144, (1, 4), (3024,)),
+                 (6144, 92553, (1, 4), (4,)), (3200, 6144, (), (1024,))],
+}
+WHISPER_PROMPTS = (4, 64)     # text prompt lengths, with 1500 frames
+INTERNVL_PROMPTS = (100, 500)  # text after 256 patches
+WHISPER_MAX_SEQ = 448          # Whisper's decoder context
+
+
+def check_encdec_vlm_shapes(torch, dev, target, timer, results: dict) -> None:
+    """Phase 2, the shapes Whisper-tiny and InternVL2-26B give the kernels:
+    flash prefill with causal=False (never run causally off in a serving
+    path before) at Whisper's encoder (B = 4, Sq = Sk = 1500: a partial last
+    key tile, H = KV = 6, G = 1, D = 64) and as cross attention (Sq = 64
+    and 448 over Sk = 1500); the dense decode over a 1500-row cross cache at
+    pos = 1499 (every key, G = 1) and InternVL's self decode (D = 128, G =
+    6, S_c = 1024); bf16 element by element to bf16_attn_limit, f32 to 1e-4,
+    SDPA without a mask (or with the decode's) as the library time.  Then
+    the projections (ENCDEC_VLM_KN) in bf16, to 1e-3, matmul as the library
+    time."""
+    from repro_torch.kernels import attn, fused_gemv, fused_pack_mmt4d, ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def rnd(*shape, scale=1.0, dt=torch.bfloat16):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
+
+    b, h, d, te = 4, 6, 64, 1500
+    for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        s = 2 if dname == "bf16" else 4
+        k, v = rnd(b, te, h, d, dt=dt), rnd(b, te, h, d, dt=dt)
+        for sq in (te, 64, 448):
+            q = rnd(b, sq, h, d, dt=dt)
+            what = "encoder" if sq == te else "cross"
+            attn_row(torch, timer, results, target, "flash_prefill_attention",
+                     f"whisper {what} {dname} B={b} Sq={sq} Sk={te} G=1 causal=False",
+                     lambda: attn.flash_prefill_attention(q, k, v, causal=False),
+                     lambda: attn.flash_prefill_attention_plain(q, k, v, causal=False),
+                     q=q, k=k, v=v,
+                     valid=torch.ones(b, sq, te, dtype=torch.bool, device=dev),
+                     library_ms=timer.ms(sdpa_call(torch, q, k, v, None, 1)),
+                     bytes_moved=(2 * b * sq * h * d + 2 * b * te * h * d) * s,
+                     flops=4 * b * h * d * sq * te, dname=dname, plain_iters=3)
+            del q
+        q = rnd(b, 1, h, d, dt=dt)
+        pos = torch.full((b,), te - 1, dtype=torch.int32, device=dev)
+        valid = decode_valid(torch, pos, 1, te)
+        attn_row(torch, timer, results, target, "dense_decode_attention",
+                 f"whisper cross {dname} B={b} S_c={te} G=1 pos={te - 1} L=1",
+                 lambda: attn.dense_decode_attention(q, k, v, te - 1),
+                 lambda: attn.dense_decode_attention_plain(q, k, v, te - 1),
+                 q=q, k=k, v=v, valid=valid,
+                 library_ms=timer.ms(sdpa_call(torch, q, k, v, valid[:, None], 1)),
+                 bytes_moved=2 * b * h * d * s + 2 * b * te * h * d * s + b * 4,
+                 flops=4 * b * h * d * te, dname=dname)
+        del k, v, q
+        hv, kvh, dv, s_c = 48, 8, 128, 1024
+        pos = torch.tensor([400, 523, 700, 1023], dtype=torch.int32, device=dev)
+        k, v, q = rnd(b, s_c, kvh, dv, dt=dt), rnd(b, s_c, kvh, dv, dt=dt), rnd(b, 1, hv, dv, dt=dt)
+        valid = decode_valid(torch, pos, 1, s_c)
+        keys = int(valid.sum().item())
+        attn_row(torch, timer, results, target, "dense_decode_attention",
+                 f"internvl {dname} B={b} S_c={s_c} D={dv} G={hv // kvh} L=1",
+                 lambda: attn.dense_decode_attention(q, k, v, pos),
+                 lambda: attn.dense_decode_attention_plain(q, k, v, pos),
+                 q=q, k=k, v=v, valid=valid,
+                 library_ms=timer.ms(sdpa_call(torch, q, k, v, valid[:, None], hv // kvh)),
+                 bytes_moved=2 * b * hv * dv * s + 2 * keys * kvh * dv * s + b * 4,
+                 flops=4 * hv * dv * keys, dname=dname)
+        del k, v, q
+        torch.cuda.empty_cache()
+
+    for model, shapes in ENCDEC_VLM_KN.items():
+        for k, n, gemv_rows, gemm_rows in shapes:
+            w_t = rnd(n, k, scale=k**-0.5)
+            rhs4 = ref.pack(w_t, (128, 128))
+            # By list, not by row count: the heads' 4 prefill logit rows are
+            # also a decode row count, and run on the GEMM.
+            gemv = (fused_gemv.fused_gemv, fused_gemv.fused_gemv_plain)
+            gemm = (fused_pack_mmt4d.fused_pack_mmt4d, fused_pack_mmt4d.fused_pack_mmt4d_plain)
+            for m, (fn, plain) in ([(m, gemv) for m in gemv_rows]
+                                   + [(m, gemm) for m in gemm_rows]):
+                x = rnd(m, k)
+                got, want = fn(x, rhs4), plain(x, rhs4)
+                err = (got.float() - want.float()).abs().max().item()
+                del got, want
+                add_row(results, target, fn.__name__, f"{model} bf16 M={m} K={k} N={n}",
+                        err=err, tol=1e-3, ms=timer.ms(lambda: fn(x, rhs4)),
+                        plain_ms=timer.ms(lambda: plain(x, rhs4), iters=1 if m > 1000 else 3,
+                                          warmup=1),
+                        library_ms=timer.ms(lambda: torch.matmul(x, w_t.t())),
+                        bytes_moved=(m * k + n * k) * 2 + m * n * 4, flops=2 * m * n * k,
+                        dname="bf16")
+            del w_t, rhs4
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def frontend_inputs(torch, dev, cfg, rng) -> dict:
+    """Frames (B, 1500, d_model) for Whisper or patches (B, 256, 3200) for
+    InternVL, 4 rows drawn N(0, 0.1^2) from `rng` (as JAX's
+    tests/test_archs.py), in the activation dtype on the card."""
+    if cfg.family == "encdec":
+        name, shape = "frames", (4, cfg.frontend_tokens, cfg.d_model)
+    else:
+        name, shape = "patches", (4, cfg.frontend_tokens, cfg.frontend_dim)
+    x = (0.1 * rng.randn(*shape)).astype("float32")
+    return {name: torch.from_numpy(x).to(dev, cfg.activation_dtype)}
+
+
+def encdec_vlm_prompts(rng, cfg) -> list:
+    """4 text prompts: 4-64 tokens for Whisper, 100-500 for InternVL."""
+    lo, hi = WHISPER_PROMPTS if cfg.family == "encdec" else INTERNVL_PROMPTS
+    return [rng.randint(1, cfg.vocab_size, int(n)).astype("int32")
+            for n in rng.randint(lo, hi + 1, 4)]
+
+
+def encdec_vlm_max_seq(cfg) -> int:
+    return WHISPER_MAX_SEQ if cfg.family == "encdec" else 1024
+
+
+def encdec_vlm_forward_check(torch, dev, seed: int) -> dict:
+    """Phase 3, Whisper-tiny at full width and depth (4 encoder, 4 decoder
+    layers) and InternVL2-26B at full width, depth 2 of 48 (~8 GB in f32),
+    f32, through models/transformer.greedy_generate (forward on dense
+    caches: the engine takes tokens only): 4 requests, frames or patches
+    N(0, 0.1^2) from the seed, 8 greedy tokens each, through the kernels
+    (backend "fused", attention "auto": flash prefill non-causal for the
+    encoder and cross attention, the dense decode over the cross cache) and
+    through the plain backends ("reference", "xla").  Tokens identical."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.kernels import attn
+    from repro_torch.models import transformer as T
+
+    plain = EncodingConfig(backend="reference", attn_backend="xla")
+    kernels = EncodingConfig(backend="fused", attn_backend="auto")
+    outs = {}
+    for arch, depth in (("whisper-tiny", None), ("internvl2-26b", 2)):
+        full = cfg_registry.get_config(arch)
+        cfg = dataclasses.replace(full, dtype="float32",
+                                  num_layers=depth or full.num_layers)
+        params = init_model(cfg, EncodingConfig(), seed, dev)
+        rng = np.random.RandomState(seed + 13)
+        extra = frontend_inputs(torch, dev, cfg, rng)
+        prompts = encdec_vlm_prompts(rng, cfg)
+        kw = dict(cfg=cfg, max_new=8, max_seq=encdec_vlm_max_seq(cfg), device=dev, **extra)
+        t0 = time.perf_counter()
+        before = attn.flash_prefill_attention.launches
+        want = T.greedy_generate(params, prompts, enc=plain, **kw)
+        if attn.flash_prefill_attention.launches != before:
+            raise AssertionError(f"{arch}: the plain backends launched flash prefill")
+        t1 = time.perf_counter()
+        noncausal = attn.flash_prefill_attention.launches_noncausal
+        got = T.greedy_generate(params, prompts, enc=kernels, **kw)
+        noncausal = attn.flash_prefill_attention.launches_noncausal - noncausal
+        same = got == want
+        log(f"[forward] {arch} depth-{cfg.num_layers} f32: kernel tokens == plain tokens "
+            f"(prompts {[len(p) for p in prompts]}, non-causal flash launches {noncausal}; "
+            f"plain {t1 - t0:.1f}s, kernels {time.perf_counter() - t1:.1f}s): {same}")
+        if not same:
+            raise AssertionError(f"{arch}: tokens differ: {got} vs {want}")
+        if (noncausal > 0) != (cfg.family == "encdec"):
+            raise AssertionError(f"{arch}: {noncausal} non-causal flash launches")
+        outs[arch] = got
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return outs
+
+
+def forward_tally(cfg, enc, *, b: int, s: int, max_new: int, max_seq: int):
+    """The launches one greedy_generate of `b` rows padded to `s` text
+    tokens should make, by (layer type, kernel), and the non-causal flash
+    launches among them, from each call's rows and the registry as
+    kernels/ops.py and models/layers.py route them.  Prefill: an enc-dec
+    model's encoder layers (6 projections at b x Te rows, one non-causal
+    flash), its decoder layers (8 projections at b x s rows, the cross wk
+    and wv at b x Te, a causal and a non-causal flash); a VLM's projector (2
+    projections at b x P rows) and its layers (7 at b x (P + s), one causal
+    flash); the untied head at the b logit rows.  Each of the max_new - 1
+    decode steps: 8 projections a decoder layer (self q/k/v/o, cross q/o,
+    MLP) and 2 dense decodes (self over max_seq slots, cross over Te), or 7
+    and 1 for a VLM layer; the head."""
+    import collections
+
+    from repro_torch.core.encoding import GEMV_MAX_ROWS, Phase
+    from repro_torch.kernels import registry
+
+    def mm(phase, rows):
+        be = registry.select(quant="none", phase=phase, m=rows, target=enc.target,
+                             requested=enc.resolved_backend()).backend
+        pair = MATMUL_KERNELS["none"].get(be)
+        return pair and pair[0 if phase is Phase.DECODE and rows <= GEMV_MAX_ROWS else 1]
+
+    def at(phase, keys):
+        be = registry.select_attn(phase=phase, s=keys, target=enc.target,
+                                  requested=enc.attn_backend).backend
+        if be != "pallas":
+            return None
+        return "flash_prefill_attention" if phase is Phase.PREFILL else "dense_decode_attention"
+
+    want = collections.Counter()
+    noncausal = 0
+
+    def add(block, kernel, n):
+        if kernel and n:
+            want[(block, kernel)] += n
+
+    pre, dec, steps = Phase.PREFILL, Phase.DECODE, max_new - 1
+    n = cfg.num_layers
+    if cfg.family == "encdec":
+        te, ne = cfg.frontend_tokens, cfg.encoder_layers
+        add("enc_attn", mm(pre, b * te), layer_projections(cfg, "enc_attn") * ne)
+        add("enc_attn", at(pre, te), ne)
+        per = layer_projections(cfg, "encdec_attn")
+        add("encdec_attn", mm(pre, b * s), (per - 2) * n)
+        add("encdec_attn", mm(pre, b * te), 2 * n)
+        add("encdec_attn", at(pre, s), n)
+        add("encdec_attn", at(pre, te), n)
+        add("encdec_attn", mm(dec, b), (per - 2) * n * steps)
+        add("encdec_attn", at(dec, max_seq), n * steps)
+        add("encdec_attn", at(dec, te), n * steps)
+        noncausal = ne + n if at(pre, te) else 0
+    else:
+        p = cfg.frontend_tokens
+        add("projector", mm(pre, b * p), 2)
+        per = layer_projections(cfg, "attn")
+        add("attn", mm(pre, b * (p + s)), per * n)
+        add("attn", at(pre, p + s), n)
+        add("attn", mm(dec, b), per * n * steps)
+        add("attn", at(dec, max_seq), n * steps)
+    if not cfg.tie_embeddings:
+        add("head", mm(pre, b), 1)
+        add("head", mm(dec, b), steps)
+    return want, noncausal
+
+
+def serve_encdec_vlm(torch, dev, seed: int) -> dict:
+    """Phase 13: Whisper-tiny (4 + 4 layers) and InternVL2-26B (48 layers,
+    ~40 GB) at full width and depth in bf16 through
+    models/transformer.greedy_generate (kernels: backend "fused", attention
+    "auto"): 4 requests each, Whisper 1500 frames and 4-64 text tokens
+    (max_seq 448), InternVL 256 patches and 100-500 text tokens (max_seq
+    1024), 32 new tokens.  Every launch count is set to 0 just before the
+    run and read just after: each kernel's launches equal the tally
+    (forward_tally, by layer type too), and flash prefill launched with
+    causal=False once an encoder layer and once a decoder layer.  Reports
+    tokens/s, the prefill ms and (Whisper) the encoder's own ms, decode-step
+    p50/p99 (host clock; this run's on_step synchronizes after each
+    forward), peak memory, the weight bytes a decode step streams and their
+    floor, the cache bytes a slot, and (torch.profiler, after the counted
+    run, with no synchronization between steps) the device launches and
+    busy ms of the prefill and of a decode step, and the step's idle
+    share."""
+    import collections
+
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core import targets
+    from repro_torch.core.encoding import Phase
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.kernels import attn
+    from repro_torch.models import transformer as T
+
+    enc = EncodingConfig(backend="fused", attn_backend="auto")
+    runs = {}
+    for arch in ("whisper-tiny", "internvl2-26b"):
+        cfg = cfg_registry.get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        params = init_model(cfg, enc, seed, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gib = (torch.cuda.memory_allocated(dev) - before) / 2**30
+        stream = T.decode_weight_stream_bytes(cfg, enc)
+        floor_ms = 1e3 * sum(stream.values()) / targets.H100.hbm_bytes_per_s
+        rng = np.random.RandomState(seed + 14)
+        extra = frontend_inputs(torch, dev, cfg, rng)
+        prompts = encdec_vlm_prompts(rng, cfg)
+        max_new, max_seq = 32, encdec_vlm_max_seq(cfg)
+        b, s = len(prompts), max(len(p) for p in prompts)
+        want, want_noncausal = forward_tally(cfg, enc, b=b, s=s, max_new=max_new,
+                                             max_seq=max_seq)
+        kernels = kernel_fns()
+        for k in kernels.values():
+            k.launches = 0
+        attn.flash_prefill_attention.launches_noncausal = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        stamps = []
+
+        def stamp():  # the host clock after the device has done each forward
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        tokens = T.greedy_generate(params, prompts, cfg=cfg, enc=enc, max_new=max_new,
+                                   max_seq=max_seq, device=dev, on_step=stamp, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prefill_ms = 1e3 * (stamps[1] - stamps[0])
+        launches = {name: k.launches for name, k in kernels.items()}
+        noncausal = attn.flash_prefill_attention.launches_noncausal
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        by_kernel = collections.Counter()
+        for (_, name), n in want.items():
+            by_kernel[name] += n
+        tallied = {name: by_kernel[name] for name in kernels}
+        if launches != tallied or noncausal != want_noncausal:
+            raise AssertionError(f"{arch}: launches {launches} (non-causal flash {noncausal}) "
+                                 f"!= tallied {tallied} ({want_noncausal})")
+        if (len(tokens) != b or any(len(t) != max_new for t in tokens)
+                or not all(0 <= x < cfg.vocab_size for t in tokens for x in t)):
+            raise AssertionError(f"{arch}: malformed tokens {tokens}")
+        n_tok = b * max_new
+        steps = 1e3 * np.diff(stamps[1:])
+        out = {"requests": b, "prompts": [len(p) for p in prompts], "tokens": n_tok,
+               "wall_s": wall, "tok_s": n_tok / wall, "prefill_ms": prefill_ms,
+               "decode_p50_ms": float(np.percentile(steps, 50)),
+               "decode_p99_ms": float(np.percentile(steps, 99)), "decode_steps": len(steps),
+               "peak_gib": peak_gib, "weights_gib": weights_gib, "init_s": init_s,
+               "stream_bytes": stream, "stream_floor_ms": floor_ms,
+               "cache_bytes_per_slot": T.cache_bytes(T.cache_init(cfg, 1, max_seq,
+                                                                  device="meta")),
+               "max_seq": max_seq, "layers": cfg.num_layers, "launches": launches,
+               "noncausal_flash": noncausal,
+               "launches_by_layer_type": {f"{blk} {name}": n
+                                          for (blk, name), n in sorted(want.items())},
+               "first_tokens": [t[:8] for t in tokens]}
+        # Device busy time by torch.profiler (outside the counted run): a
+        # prefill alone, then prefill and every decode step; the difference
+        # over the steps is a decode step's launches and busy ms.
+        prof = {}
+        for n in (1, max_new):
+            prof[n] = profiled(torch, lambda n=n: T.greedy_generate(
+                params, prompts, cfg=cfg, enc=enc, max_new=n, max_seq=max_seq, device=dev,
+                **extra))
+        if prof[1][1] is not None:
+            step_busy = (prof[max_new][1] - prof[1][1]) / (max_new - 1)
+            out["profile"] = {
+                "prefill_launches": prof[1][0], "prefill_busy_ms": prof[1][1],
+                "decode_step_launches": (prof[max_new][0] - prof[1][0]) / (max_new - 1),
+                "decode_step_busy_ms": step_busy,
+                "decode_idle_share": 1 - step_busy / out["decode_p50_ms"]}
+            log(f"[encdec-vlm] {cfg.name} profile: prefill {prof[1][0]} device launches, "
+                f"busy {prof[1][1]:.2f} ms; a decode step "
+                f"{out['profile']['decode_step_launches']:.0f} launches, busy {step_busy:.3f} "
+                f"ms, idle {out['profile']['decode_idle_share']:.3f} of its p50")
+        if cfg.family == "encdec":
+            enc_ms = []
+            for _ in range(4):  # the encoder on its own, outside the counted run
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with torch.no_grad():
+                    T._run_encoder(params, extra["frames"], cfg, enc, Phase.PREFILL)
+                torch.cuda.synchronize()
+                enc_ms.append(1e3 * (time.perf_counter() - t1))
+            out["encoder_ms"] = float(np.median(enc_ms[1:]))
+        log(f"[encdec-vlm] {cfg.name} depth {cfg.num_layers} bf16: init {init_s:.1f}s, "
+            f"{weights_gib:.2f} GiB; {b} requests (prompts {out['prompts']}), {n_tok} tokens "
+            f"in {wall:.3f}s ({out['tok_s']:.1f} tok/s incl. prefill); prefill "
+            f"{prefill_ms:.1f} ms" + (f" (the encoder alone {out['encoder_ms']:.2f} ms)"
+                                            if "encoder_ms" in out else "")
+            + f"; decode p50 {out['decode_p50_ms']:.2f} p99 {out['decode_p99_ms']:.2f} ms; "
+            f"peak {peak_gib:.2f} GiB; a decode step streams {sum(stream.values()) / 1e9:.4f} "
+            f"GB (floor {floor_ms:.3f} ms); cache bytes a slot {out['cache_bytes_per_slot']}")
+        log(f"[encdec-vlm] {cfg.name}: launches {launches} == tallied, non-causal flash "
+            f"{noncausal}; by layer type {out['launches_by_layer_type']}")
+        runs[arch] = out
+        del params, extra
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
 def chaos_check(torch, dev, seed: int) -> dict:
     """Phase 10, the chaos harness on the card: Qwen2-1.5B at full width,
     depth 2, f32, nonzero biases, served through the kernels (backend
@@ -3008,6 +3432,9 @@ def main() -> int:
     t1 = time.perf_counter()
     check_recurrent_shapes(torch, dev, targets.H100, timer, results)
     log(f"[kernel] recurrent shapes (head dim 256) checked in {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    check_encdec_vlm_shapes(torch, dev, targets.H100, timer, results)
+    log(f"[kernel] Whisper and InternVL shapes checked in {time.perf_counter() - t1:.1f}s")
     check_pack_kernels(torch, dev, targets.H100, timer, results)
     sampler = check_sampler(torch, dev, timer)
     log(f"[kernel] checks done in {time.perf_counter() - t0:.1f}s")
@@ -3020,6 +3447,7 @@ def main() -> int:
     dense_forward = dense_family_forward_check(torch, dev, args.seed)
     moe_forward = moe_forward_check(torch, dev, args.seed)
     recurrent_forward = recurrent_forward_check(torch, dev, args.seed)
+    encdec_vlm_forward = encdec_vlm_forward_check(torch, dev, args.seed)
     loads = len(WEIGHT_PACKS)  # models made before the serving phases
     served = serve(torch, dev, args.seed)
     windows = serve_windows(torch, dev, args.seed)
@@ -3029,13 +3457,15 @@ def main() -> int:
     dense = serve_dense_family(torch, dev, args.seed)
     moe = serve_moe(torch, dev, args.seed)
     recurrent = serve_recurrent(torch, dev, args.seed)
+    encdec_vlm = serve_encdec_vlm(torch, dev, args.seed)
     served_packs = sum(WEIGHT_PACKS[loads:])  # the weight packs of the served models
     chaos = chaos_check(torch, dev, args.seed)
     launches = {name: served["launches"][name]
                 + sum(r["launches"][name] for r in (*windows.values(), *quant.values(),
                                                     *kv.values(), *sampled.values(),
                                                     *dense.values(), *moe.values(),
-                                                    *recurrent.values()))
+                                                    *recurrent.values(),
+                                                    *encdec_vlm.values()))
                 for name in REPLACES}
     if launches["pack"] or launches["unpack"]:
         raise AssertionError(f"serving runs launched activation packs or unpacks: {launches}")
@@ -3063,6 +3493,7 @@ def main() -> int:
                    "dense_forward": dense_forward, "dense": dense, "chaos": chaos,
                    "moe_forward": moe_forward, "moe": moe,
                    "recurrent_forward": recurrent_forward, "recurrent": recurrent,
+                   "encdec_vlm_forward": encdec_vlm_forward, "encdec_vlm": encdec_vlm,
                    "table": table}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)

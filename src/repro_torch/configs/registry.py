@@ -1,8 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution (counterpart of
-repro/configs/registry.py).  The paper's own model, the dense family, the
-MoE family (Mixtral-8x22B, Grok-1-314B) and the recurrent families
-(RWKV6-1.6B, RecurrentGemma-9B) are ported so far; the encoder-decoder and
-VLM families wait for their slices (ROADMAP)."""
+repro/configs/registry.py): the JAX package's eleven configs, the paper's
+own model (Llama-3.2-1B), the dense family, the MoE family (Mixtral-8x22B,
+Grok-1-314B), the recurrent families (RWKV6-1.6B, RecurrentGemma-9B), the
+encoder-decoder Whisper-tiny and the VLM InternVL2-26B.  The last two run
+through models/transformer.forward (frames or patches beside the tokens);
+the serving engine takes tokens only and refuses them."""
 
 from __future__ import annotations
 
@@ -17,8 +19,10 @@ _ARCH_MODULES = {
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "yi-9b": "repro_torch.configs.yi_9b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
 }
 

@@ -22,6 +22,11 @@ An MoE layer's experts are stacked once more in JAX, (layers, E, ...) on
 every leaf of w_gate, w_up and w_down; the port keeps a list of E
 per-expert projections, each leaf split along that axis as it is (packed
 layouts are never repacked).  The router is one projection per layer.
+
+An enc-dec model's encoder is one more stacked group, params["enc_layers"]
+(a 1-tuple: the pattern ("enc_attn",) over encoder_layers), split into the
+port's list; enc_final_norm, dec_pos_embed and a VLM's projector carry over
+as they are.
 """
 
 from __future__ import annotations
@@ -60,8 +65,6 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, enc: EncodingConfig,
                     device: torch.device | str) -> dict:
     """Port params from the JAX pytree (leaves as numpy arrays)."""
     pattern = tuple(cfg.block_pattern)
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} waits for its family's slice")
     groups = tuple(np_params["groups"])  # one stacked tree per pattern position
     tail = tuple(np_params.get("tail", ()))
     n_groups = cfg.num_layers // len(pattern)
@@ -89,4 +92,11 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, enc: EncodingConfig,
     }
     if "head" in np_params:
         out["head"] = _tree(np_params["head"], lambda a: to_torch(a, device))
+    if "enc_layers" in np_params:
+        (stacked,) = tuple(np_params["enc_layers"])
+        out["enc_layers"] = [_tree(stacked, lambda a, g=g: to_torch(a[g], device))
+                             for g in range(cfg.encoder_layers)]
+    for name in ("enc_final_norm", "dec_pos_embed", "projector"):
+        if name in np_params:
+            out[name] = _tree(np_params[name], lambda a: to_torch(a, device))
     return out

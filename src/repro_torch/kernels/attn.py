@@ -1,5 +1,5 @@
-"""Attention kernels: causal GQA flash prefill, and decode read straight from
-the paged KV pool or from a dense cache (counterpart of
+"""Attention kernels: GQA flash prefill (causal or not), and decode read
+straight from the paged KV pool or from a dense cache (counterpart of
 repro/kernels/attn.py: flash_prefill_attention, paged_decode_attention and
 dense_decode_attention).
 
@@ -142,8 +142,13 @@ def masked_softmax(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def _row_positions(pos, b: int, device) -> torch.Tensor:
-    """Scalar or (B,) position of q[:, 0] -> (B,) int64 on `device`."""
-    p = torch.as_tensor(pos, device=device).to(torch.int64)
+    """Scalar or (B,) position of q[:, 0] -> (B,) int64 on `device`.  A
+    Python int is filled on the device: copying it from the host would
+    wait for the stream to drain (cross attention's decode passes Te - 1
+    at every layer)."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.full((b,), int(pos), dtype=torch.int64, device=device)
+    p = pos.to(device=device, dtype=torch.int64)
     return p.reshape(-1).expand(b) if p.dim() == 0 else p
 
 
@@ -418,9 +423,10 @@ def _flash_kernel():
 def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             causal: bool = True, window: int = 0,
                             q_offset: int = 0) -> torch.Tensor:
-    """Tiled causal GQA prefill; key tiles above the diagonal (q_offset
-    included) or below a `window` band are never read.  The card runs the
-    decode kernels' body over K/V as a dense cache (split by
+    """Tiled GQA prefill, causal (key tiles above the diagonal, q_offset
+    included, or below a `window` band are never read) or with causal=False
+    every query over all Sk keys (an encoder; cross attention, Sq != Sk).
+    The card runs the decode kernels' body over K/V as a dense cache (split by
     decode_split_plan over the Sk keys, as dense decode does), so with
     causal=True, window=0 it gives dense_decode_attention's bits for
     pos = q_offset.  Plain version on the CPU; on a CUDA tensor the kernel
@@ -449,7 +455,9 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
     )
     build.check(err, "flash_prefill", "flash_prefill_attention launch")
     flash_prefill_attention.launches += 1
+    flash_prefill_attention.launches_noncausal += not causal
     return out
 
 
 flash_prefill_attention.launches = 0
+flash_prefill_attention.launches_noncausal = 0  # the causal=False share of `launches`

@@ -36,7 +36,10 @@ Grok-1-314B (MoE, no window) serves on the paged cache; its 64 layers hold
 and RecurrentGemma-9B (recurrent state; RecurrentGemma's local attention
 has a 2048-token window and head dim 256) serve on the dense cache with
 grouped decode, one prefill per admission; the run prints the state bytes
-a slot holds.
+a slot holds.  Whisper-tiny and InternVL2-26B take frames or patches beside
+their tokens, which the engine (token batches only, as the JAX engine) does
+not: --arch whisper-tiny or internvl2-26b exits with the engine's refusal,
+and those models run through models/transformer.greedy_generate (README).
 """
 
 from __future__ import annotations
@@ -108,6 +111,10 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
 
     config = EngineConfig.from_args(args)
     cfg = registry.get_reduced(args.arch) if args.reduced else registry.get_config(args.arch)
+    try:
+        engine_lib.check_servable(cfg)
+    except NotImplementedError as err:
+        raise SystemExit(f"[serve] --arch {args.arch}: {err}") from None
     depth = cfg.num_layers
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)

@@ -7,6 +7,9 @@ per-layer page pool (quantized on write for kv8/kv4 pools) or dense cache
 with index_put_, and prefill writes its K/V into the dense cache it was
 handed.  A sliding-window model's dense cache is a ring of
 S_c = min(max_seq, window) slots: position p lives in slot p mod S_c.
+Cross attention (cross_kv, cross_attention_apply) attends every key of its
+source with no mask: the flash kernel non-causally at prefill, the dense
+decode kernel over the cached cross K/V at decode.
 
 The MoE block (moe_init, moe_apply) is the JAX package's capacity-bounded
 token-choice top-k dispatch, rule for rule; its experts are a list of
@@ -113,8 +116,18 @@ def attention_apply(
     phase: Phase,
     cache: dict | None = None,
     pos: torch.Tensor | int = 0,
+    kv_src: torch.Tensor | None = None,
+    causal: bool = True,
+    use_rope: bool = True,
 ) -> torch.Tensor:
-    """Self-attention with RoPE; updates `cache` in place.
+    """Self-attention with RoPE (none where `use_rope` is False); updates
+    `cache` in place.  With `kv_src` (B, Te, d_model) it is cross attention
+    instead (cross_attention_apply): K and V projected from kv_src, no RoPE,
+    no self-attention cache read or write, every query attending all Te
+    keys; a `cache` given with it is the cross cache, whose "cross_k" and
+    "cross_v" take the projected K/V for the decode steps.  `causal`
+    False lets every query of a prefill attend every key (the encoder); a
+    decode is masked-causal over its cache either way.
 
     `pos` is an int or a 0-dim tensor (every row at the same position:
     prefill offset, or grouped decode) or a (B,) tensor (decode: row b's
@@ -136,6 +149,12 @@ def attention_apply(
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     window = cfg.sliding_window
+    if kv_src is not None:
+        k, v = cross_kv(params, kv_src, cfg=cfg, enc=enc, phase=phase)
+        if cache is not None:
+            cache["cross_k"].copy_(k)
+            cache["cross_v"].copy_(v)
+        return cross_attention_apply(params, x, k, v, cfg=cfg, enc=enc, phase=phase)
     q = packed.linear_apply(params["wq"], x, n=h * hd, phase=phase, enc=enc).reshape(b, s, h, hd)
     k = packed.linear_apply(params["wk"], x, n=kvh * hd, phase=phase, enc=enc).reshape(b, s, kvh, hd)
     v = packed.linear_apply(params["wv"], x, n=kvh * hd, phase=phase, enc=enc).reshape(b, s, kvh, hd)
@@ -146,8 +165,9 @@ def attention_apply(
     else:
         pos = int(pos)
         positions = (pos + steps)[None, :].expand(b, s)
-    q = rope_apply(q, positions, cfg.rope_theta)
-    k = rope_apply(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope_apply(q, positions, cfg.rope_theta)
+        k = rope_apply(k, positions, cfg.rope_theta)
 
     if phase is Phase.DECODE:
         if cache is None:
@@ -171,11 +191,11 @@ def attention_apply(
         )
         if choice.backend == "pallas" and phase is not Phase.TRAIN:
             out = attn_kernels.flash_prefill_attention(
-                q, k_att, v_att, causal=True, window=window, q_offset=q_off
+                q, k_att, v_att, causal=causal, window=window, q_offset=q_off
             )
         else:
             out = attention_chunked(
-                q, k_att, v_att, causal=True, window=window, q_chunk=cfg.q_chunk,
+                q, k_att, v_att, causal=causal, window=window, q_chunk=cfg.q_chunk,
                 q_offset=q_off,
             )
         if cache is not None:
@@ -183,6 +203,46 @@ def attention_apply(
                 raise ValueError("paged caches are decode-only; prefill writes a "
                                  "temporary dense cache the engine scatters into pages")
             _prefill_write(cache, k, v, pos, window)
+    return packed.linear_apply(params["wo"], out.reshape(b, s, h * hd), n=d, phase=phase, enc=enc)
+
+
+def cross_kv(params: dict, src: torch.Tensor, *, cfg: ModelConfig, enc,
+             phase: Phase) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cross attention's K and V (B, Te, KV, D), projected from the
+    encoder states `src` (B, Te, d_model) by its wk and wv."""
+    b, te, _ = src.shape
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    shape = (b, te, cfg.num_kv_heads, cfg.head_dim)
+    k = packed.linear_apply(params["wk"], src, n=kvd, phase=phase, enc=enc).reshape(shape)
+    v = packed.linear_apply(params["wv"], src, n=kvd, phase=phase, enc=enc).reshape(shape)
+    return k, v
+
+
+def cross_attention_apply(params: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          cfg: ModelConfig, enc, phase: Phase) -> torch.Tensor:
+    """Cross attention of x (B, S, d_model) over the cross K/V (B, Te, KV,
+    D): the q projection, every query attending all Te keys (no mask, no
+    RoPE), the o projection.  Where the registry picks the kernels, a
+    prefill runs flash prefill with causal=False (Sq = S, Sk = Te) and a
+    decode the dense decode kernel over the cross cache with every row at
+    pos = Te - 1 (which attends slots 0 .. Te - 1: all of them); else the
+    plain versions (JAX: its chunked reference and attention_decode)."""
+    b, s, d = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    te = k.shape[1]
+    q = packed.linear_apply(params["wq"], x, n=h * hd, phase=phase, enc=enc).reshape(b, s, h, hd)
+    choice = registry_lib.select_attn(
+        phase=Phase.DECODE if phase is Phase.DECODE else Phase.PREFILL, s=te,
+        target=enc.target, requested=enc.attn_backend,
+    )
+    kernel = choice.backend == "pallas" and phase is not Phase.TRAIN
+    if phase is Phase.DECODE:
+        out = (attn_kernels.dense_decode_attention(q, k, v, te - 1) if kernel
+               else attention_decode(q, k, v, te - 1))
+    elif kernel:
+        out = attn_kernels.flash_prefill_attention(q, k, v, causal=False)
+    else:
+        out = attention_chunked(q, k, v, causal=False, window=0, q_chunk=cfg.q_chunk)
     return packed.linear_apply(params["wo"], out.reshape(b, s, h * hd), n=d, phase=phase, enc=enc)
 
 

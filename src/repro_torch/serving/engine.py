@@ -83,7 +83,9 @@ slot's previous request left behind, so a reused slot emits other tokens
 there; the port diverges from it on purpose (ROADMAP Queue 3, item 1).
 
 Not in this slice (raises NotImplementedError at construction, naming its
-ROADMAP slice): meshes larger than one card.
+ROADMAP slice): meshes larger than one card.  Refused at construction too,
+as in the JAX engine, whose batches are tokens only: the enc-dec and VLM
+families (check_servable), which run through models/transformer.forward.
 """
 
 from __future__ import annotations
@@ -288,7 +290,21 @@ def make_chunked_prefill_step(cfg, enc: EncodingConfig, *, chunk: int = 512) -> 
     return prefill_chunked
 
 
-def _check_supported(config: EngineConfig, enc: EncodingConfig) -> None:
+def check_servable(cfg) -> None:
+    """The engine serves token-only families.  Its batches are tokens, as
+    the JAX engine's are (JAX serving/engine.py takes {"tokens": ...} only),
+    so an enc-dec model (frames) or a VLM (patches) is refused; both run
+    through models/transformer.forward (greedy_generate)."""
+    if cfg.family in ("encdec", "vlm"):
+        raise NotImplementedError(
+            f"the serving engine takes tokens only, as the JAX engine does; family "
+            f"{cfg.family!r} ({cfg.name}) needs {'frames' if cfg.family == 'encdec' else 'patches'}"
+            " beside them, so it runs through models.transformer.forward "
+            "(transformer.greedy_generate), not the engine")
+
+
+def _check_supported(config: EngineConfig, enc: EncodingConfig, cfg) -> None:
+    check_servable(cfg)
     todo = []
     if config.mesh_devices > 1:
         todo.append("mesh_shape > 1 (ROADMAP: tensor parallelism)")
@@ -332,7 +348,7 @@ class Engine:
                 f"kwargs, not both (got extra kwargs: {sorted(kwargs)})"
             )
         config = config.resolve(cfg)
-        _check_supported(config, enc)
+        _check_supported(config, enc, cfg)
         # kv4 packs two values a byte; only the decode kernels unpack
         # nibbles in registers.  Under a requested plain attention the
         # gather-and-dequantize of nibbles is not worth the capacity, so kv4

@@ -326,6 +326,43 @@ def test_flash_prefill_equals_dense_decode_bit_for_bit(dev, dtype, b, sq, sk, q_
     assert torch.equal(attn.flash_prefill_attention(q, k, v, q_offset=q_offset), got)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk", [(4, 1500, 1500), (4, 64, 1500), (2, 448, 1500),
+                                     (1, 70, 130)])
+def test_flash_prefill_non_causal_encoder_and_cross(dev, dtype, b, sq, sk):
+    """causal=False as the enc-dec family runs it, at G = 1, D = 64:
+    Whisper's encoder (Sq = Sk = 1500, whose last 64-key tile holds 28
+    keys) and cross attention (Sq != Sk, the key range split across blocks
+    by the plan); every query attends every key.  The launch counts once,
+    and once as non-causal."""
+    q, k, v = _prefill_qkv(dev, dtype, b, sq, sk, 6, 6, 64)
+    fn = attn.flash_prefill_attention
+    before = (fn.launches, fn.launches_noncausal)
+    got = fn(q, k, v, causal=False)
+    assert (fn.launches, fn.launches_noncausal) == (before[0] + 1, before[1] + 1)
+    want = attn.flash_prefill_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got, want, **_tol(dtype, False))
+    v2 = v.clone()
+    v2[:, -1] += 4.0  # the partial tile's last key moves every row
+    moved = (fn(q, k, v2, causal=False).float() - got.float()).abs().amax(dim=(2, 3))
+    assert bool((moved > 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 5])
+def test_dense_decode_over_a_cross_cache(dev, dtype, L):
+    """Cross attention at decode: a 1500-row cache (not a multiple of the
+    64-key tile), G = 1, D = 64, every row at pos = 1499, which attends all
+    1500 keys: the plain version's output, and flash prefill's with
+    causal=False on the same K/V."""
+    q, k, v = _prefill_qkv(dev, dtype, 4, L, 1500, 6, 6, 64, seed=50)
+    got = attn.dense_decode_attention(q, k, v, 1499)
+    torch.testing.assert_close(got, attn.dense_decode_attention_plain(q, k, v, 1499),
+                               **_tol(dtype, False))
+    torch.testing.assert_close(got, attn.flash_prefill_attention(q, k, v, causal=False),
+                               **_tol(dtype, False))
+
+
 def _kv_pages(dev, kv, dtype, *shape, seed):
     """K or V rows of `shape` (.., KV, D) in the layout `kv`: (data, scales)."""
     x = _rand(dev, torch.float32, *shape, seed=seed)

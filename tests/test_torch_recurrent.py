@@ -447,7 +447,8 @@ def test_decode_weight_stream_counts_recurrent_layers(arch):
 def test_recurrent_caches_and_refusals():
     """Dense caches hold each layer's state (f32 S and h, the activation
     dtype's shift and conv states); the paged cache is refused for a
-    recurrent pattern, as in JAX; enc-dec and VLM still wait."""
+    recurrent pattern, as in JAX, and for an enc-dec one, whose dense layer
+    caches hold the self K/V rows and the cross K/V."""
     cfg = cfg_registry.get_reduced("recurrentgemma-9b", dtype="bfloat16")
     caches = T.cache_init(cfg, 3, 40, device="cpu")
     kinds = [sorted(layer) for layer in caches["layers"]]
@@ -464,5 +465,7 @@ def test_recurrent_caches_and_refusals():
             T.cache_init(cfg_registry.get_reduced(arch), 2, 32, cache_mode="paged",
                          device="cpu")
     whisper = dataclasses.replace(cfg, family="encdec", block_pattern=("encdec_attn",))
-    with pytest.raises(NotImplementedError):
-        T.cache_init(whisper, 1, 8, device="cpu")
+    layer = T.cache_init(whisper, 1, 8, device="cpu")["layers"][0]
+    assert sorted(layer) == ["cross_k", "cross_v", "k", "v"]
+    with pytest.raises(ValueError, match="attention-only"):
+        T.cache_init(whisper, 1, 8, cache_mode="paged", device="cpu")
