@@ -165,7 +165,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
              launches == forward_tally by layer type (an encoder layer 6
              projections and a non-causal flash, a decoder layer 10 at
              prefill and 8 at decode, a causal and a non-causal flash at
-             prefill, two dense decodes a step: self and cross).
+             prefill, two dense decodes a step: self and cross);
+ 14. train   (a) Llama at full width, depth 2, f32, TF32 off, batch 2 x 128:
+             one train step on the card against the same step on the CPU
+             from the same params (made on the CPU) and batch (loss 1e-5
+             relative, grad norm 1e-4, every param 1e-6 abs outside the
+             elements where Adam's first step follows gradient noise:
+             |g| < 1e-6 max|g|, or the clipped |g| under 10 eps); the
+             trained weights served through the kernels ("auto") and the
+             plain path ("xla"): identical tokens, the kernels launched;
+             the state through AsyncCheckpointer under build/ and back, bit
+             for bit, and the next step's loss equal to the uninterrupted
+             run's; (b) Llama-3.2-1B at full width and depth, bf16 params,
+             f32 moments, SyntheticPacked(seed=0), batch 8 x 1024, 20 steps
+             at lr 1e-3: every loss and grad norm finite, the last 5
+             losses' mean below the first 5's; step p50, tokens/s, peak
+             memory, 6N tokens/s as a share of the bf16 peak, one step
+             under the profiler; (c) no hand-written kernel launched inside
+             (b)'s steps: training runs the plain projections, as in JAX.
 
 In phases 4 to 9, 11 and 12 every kernel's launch count (per KV layout for the
 decode kernels), set to 0 before each run and read after it, must equal the
@@ -3377,6 +3394,275 @@ def chaos_check(torch, dev, seed: int) -> dict:
     return out
 
 
+def _bits(torch, t):
+    """A tensor's bytes, flat (a bitwise comparison: NaN payloads and -0.0 too)."""
+    return t.detach().reshape(-1).contiguous().view(torch.uint8)
+
+
+def train_card_vs_cpu(torch, dev, seed: int, *, cfg=None, batch: int = 2,
+                      seq: int = 128) -> dict:
+    """Phase 14 (a): Llama at full width, depth 2, f32, TF32 off.  The params
+    are made on the CPU from `seed` (the two devices' generators differ) and
+    copied to the card; one train step on each device from the same batch:
+    the loss within 1e-5 relative, the grad norm within 1e-4 relative, every
+    updated param within 1e-6 abs except where |g| < 1e-6 x max|g| of its
+    leaf (Adam's first step is the sign of noise there) or where the
+    clipped gradient Adam sees, |g| x min(1, clip_norm / grad_norm), is below
+    10 x eps (Adam's eps region: its first step g / (|g| + eps) turns steeply
+    with g, so the f32 noise of the gradient moves it); there within 2 x lr.  The
+    trained packed weights then serve 4 prompts through the kernels (backend
+    "auto") and the plain path ("xla"): identical tokens.  (Llama's widths
+    are multiples of the 128 tile, so its packed weights carry no padding;
+    tests/test_torch_train.py holds padding at zero on the reduced Yi.)  Then the state (params, mu, nu) goes through
+    AsyncCheckpointer under build/ and back: every leaf bit for bit, and the
+    next step's loss from the restored state equal to the uninterrupted
+    run's (bit for bit, or within 1e-6 relative)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core import tree
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.data import pipeline as data_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer as trainer_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = cfg or dataclasses.replace(cfg_registry.get_config("llama3.2-1b"), num_layers=2,
+                                     dtype="float32")
+    enc = EncodingConfig(backend="xla")
+    t0 = time.perf_counter()
+    params_cpu = T.model_init(cfg, enc, seed=seed, device="cpu")
+    params = _to_device(params_cpu, dev)
+    data = data_lib.SyntheticPacked(data_lib.DataConfig(cfg.vocab_size, seq, batch, seed=seed))
+    opt_cfg = opt_lib.OptimizerConfig(peak_lr=1e-3)
+    step = trainer_lib.make_train_step(cfg, enc, opt_cfg)
+    b0 = data.batch(0)
+    t1 = time.perf_counter()
+    p_cpu, _, m_cpu, _ = step(params_cpu, opt_lib.init(params_cpu),
+                              data_lib.to_torch(b0, "cpu"))
+    cpu_s = time.perf_counter() - t1
+    p_dev, o_dev, m_dev, _ = step(params, opt_lib.init(params), data_lib.to_torch(b0, dev))
+    grads = trainer_lib.value_and_grad(params, data_lib.to_torch(b0, dev), cfg, enc)[2]
+    loss_rel = abs(float(m_dev["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    gn_rel = (abs(float(m_dev["grad_norm"]) - float(m_cpu["grad_norm"]))
+              / float(m_cpu["grad_norm"]))
+    lr = float(m_cpu["lr"])
+    clip = min(1.0, opt_cfg.clip_norm / float(m_dev["grad_norm"]))
+    worst = worst_small = 0.0
+    n_small = n_all = 0
+    where = None
+    for (path, a), b, g in zip(tree.leaves_with_path(p_dev), tree.leaves(p_cpu),
+                               tree.leaves(grads)):
+        g = g.float().abs()
+        small = (g < 1e-6 * g.max()) | (g * clip < 10 * opt_cfg.eps)
+        diff = (a.float() - b.to(dev).float()).abs()
+        big = torch.where(small, 0.0, diff)
+        if float(big.max()) > worst:
+            worst, i = float(big.max()), int(big.argmax())
+            where = {"leaf": tree.keystr(path), "abs_g": float(g.reshape(-1)[i]),
+                     "max_abs_g": float(g.max()), "clip_scale": clip}
+        worst_small = max(worst_small, float(torch.where(small, diff, 0.0).max()))
+        n_small += int(small.sum())
+        n_all += small.numel()
+    out = {"loss_cpu": float(m_cpu["loss"]), "loss_card": float(m_dev["loss"]),
+           "loss_rel": loss_rel, "grad_norm_cpu": float(m_cpu["grad_norm"]),
+           "grad_norm_card": float(m_dev["grad_norm"]), "grad_norm_rel": gn_rel, "lr": lr,
+           "param_max_abs": worst, "param_max_abs_small_g": worst_small,
+           "param_worst_at": where, "small_g_elements": n_small, "elements": n_all,
+           "cpu_step_s": cpu_s,
+           "setup_s": t1 - t0}
+    log(f"[train] card vs CPU, {cfg.name} depth {cfg.num_layers} f32, batch {batch} x "
+        f"{seq}: loss {out['loss_card']:.7f} vs {out['loss_cpu']:.7f} (rel {loss_rel:.2e}), "
+        f"grad norm rel {gn_rel:.2e}, params max abs {worst:.2e} ({n_small} of {n_all} "
+        f"elements with |g| < 1e-6 max|g| or clipped |g| < 10 eps: max abs {worst_small:.2e}, "
+        f"limit "
+        f"{2 * lr:.1e}); "
+        f"the worst element {where}; CPU step {cpu_s:.1f}s")
+    if not (loss_rel <= 1e-5 and gn_rel <= 1e-4 and worst <= 1e-6 and worst_small <= 2 * lr):
+        raise AssertionError(f"train step on the card differs from the CPU's: {out}")
+
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32) for n in (100, 37, 250, 180)]
+    kernels = kernel_fns()
+    tokens, launched = {}, {}
+    for label, enc_s in (("kernels", EncodingConfig(backend="auto", attn_backend="auto")),
+                         ("plain", EncodingConfig(backend="xla", attn_backend="xla"))):
+        for k in kernels.values():
+            k.launches = 0
+        eng = engine_lib.Engine(p_dev, cfg, enc_s, device=dev,
+                                config=EngineConfig(slots=4, max_seq=512, block_size=16))
+        for i, p in enumerate(prompts):
+            eng.submit(engine_lib.Request(uid=i, prompt=p, max_new_tokens=8))
+        tokens[label] = {r.uid: r.generated for r in eng.run()}
+        launched[label] = {name: k.launches for name, k in kernels.items() if k.launches}
+    need = ("fused_gemv", "fused_pack_mmt4d", "flash_prefill_attention", "paged_decode_attention")
+    log(f"[train] trained weights served: kernel tokens == plain tokens: "
+        f"{tokens['kernels'] == tokens['plain']}; kernel launches {launched['kernels']}, "
+        f"plain run {launched['plain']}")
+    if tokens["kernels"] != tokens["plain"]:
+        raise AssertionError(f"trained weights: kernel tokens {tokens['kernels']} != plain "
+                             f"{tokens['plain']}")
+    if any(not launched["kernels"].get(n) for n in need) or launched["plain"]:
+        raise AssertionError(f"serving launches: {launched}")
+    out.update(served_tokens=tokens["kernels"], served_launches=launched["kernels"])
+
+    ck = os.path.join(HERE, "build", "phase14_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    state = {"params": p_dev, "opt": o_dev}
+    saver = ckpt_lib.AsyncCheckpointer(ck)
+    t1 = time.perf_counter()
+    saver.save(state, 1)
+    snap_s = time.perf_counter() - t1
+    saver.wait()
+    save_s = time.perf_counter() - t1
+    restored = ckpt_lib.restore(ck, 1, state, device=dev)
+    shutil.rmtree(ck)
+    bad = [tree.keystr(path) for (path, a), b in zip(tree.leaves_with_path(state),
+                                                     tree.leaves(restored))
+           if a.dtype != b.dtype or not torch.equal(_bits(torch, a), _bits(torch, b))]
+    if bad:
+        raise AssertionError(f"checkpoint round trip changed {bad}")
+    b1 = data_lib.to_torch(data.batch(1), dev)
+    la = float(step(p_dev, o_dev, b1)[2]["loss"])
+    lb = float(step(restored["params"], restored["opt"], b1)[2]["loss"])
+    rel = abs(la - lb) / abs(la)
+    log(f"[train] checkpoint round trip: {len(tree.leaves(state))} leaves bit for bit "
+        f"(snapshot {snap_s:.2f}s, written {save_s:.2f}s); next loss {la!r} uninterrupted, "
+        f"{lb!r} restored (bit for bit: {la == lb}, rel {rel:.1e})")
+    if rel > 1e-6:
+        raise AssertionError(f"restored run's loss {lb} differs from {la}")
+    out.update(ckpt_leaves=len(tree.leaves(state)), ckpt_next_loss=[la, lb],
+               ckpt_bitwise_next_loss=la == lb, ckpt_snapshot_s=snap_s, ckpt_save_s=save_s)
+    del params_cpu, p_cpu, params, p_dev, o_dev, grads, state, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full(torch, dev, seed: int, smi: str, *, cfg=None, batch: int = 8, seq: int = 1024,
+               steps: int = 20) -> dict:
+    """Phase 14 (b), (c): Llama-3.2-1B at full width and depth (16 layers),
+    bf16 params, f32 moments, SyntheticPacked(seed=0), batch 8 x 1024,
+    `steps` steps at lr 1e-3 (warmup max(5, steps // 20), decay over
+    `steps`: launch/train.py's rule).  Each step ends in a synchronize.
+    Gate: every loss and grad norm finite, the mean of the last 5 losses
+    below the first 5's.  Reports step ms p50 after 2 warm steps, tokens/s,
+    the peak device memory and 6 N tokens/s as a share of the bf16 peak;
+    then one more step under the profiler (device busy ms, the kernels
+    that take it).  (c): no hand-written kernel launches in the timed
+    steps (their launch counts, set to 0 before, read after)."""
+    import collections
+    import math
+
+    import numpy as np
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core import targets
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.data import pipeline as data_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = cfg or cfg_registry.get_config("llama3.2-1b")
+    enc = EncodingConfig(backend="xla")
+    t0 = time.perf_counter()
+    params = T.model_init(cfg, enc, seed=seed, device=dev)
+    opt = opt_lib.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt_cfg = opt_lib.OptimizerConfig(peak_lr=1e-3, warmup_steps=max(5, steps // 20),
+                                      decay_steps=steps)
+    data = data_lib.Prefetcher(data_lib.SyntheticPacked(
+        data_lib.DataConfig(cfg.vocab_size, seq, batch, seed=0)))
+    step = trainer_lib.make_train_step(cfg, enc, opt_cfg)
+    kernels = kernel_fns()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_gib = torch.cuda.memory_allocated(dev) / 2**30
+    rows, ms = [], []
+    for i in range(steps):
+        b = data_lib.to_torch(next(data), dev)
+        t1 = time.perf_counter()
+        params, opt, m, _ = step(params, opt, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+        rows.append({k: float(v) for k, v in m.items()})
+        log(f"[train] {cfg.name} step {i}: loss {rows[-1]['loss']:.4f} grad_norm "
+            f"{rows[-1]['grad_norm']:.4f} lr {rows[-1]['lr']:.2e} {ms[-1]:.1f} ms")
+    launches = {name: k.launches for name, k in kernels.items() if k.launches}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    losses = [r["loss"] for r in rows]
+    finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    p50 = float(np.median(ms[2:]))
+    tokens = batch * seq
+    n = cfg.param_count()
+    share = 6 * n * tokens / (p50 / 1e3) / targets.H100.peak_flops_bf16
+
+    b = data_lib.to_torch(next(data), dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        params, opt, _, _ = step(params, opt, b)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t1)
+    by_name, by_class, launches_dev = collections.Counter(), collections.Counter(), 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = e.time_range.elapsed_us() / 1e3
+            by_name[e.name] += t
+            low = e.name.lower()
+            by_class[next((c for c in ("gemm", "elementwise", "reduce", "softmax", "index",
+                                       "memcpy", "memset") if c in low), "other")] += t
+            launches_dev += 1
+    busy = sum(by_name.values())
+    top = [(name[:80], round(t, 2)) for name, t in by_name.most_common(6)]
+    classes = {c: round(t, 2) for c, t in by_class.most_common()}
+    out = {"steps": steps, "batch": batch, "seq": seq, "losses": losses,
+           "grad_norms": [r["grad_norm"] for r in rows], "step_ms": ms, "p50_ms": p50,
+           "tok_s": tokens / (p50 / 1e3), "params": n, "flop_share_bf16": share,
+           "start_gib": start_gib, "peak_gib": peak_gib, "init_s": init_s,
+           "launches": launches, "profiled_step_ms": prof_ms, "busy_ms": busy,
+           "device_launches": launches_dev, "by_class_ms": classes, "top_kernels_ms": top,
+           "card": smi}
+    log(f"[train] {cfg.name} depth {cfg.num_layers} {cfg.dtype}, batch {batch} x {seq}, {steps} "
+        f"steps on {smi}: loss first-5 mean {first:.4f}, last-5 mean {last:.4f}; step p50 "
+        f"{p50:.1f} ms (after 2 warm steps), {out['tok_s']:.0f} tokens/s, 6N tokens/s "
+        f"{share:.2%} of {targets.H100.peak_flops_bf16 / 1e12:.0f} TFLOP/s (N = {n}); memory "
+        f"{start_gib:.2f} GiB at the start, peak {peak_gib:.2f} GiB; init {init_s:.1f}s")
+    log(f"[train] {cfg.name} profiled step {prof_ms:.1f} ms, device busy {busy:.1f} ms in "
+        f"{launches_dev} device launches; by class (ms) {classes}; top kernels (ms) {top}")
+    log(f"[train] kernel launches inside the training steps: {launches or 'none'}")
+    if not finite or not last < first:
+        raise AssertionError(f"training did not run clean: losses {losses}, "
+                             f"grad norms {out['grad_norms']}")
+    if launches:
+        raise AssertionError(f"hand-written kernels launched inside training: {launches}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_check(torch, dev, seed: int, smi: str) -> dict:
+    """Phase 14: training on the card (train_card_vs_cpu, train_full)."""
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": train_card_vs_cpu(torch, dev, seed),
+           "llama": train_full(torch, dev, seed, smi)}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[train] phase 14 in {out['phase_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3460,6 +3746,7 @@ def main() -> int:
     encdec_vlm = serve_encdec_vlm(torch, dev, args.seed)
     served_packs = sum(WEIGHT_PACKS[loads:])  # the weight packs of the served models
     chaos = chaos_check(torch, dev, args.seed)
+    train = train_check(torch, dev, args.seed, smi)
     launches = {name: served["launches"][name]
                 + sum(r["launches"][name] for r in (*windows.values(), *quant.values(),
                                                     *kv.values(), *sampled.values(),
@@ -3494,7 +3781,7 @@ def main() -> int:
                    "moe_forward": moe_forward, "moe": moe,
                    "recurrent_forward": recurrent_forward, "recurrent": recurrent,
                    "encdec_vlm_forward": encdec_vlm_forward, "encdec_vlm": encdec_vlm,
-                   "table": table}, f, indent=1)
+                   "train": train, "table": table}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -27,6 +27,10 @@ An enc-dec model's encoder is one more stacked group, params["enc_layers"]
 (a 1-tuple: the pattern ("enc_attn",) over encoder_layers), split into the
 port's list; enc_final_norm, dec_pos_embed and a VLM's projector carry over
 as they are.
+
+Any tree of the params' structure comes across the same way: gradients
+through params_from_jax, and the optimizer state through
+opt_state_from_jax (its mu and nu are two such trees; step is kept).
 """
 
 from __future__ import annotations
@@ -100,3 +104,13 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, enc: EncodingConfig,
         if name in np_params:
             out[name] = _tree(np_params[name], lambda a: to_torch(a, device))
     return out
+
+
+def opt_state_from_jax(np_opt: dict, cfg: ModelConfig, enc: EncodingConfig,
+                       device: torch.device | str) -> dict:
+    """The port's AdamW state (train/optimizer.init's layout) from the JAX
+    package's {"mu", "nu", "step"} (leaves as numpy arrays): mu and nu
+    through params_from_jax, step as a 0-dim int32 tensor."""
+    return {"mu": params_from_jax(np_opt["mu"], cfg, enc, device),
+            "nu": params_from_jax(np_opt["nu"], cfg, enc, device),
+            "step": torch.tensor(int(np_opt["step"]), dtype=torch.int32, device=device)}

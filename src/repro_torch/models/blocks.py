@@ -8,11 +8,14 @@ init / apply / cache-init triple per block type.
   enc_attn     bidirectional encoder block       [Whisper encoder]
 
 All share the signature init(gen, cfg, enc, device=) -> params and
-apply(params, x, cfg=, enc=, phase=, cache=, pos=, extra=) -> x; `cache` (a
+apply(params, x, cfg=, enc=, phase=, cache=, pos=, extra=, aux=) -> x; `cache` (a
 dict of tensors, or None) is updated in place: the attention blocks write
 their K/V into the cache tensors, the recurrent blocks put their new state
 tensors into the dict.  `extra` is the encoder output (B, Te, d_model) at
-an enc-dec prefill, else None; only encdec_attn reads it."""
+an enc-dec prefill, else None; only encdec_attn reads it.  `aux`, where a
+list, receives the block's training aux losses (JAX's blocks return them
+beside x): an MoE layer's load-balance loss; the other blocks have none and
+add nothing.  Serving passes no list and computes no aux."""
 
 from __future__ import annotations
 
@@ -37,16 +40,16 @@ def attn_block_init(gen, cfg: ModelConfig, enc, *, device) -> dict:
     return p
 
 
-def attn_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None):
-    """Pre-norm attention + MLP (or MoE); `cache` is updated in place.  The
-    MoE's aux loss is training's and is not computed here."""
+def attn_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None, aux=None):
+    """Pre-norm attention + MLP (or MoE); `cache` is updated in place.  An
+    MoE layer appends its load-balance loss to `aux` where it is a list."""
     x = x + L.attention_apply(
         params["attn"], L.norm_apply(params["ln1"], x, cfg),
         cfg=cfg, enc=enc, phase=phase, cache=cache, pos=pos,
     )
     y = L.norm_apply(params["ln2"], x, cfg)
     if cfg.num_experts:
-        return x + L.moe_apply(params["moe"], y, cfg=cfg, enc=enc, phase=phase)
+        return x + L.moe_apply(params["moe"], y, cfg=cfg, enc=enc, phase=phase, aux=aux)
     return x + L.mlp_apply(params["mlp"], y, cfg=cfg, enc=enc, phase=phase)
 
 
@@ -59,7 +62,7 @@ def rec_block_init(gen, cfg: ModelConfig, enc, *, device) -> dict:
     }
 
 
-def rec_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None):
+def rec_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None, aux=None):
     """Pre-norm RG-LRU + MLP; the new state goes into `cache`."""
     h, new_state = R.rglru_apply(params["rglru"], L.norm_apply(params["ln1"], x, cfg),
                                  cfg=cfg, enc=enc, phase=phase, state=cache)
@@ -74,7 +77,7 @@ def rwkv_block_init(gen, cfg: ModelConfig, enc, *, device) -> dict:
     return R.rwkv_init(gen, cfg, enc, device=device)
 
 
-def rwkv_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None):
+def rwkv_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None, aux=None):
     """The RWKV-6 block; the new state goes into `cache`."""
     out, new_state = R.rwkv_apply(params, x, cfg=cfg, enc=enc, phase=phase, state=cache)
     if cache is not None:
@@ -91,7 +94,7 @@ def enc_attn_block_init(gen, cfg: ModelConfig, enc, *, device) -> dict:
     }
 
 
-def enc_attn_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None):
+def enc_attn_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None, aux=None):
     """Pre-norm bidirectional attention (no RoPE, no cache; a DECODE phase
     runs it as PREFILL, as JAX does) + MLP."""
     x = x + L.attention_apply(
@@ -114,7 +117,7 @@ def encdec_block_init(gen, cfg: ModelConfig, enc, *, device) -> dict:
     }
 
 
-def encdec_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None):
+def encdec_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None, aux=None):
     """The Whisper decoder block: pre-norm self attention without RoPE on
     the dense cache's "k"/"v", then cross attention, then the MLP.
 

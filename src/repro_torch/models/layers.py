@@ -14,6 +14,9 @@ decode kernel over the cached cross K/V at decode.
 The MoE block (moe_init, moe_apply) is the JAX package's capacity-bounded
 token-choice top-k dispatch, rule for rule; its experts are a list of
 projections, each run on its own capacity buffer as JAX's vmap runs them.
+Its Switch load-balance aux loss (moe_aux) is training's: moe_apply hands
+it out only to a caller that passes an `aux` list, so serving pays nothing
+for it.
 """
 
 from __future__ import annotations
@@ -523,8 +526,16 @@ def _expert_apply(params: dict, i: int, xe: torch.Tensor, *, cfg: ModelConfig, e
     return packed.linear_apply(params["w_down"][i], hidden, n=d, phase=phase, enc=enc)
 
 
+def moe_aux(probs: torch.Tensor, eidx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The Switch load-balance loss of one dispatch, as JAX computes it on
+    every MoE path: E x sum over experts of (mean router probability) x
+    (mean number of choices of the expert per row).  probs (T, E), eidx (T, k)."""
+    onehot = F.one_hot(eidx, cfg.num_experts).float()  # (T, k, E)
+    return cfg.num_experts * torch.sum(probs.mean(dim=0) * onehot.sum(dim=1).mean(dim=0))
+
+
 def moe_apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig, enc,
-              phase: Phase) -> torch.Tensor:
+              phase: Phase, aux: list | None = None) -> torch.Tensor:
     """Capacity-bounded token-choice top-k MoE (JAX layers.moe_apply, rule
     for rule).  x (B, S, D) -> (B, S, D).
 
@@ -536,12 +547,15 @@ def moe_apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig, enc,
     moe_runs_dense, every expert runs on every row and the combine goes
     through the (T, E) gate matrix.  moe_shard_map falls back to this grouped path, as JAX's does
     without a mesh (one card).
-    The load-balance aux loss is training's and is left out here."""
+    Where `aux` is a list, the dispatch's load-balance loss (moe_aux) is
+    appended to it; serving passes none and computes none."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
     xt = x.reshape(t, d)
-    _, gate, eidx = moe_route(params, xt, cfg=cfg, enc=enc, phase=phase)
+    probs, gate, eidx = moe_route(params, xt, cfg=cfg, enc=enc, phase=phase)
+    if aux is not None:
+        aux.append(moe_aux(probs, eidx, cfg))
 
     rows = moe_expert_rows(cfg, t, phase)
     if moe_runs_dense(cfg, phase):

@@ -12,18 +12,22 @@ and "dec_pos_embed" (max_pos_embed, d_model), a VLM the patch "projector"
 JAX: the caller hands forward precomputed frame or patch embeddings.
 Caches are {"layers": [per-layer cache dict]} and are updated in place: an
 attention layer's K/V rows, a recurrent layer's state, an enc-dec layer's
-self K/V rows and its cross K/V.  The entry points run on the card by
+self K/V rows and its cross K/V.  Under Phase.TRAIN (loss_fn) each layer
+is rematerialised in the backward pass (torch.utils.checkpoint), as the JAX
+package wraps each scan group in jax.checkpoint.  The entry points run on the card by
 default (`device="cuda"`) and raise when CUDA is absent; tests pass
 device="cpu" explicitly.
 """
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import encoding
@@ -248,7 +252,7 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
             enc: packed.EncodingConfig, phase: Phase, caches: dict | None = None,
             pos: torch.Tensor | int = 0, last_logits_only: bool = False,
             logits_idx: torch.Tensor | None = None, frames: torch.Tensor | None = None,
-            patches: torch.Tensor | None = None) -> torch.Tensor:
+            patches: torch.Tensor | None = None, aux: list | None = None) -> torch.Tensor:
     """tokens (B, S) -> f32 logits (B, S or 1 or K, vocab); caches update in place.
 
     `pos` is the position of tokens[:, 0]: an int shared by every row, or a
@@ -266,7 +270,13 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
     `patches` (B, P, frontend_dim) at every phase but DECODE: the projected
     patches are prepended to the token embeddings, so the text starts at
     position P, logits cover the P + S positions, and decode goes on at
-    P + S."""
+    P + S.
+
+    `aux`, where a list, receives every layer's training aux losses in
+    layer order (an MoE layer's load-balance loss; JAX's forward returns
+    their sum).  Under Phase.TRAIN with autograd on, each layer runs under
+    torch.utils.checkpoint: only its input is kept, and the backward pass
+    recomputes it."""
     x = params["embed"][tokens].to(cfg.activation_dtype)
     b, s = tokens.shape
     extra = None
@@ -286,9 +296,17 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
             raise ValueError("a VLM needs `patches` at every phase but DECODE")
         x = torch.cat([_project_patches(params, patches, cfg, enc, phase), x], dim=1)
     layer_caches = caches["layers"] if caches is not None else [None] * len(params["layers"])
+    remat = phase is Phase.TRAIN and torch.is_grad_enabled()
     for t, lp, lc in zip(layer_types(cfg), params["layers"], layer_caches):
-        x = blocks.BLOCKS[t][1](lp, x, cfg=cfg, enc=enc, phase=phase, cache=lc, pos=pos,
-                                extra=extra)
+        apply = functools.partial(blocks.BLOCKS[t][1], lp, cfg=cfg, enc=enc, phase=phase,
+                                  cache=lc, pos=pos, extra=extra)
+        if remat:
+            x, *layer_aux = torch.utils.checkpoint.checkpoint(_with_aux, apply, x,
+                                                              use_reentrant=False)
+            if aux is not None:
+                aux.extend(layer_aux)
+        else:
+            x = apply(x, aux=aux)
     if logits_idx is not None:
         idx = logits_idx.to(device=x.device, dtype=torch.int64)
         x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
@@ -304,6 +322,34 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
         logits = packed.linear_apply(params["head"], x, n=cfg.vocab_size, phase=phase,
                                      enc=enc, out_dtype=torch.float32)
     return logits
+
+
+def _with_aux(apply, x: torch.Tensor) -> tuple:
+    """apply(x) and the aux losses it hands out, as one tuple of tensors
+    (a checkpointed function's outputs)."""
+    found: list = []
+    return (apply(x, aux=found), *found)
+
+
+def loss_fn(params: dict, batch: dict, *, cfg: ModelConfig,
+            enc: packed.EncodingConfig) -> tuple[torch.Tensor, dict]:
+    """The training objective (JAX transformer.loss_fn): next-token cross
+    entropy lse - ll averaged over every position, plus 0.01 x the summed
+    load-balance aux (0 without MoE layers).  batch: "tokens" and "labels"
+    (B, S) int64, with "frames" for an enc-dec model and "patches" for a
+    VLM, whose image-prefix positions carry no labels and are cut before the
+    loss.  Returns (loss, {"nll", "aux"}), f32 scalars."""
+    auxes: list = []
+    logits = forward(params, batch["tokens"], cfg=cfg, enc=enc, phase=Phase.TRAIN,
+                     frames=batch.get("frames"), patches=batch.get("patches"), aux=auxes)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (lse - ll).mean()
+    aux = sum(auxes) if auxes else torch.zeros((), dtype=torch.float32, device=logits.device)
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
 
 def greedy_generate(params: dict, prompts: list, *, cfg: ModelConfig,

@@ -1,8 +1,16 @@
-"""Serving decode-step watchdog (copy of the serving half of
-repro/runtime/watchdog.py; the training straggler detector waits for the
-training slice).
+"""Straggler detection and mitigation, and the serving decode-step
+watchdog (copy of repro/runtime/watchdog.py).
 
-Per-step latency EWMA, stall detection (a step slower than
+Per-step wall times feed an EWMA; a host whose step exceeds
+`threshold x EWMA` is flagged (StepWatchdog).  Mitigation is the caller's:
+it may reassign the straggler's data shards to healthy hosts
+(DataReassigner: the synthetic pipeline is keyed by (host, shard), so
+reassignment is arithmetic) and, after `evict_after` consecutive flags,
+ask for a re-mesh (`should_remesh`; the port's elastic re-mesh waits for
+tensor parallelism).
+
+DecodeStepWatchdog applies the same EWMA to the serving engine's steps:
+per-step latency EWMA, stall detection (a step slower than
 `threshold x EWMA` after warmup), and p50/p99 over a bounded window of
 recent steps, merged into Engine.stats["watchdog"].  The clock is
 injectable so tests drive it deterministically.
@@ -24,6 +32,57 @@ class WatchdogConfig:
     threshold: float = 2.5
     warmup_steps: int = 5
     evict_after: int = 3
+
+
+class StepWatchdog:
+    """Training-side straggler detector: a global step-time EWMA and
+    per-host flags; a host flagged `evict_after` steps in a row is evicted."""
+
+    def __init__(self, cfg: WatchdogConfig = WatchdogConfig(), *,
+                 clock: Callable[[], float] = time.monotonic):
+        self.cfg = cfg
+        self.clock = clock
+        self.ewma: float | None = None
+        self.steps = 0
+        self._start: float | None = None
+        self.flags: dict[int, int] = {}  # host -> consecutive flags
+        self.evicted: set[int] = set()
+
+    def step_start(self) -> None:
+        self._start = self.clock()
+
+    def step_end(self, *, host_times: dict[int, float] | None = None) -> list[int]:
+        """Record one step; returns the hosts flagged in it.  `host_times`:
+        each host's step duration (an all-gather of step times in a
+        multi-host run; injected in tests).  Without them only the global
+        EWMA updates."""
+        if self._start is None:
+            raise RuntimeError("step_end without step_start")
+        dur = self.clock() - self._start
+        self._start = None
+        self.steps += 1
+        if self.ewma is None:
+            self.ewma = dur
+        else:
+            a = self.cfg.ewma_alpha
+            self.ewma = a * dur + (1 - a) * self.ewma
+
+        flagged = []
+        if host_times and self.steps > self.cfg.warmup_steps:
+            for host, t in host_times.items():
+                if host in self.evicted:
+                    continue
+                if t > self.cfg.threshold * self.ewma:
+                    self.flags[host] = self.flags.get(host, 0) + 1
+                    flagged.append(host)
+                    if self.flags[host] >= self.cfg.evict_after:
+                        self.evicted.add(host)
+                else:
+                    self.flags[host] = 0
+        return flagged
+
+    def should_remesh(self) -> bool:
+        return bool(self.evicted)
 
 
 class DecodeStepWatchdog:
@@ -99,3 +158,22 @@ class DecodeStepWatchdog:
             "stalls": self.stalls,
             "stalled": self.last_stalled,
         }
+
+
+class DataReassigner:
+    """Maps logical data shards to surviving hosts after eviction."""
+
+    def __init__(self, num_hosts: int):
+        self.num_hosts = num_hosts
+        self.assignment = {h: [h] for h in range(num_hosts)}  # host -> shards
+
+    def evict(self, host: int) -> None:
+        if host not in self.assignment:
+            return
+        orphaned = self.assignment.pop(host)
+        survivors = sorted(self.assignment)
+        for i, shard in enumerate(orphaned):
+            self.assignment[survivors[i % len(survivors)]].append(shard)
+
+    def shards_for(self, host: int) -> list[int]:
+        return sorted(self.assignment.get(host, []))

@@ -1351,3 +1351,47 @@ def test_dense_family_engine_kernels_match_plain_path(dev, arch):
     assert serve(EncodingConfig(backend="fused", attn_backend="auto")) == plain
     assert serve(EncodingConfig(backend="auto", attn_backend="auto"), spec_decode=True,
                  draft_k=4) == plain
+
+
+def test_train_step_card_matches_cpu(dev):
+    """One train step of the reduced f32 Llama on the card and on the CPU
+    from the same params (made on the CPU) and batch, TF32 off: the loss
+    within 1e-5 relative, the grad norm within 1e-4 relative, every updated
+    param within 1e-6 abs except where |g| < 1e-6 x max|g| of its leaf
+    (Adam's first step is the sign of noise there) or where the clipped
+    gradient Adam sees, |g| x min(1, clip_norm / grad_norm), is below 10 x eps
+    (Adam's eps region, where its first step g / (|g| + eps) turns steeply
+    with g): there within 2 x lr.  No kernel launches inside the step."""
+    from repro_torch.core import tree
+    from repro_torch.data import pipeline as data_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = cfg_registry.get_reduced("llama3.2-1b")
+    enc = EncodingConfig(backend="xla")
+    params = T.model_init(cfg, enc, seed=0, device="cpu")
+    batch = data_lib.SyntheticPacked(data_lib.DataConfig(cfg.vocab_size, 32, 4)).batch(0)
+    opt_cfg = opt_lib.OptimizerConfig(peak_lr=1e-3)
+    step = trainer_lib.make_train_step(cfg, enc, opt_cfg)
+    runs = {}
+    fns = (fused_gemv.fused_gemv, fused_pack_mmt4d.fused_pack_mmt4d, mmt4d.mmt4d,
+           attn.flash_prefill_attention, pack.pack)
+    before = [f.launches for f in fns]
+    for device in ("cpu", dev):
+        p = tree.tree_map(lambda t: t.to(device), params)
+        runs[device] = step(p, opt_lib.init(p), data_lib.to_torch(batch, device))
+    assert [f.launches for f in fns] == before
+    grads = trainer_lib.value_and_grad(tree.tree_map(lambda t: t.to(dev), params),
+                                       data_lib.to_torch(batch, dev), cfg, enc)[2]
+    (p_cpu, _, m_cpu, _), (p_dev, _, m_dev, _) = runs["cpu"], runs[dev]
+    torch.testing.assert_close(m_dev["loss"].cpu(), m_cpu["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(m_dev["grad_norm"].cpu(), m_cpu["grad_norm"], rtol=1e-4, atol=0)
+    lr = float(m_cpu["lr"])
+    clip = min(1.0, opt_cfg.clip_norm / float(m_dev["grad_norm"]))
+    for (path, a), b, g in zip(tree.leaves_with_path(p_dev), tree.leaves(p_cpu),
+                               tree.leaves(grads)):
+        g = g.float().abs().cpu()
+        small = (g < 1e-6 * g.max()) | (g * clip < 10 * opt_cfg.eps)
+        diff = (a.cpu() - b).abs()
+        assert float(torch.where(small, 0.0, diff).max()) <= 1e-6, tree.keystr(path)
+        assert float(torch.where(small, diff, 0.0).max()) <= 2 * lr, tree.keystr(path)

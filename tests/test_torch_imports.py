@@ -44,7 +44,11 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.models.blocks", "repro_torch.models.layers",
                 "repro_torch.models.recurrent", "repro_torch.configs.grok_1_314b",
                 "repro_torch.configs.rwkv6_1_6b", "repro_torch.configs.recurrentgemma_9b",
-                "repro_torch.launch.profile_decode"):
+                "repro_torch.launch.profile_decode", "repro_torch.data.pipeline",
+                "repro_torch.train.optimizer", "repro_torch.train.trainer",
+                "repro_torch.parallel.compression", "repro_torch.checkpoint.checkpoint",
+                "repro_torch.runtime.watchdog", "repro_torch.launch.train",
+                "repro_torch.core.tree"):
         assert mod in got["modules"]
 
 
