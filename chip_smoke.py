@@ -183,6 +183,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
              memory, 6N tokens/s as a share of the bf16 peak, one step
              under the profiler; (c) no hand-written kernel launched inside
              (b)'s steps: training runs the plain projections, as in JAX.
+ 15. tp      tensor-parallel serving, the ranks spawned by
+             launch/mesh.launch_ranks after the kernels are built and
+             sharing this one card (gloo between them, card tensors staged
+             through the host: NCCL refuses two ranks on one device; the
+             times are a rehearsal, not tensor-parallel speed): (a)
+             Llama-3.2-1B at full width, depth 2 of 16, f32, phase 4's
+             trace (spec: phase 5's tiled prompts) at tp = 1, 2 and 4 in 8
+             configurations (auto, pallas, spec, budget 64, kv8, kv4, w8a8,
+             w4a8): every rank's tokens equal tp = 1's in the first five,
+             and in kv4, w8a8 and w4a8, fed tp = 1's tokens (teacher
+             forced), every logit within TP_LOGIT_LIMIT of tp = 1's and the
+             argmax tp = 1's wherever its top-2 gap exceeds TP_GAP, a gate
+             that w8a8 and w4a8 with the absmax all-reduce skipped must
+             fail; its launches equal the dispatch tally at its shard's
+             shapes, its collectives 2 a layer plus the embedding's and the
+             head's a dispatch (and 2 a layer of absmax reduces with
+             int8/int4 weights), each staged; wo and w_down row-parallel at
+             Llama's widths against one card's product, w8a8 bit for bit;
+             (b) Llama-3.2-1B at tp = 2 and (c) Yi-9B at tp = 4, full
+             width and depth, bf16, phase 4's trace, every request ok:
+             tokens/s, decode p50, launches and collectives a step, peak
+             memory a rank and the share of tokens equal to the tp = 1 run
+             of the same call; then a world of one on NCCL runs a decode
+             step and each collective on its logits.  Phase 2 checks the
+             kernels at the shard shapes too (TP_SHAPES).
 
 In phases 4 to 9, 11 and 12 every kernel's launch count (per KV layout for the
 decode kernels), set to 0 before each run and read after it, must equal the
@@ -2040,9 +2065,16 @@ def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
     """Serve one run at full depth: an engine of `config`, every launch count
     set to 0 just before `drive(eng)` and read just after, each equal to its
     dispatch tally; every request must finish ok with all its tokens and no
-    page may leak or key be quarantined."""
+    page may leak or key be quarantined.  A tensor-parallel engine (config
+    mesh_shape, this process one rank) runs its shard's kernels, each rank
+    the same dispatches, so the same tally holds per rank; its collectives,
+    set to 0 and read as the launches, must be 2 a layer plus the
+    embedding's and the head's a dispatch, plus 2 a layer of activation
+    absmax reduces with int8 or int4 weights, each staged through the host
+    on gloo."""
     from repro_torch.core import encoding
     from repro_torch.models import transformer as T
+    from repro_torch.parallel import collectives
     from repro_torch.serving import engine as engine_lib
     from repro_torch.serving.config import EngineConfig
 
@@ -2052,6 +2084,7 @@ def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
     tally = DispatchTally(eng)
     for k in kernels.values():
         k.launches = 0
+    collectives.counts.clear()
     gc.collect()  # earlier runs' engines sit in reference cycles (DispatchTally's wrappers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2061,6 +2094,8 @@ def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
+    coll = {k: v for k, v in collectives.counts.items() if k != "host_copies"}
+    host_copies = collectives.counts["host_copies"]
     want = {name: tally.want[name] for name in kernels}
     st = eng.stats
     bad = [(r.uid, r.status, len(r.generated)) for r in done
@@ -2068,10 +2103,25 @@ def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
     if bad:
         raise AssertionError(f"{label}: requests not all ok with their tokens: {bad}")
     eng.audit()
-    if st.get("pages_in_use", 0) or st["degraded"]:
-        raise AssertionError(f"{label}: pages {st.get('pages_in_use')} degraded {st['degraded']}")
+    degraded = st["degraded"]
+    if isinstance(degraded, dict):  # per shard at tp > 1
+        degraded = [d for ds in degraded.values() for d in ds]
+    if st.get("pages_in_use", 0) or degraded:
+        raise AssertionError(f"{label}: pages {st.get('pages_in_use')} degraded {degraded}")
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != tallied {want}")
+    if eng.tp_shards > 1:
+        n, layers = sum(st["dispatches"].values()), cfg.num_layers
+        quant = enc.weight_quant != "none"
+        want_coll = {"all_reduce_sum": n * (2 * layers + 1), "all_gather_last": n,
+                     "all_reduce_max": n * 2 * layers if quant else 0}
+        got_coll = {k: coll.get(k, 0) for k in want_coll}
+        if got_coll != want_coll:
+            raise AssertionError(f"{label}: collectives {got_coll} != tallied {want_coll}")
+        device_coll = sum(want_coll.values())
+        if dev.type == "cuda" and eng.mesh.backend == "gloo" and host_copies != device_coll:
+            raise AssertionError(f"{label}: {host_copies} host copies for {device_coll} "
+                                 "collectives of card tensors on gloo")
     tokens = sum(len(r.generated) for r in done)
     itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
     out = {"requests": len(done), "tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
@@ -2086,6 +2136,7 @@ def counted_run(torch, dev, params, cfg, enc, config: dict, drive, label: str,
            "cache_mode": st["cache_mode"], "decode_mode": st["decode_mode"],
            "kv_quant": st["kv_quant"],
            "cache_bytes_per_slot": T.cache_bytes(eng.caches) // eng.slots,
+           "collectives": coll, "host_copies": host_copies,
            "kv_bytes_per_token": encoding.kv_bytes_per_token(
                cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, itemsize=itemsize,
                kv_quant=st["kv_quant"])}
@@ -2929,6 +2980,141 @@ INTERNVL_PROMPTS = (100, 500)  # text after 256 patches
 WHISPER_MAX_SEQ = 448          # Whisper's decoder context
 
 
+# Tensor-parallel shard shapes (phase 15): each rank's projections and
+# attention heads.  Llama-3.2-1B at tp = 2: q 2048 -> 1024, k/v 2048 -> 256,
+# o 1024 -> 2048, gate/up 2048 -> 4096, down 4096 -> 2048, attention 16 query
+# and 4 kv heads at D = 64; Yi-9B at tp = 4: q 4096 -> 1024, k/v 4096 -> 128,
+# o 1024 -> 4096, gate/up 4096 -> 2752, down 2752 -> 4096, its head 4096 ->
+# 16000 vocabulary rows, attention 8 query heads on one kv head at D = 128.
+TP_SHAPES = {
+    "llama tp2": dict(kn=((2048, 1024), (2048, 256), (1024, 2048), (2048, 4096), (4096, 2048)),
+                      heads=(16, 4), d=64),
+    "yi tp4": dict(kn=((4096, 1024), (4096, 128), (1024, 4096), (4096, 2752), (2752, 4096),
+                       (4096, 16000)),
+                   heads=(8, 1), d=128),
+}
+
+
+def check_tp_shapes(torch, dev, target, timer, results: dict) -> None:
+    """Phase 2, the kernels at the tensor-parallel shard shapes (TP_SHAPES),
+    each against its plain version with its bound and library time: bf16
+    fused_gemv (4 decode rows) and fused_pack_mmt4d (2048 prefill rows)
+    with matmul as the yardstick, w8a8 fused_gemv_q8 and w4a8 g16
+    fused_gemv_q4 at 4 rows bit for bit; paged decode at the shard's heads
+    (B = 4, L = 1, pos {37, 300, 511, 900}) on bf16, kv8 and kv4 pools and
+    flash prefill (bf16, B = 4, 512 x 512), SDPA the yardstick.  A K that
+    is no multiple of 128 (Yi's 2752 FFN columns a rank) is zero-padded on
+    the rows as kernels/ops.py pads them."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attn, fused_gemv, fused_pack_mmt4d, mmt4d_q4, ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    def check(name, key, fn, plain, *, exact, library_ms, bytes_moved, flops, dname):
+        got, want = fn(), plain()
+        err = (got - want).abs().max().item()
+        if exact and not torch.equal(got, want):
+            raise AssertionError(f"{name} {key}: not equal to its plain version bit for bit "
+                                 f"(max abs error {err})")
+        add_row(results, target, name, key, err=err, tol=0.0 if exact else 1e-3,
+                ms=timer.ms(fn), plain_ms=timer.ms(plain, iters=3, warmup=1),
+                library_ms=library_ms, bytes_moved=bytes_moved, flops=flops, dname=dname)
+
+    b, bs, pages = 4, 16, 257
+    pos_list = [37, 300, 511, 900]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    rng = np.random.RandomState(15)
+    table = torch.from_numpy(np.stack([rng.permutation(pages - 1)[:64] + 1 for _ in range(b)])
+                             .astype(np.int32)).to(dev)
+    for label, shape in TP_SHAPES.items():
+        for k, n in shape["kn"]:
+            w_t = rnd(n, k, scale=k**-0.5)
+            rhs4 = ref.pack(w_t, (128, 128))
+            tag = f"{label} K={k} N={n}"
+            kp = rhs4.shape[1] * 128
+            for m in (4, 2048):
+                x0 = rnd(m, k)
+                x = F.pad(x0, (0, kp - k))
+                kw = dict(exact=False, library_ms=timer.ms(lambda: torch.matmul(x0, w_t.t())),
+                          bytes_moved=(m * k + n * k) * 2 + m * n * 4, flops=2 * m * n * k,
+                          dname="bf16")
+                if m == 4:
+                    check("fused_gemv", f"{tag} bf16 M={m}",
+                          lambda: fused_gemv.fused_gemv(x, rhs4),
+                          lambda: fused_gemv.fused_gemv_plain(x, rhs4), **kw)
+                else:
+                    check("fused_pack_mmt4d", f"{tag} bf16 M={m}",
+                          lambda: fused_pack_mmt4d.fused_pack_mmt4d(x, rhs4),
+                          lambda: fused_pack_mmt4d.fused_pack_mmt4d_plain(x, rhs4), **kw)
+            del rhs4
+            rhs4_q, s_w = ops.pack_rhs_q8(w_t)
+            w_q = ref.unpack(rhs4_q, (n, kp)).contiguous()
+            xq, s_a = ref.quantize_rows(F.pad(rnd(4, k), (0, kp - k)))
+            sa1 = s_a[:, None]
+            check("fused_gemv_q8", f"{tag} w8a8 M=4",
+                  lambda: fused_gemv.fused_gemv_q8(xq, rhs4_q, sa1, s_w),
+                  lambda: fused_gemv.fused_gemv_q8_plain(xq, rhs4_q, sa1, s_w), exact=True,
+                  library_ms=int_mm_time(torch, timer, xq, w_q, s_a, s_w.reshape(-1)[:n]),
+                  bytes_moved=4 * k + n * k + 16 + n * 4 + 4 * n * 4, flops=8 * n * k,
+                  dname="int8")
+            del rhs4_q, w_q
+            rhs4_p, s_w4 = ops.pack_rhs_q4(w_t, group=16)
+            check("fused_gemv_q4", f"{tag} w4a8 g16 M=4",
+                  lambda: mmt4d_q4.fused_gemv_q4(xq, rhs4_p, sa1, s_w4, 16),
+                  lambda: mmt4d_q4.fused_gemv_q4_plain(xq, rhs4_p, sa1, s_w4, 16), exact=True,
+                  library_ms=None,
+                  bytes_moved=4 * k + n * k // 2 + n * (k // 16) * 2 + 16 + 4 * n * 4,
+                  flops=8 * n * k, dname="int8")
+            del rhs4_p, s_w4, w_t
+        h, kvh = shape["heads"]
+        d = shape["d"]
+        g = h // kvh
+        live = max(pos_list) + 1
+        keys = sum(p + 1 for p in pos_list)
+        for kv in ("bf16", "kv8", "kv4"):
+            name = "paged_decode_attention" + ("" if kv == "bf16" else f"_{kv}")
+            k_pool, k_sc = kv_data(torch, gen, kv, torch.bfloat16, pages, bs, kvh, d)
+            v_pool, v_sc = kv_data(torch, gen, kv, torch.bfloat16, pages, bs, kvh, d)
+            kw = dict(k_scale=k_sc, v_scale=v_sc, kv_quant=kv)
+            q = rnd(b, 1, h, d)
+            k_view, v_view = (kv_dequant(kv, attn.paged_gather(x, table)[:, :live],
+                                         None if sc is None else
+                                         attn.paged_gather(sc, table)[:, :live])
+                              for x, sc in ((k_pool, k_sc), (v_pool, v_sc)))
+            valid = decode_valid(torch, pos, 1, live)
+            attn_row(torch, timer, results, target, name,
+                     f"{label} {'' if kv == 'bf16' else kv + ' '}bf16 D={d} H={h} KV={kvh} "
+                     f"B={b} L=1",
+                     lambda: attn.paged_decode_attention(q, k_pool, v_pool, table, pos, **kw),
+                     lambda: attn.paged_decode_attention_plain(q, k_pool, v_pool, table, pos,
+                                                               **kw),
+                     q=q, k=k_view, v=v_view, valid=valid,
+                     library_ms=timer.ms(sdpa_call(torch, q, k_view, v_view, valid[:, None], g)),
+                     bytes_moved=2 * b * h * d * 2 + 2 * keys * kvh * kv_row_bytes(kv, d, 2)
+                     + b * 64 * 4 + b * 4,
+                     flops=4 * h * d * keys, dname="bf16", plain_iters=3)
+            del k_pool, v_pool, k_sc, v_sc
+        sq = 512
+        q, kp, vp = rnd(b, sq, h, d), rnd(b, sq, kvh, d), rnd(b, sq, kvh, d)
+        mask = torch.arange(sq, device=dev)[None, :] <= torch.arange(sq, device=dev)[:, None]
+        attn_row(torch, timer, results, target, "flash_prefill_attention",
+                 f"{label} bf16 D={d} H={h} KV={kvh} B={b} Sq={sq} Sk={sq} q_offset=0",
+                 lambda: attn.flash_prefill_attention(q, kp, vp),
+                 lambda: attn.flash_prefill_attention_plain(q, kp, vp),
+                 q=q, k=kp, v=vp, valid=mask[None].expand(b, -1, -1),
+                 library_ms=timer.ms(sdpa_call(torch, q, kp, vp, mask[None, None], g)),
+                 bytes_moved=(2 * b * sq * h * d + 2 * b * sq * kvh * d) * 2,
+                 flops=4 * b * h * d * int(mask.sum().item()), dname="bf16", plain_iters=3)
+        del q, kp, vp
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 def check_encdec_vlm_shapes(torch, dev, target, timer, results: dict) -> None:
     """Phase 2, the shapes Whisper-tiny and InternVL2-26B give the kernels:
     flash prefill with causal=False (never run causally off in a serving
@@ -3663,6 +3849,461 @@ def train_check(torch, dev, seed: int, smi: str) -> dict:
     return out
 
 
+# ---- phase 15: tensor-parallel serving ------------------------------------------------
+
+# (a)'s engines: (label, encoding kwargs, engine config, prompts), each at
+# tp = 1, 2 and 4 on Llama-3.2-1B at full width, depth 2 of 16, f32.
+# TP_FORCED: the cases whose tokens at tp > 1 are held to tp = 1's by their
+# logits rather than by free-running tokens.  A rank's kernels plan their
+# splits by the shapes they get (a GEMV's K splits by its N blocks, decode
+# attention's key splits by rows x kv heads), so with fewer columns or heads
+# a rank sums some outputs in another f32 order, an ulp off one card's; f32
+# carries that to the tokens no further at depth 2, but the int8/int4
+# activation quantizers and the kv4 codes round it across a code boundary
+# now and then (the int4 GEMV also rounds each rank's exact f64 sum to f32
+# before the group adds them), and a greedy stream that parts there never
+# meets again.  So at tp > 1 these cases are fed tp = 1's tokens (teacher
+# forced: tp_forced_drive) and gated on every position's logits: each within
+# TP_LOGIT_LIMIT of tp = 1's, and the argmax equal to tp = 1's token
+# wherever tp = 1's top-2 gap exceeds TP_GAP.  The limit lies between the
+# sound runs' largest |difference| and that of a planted fault (TP_PLANTED:
+# the same engines at tp = 2 with the activation absmax all-reduce skipped,
+# each rank quantizing its K slice on its own scale), and every run checks
+# that the planted fault fails the gate.  On the CPU, where the plain
+# versions have no plans, these cases' tokens equal tp = 1's outright
+# (tests/test_torch_tp_engine.py).
+TP_FORCED = ("kv4", "w8a8", "w4a8")
+TP_PLANTED = ("w8a8", "w4a8")
+# Readings on the H100 (seed 0): the sound runs' largest |dlogit| 0.006
+# (kv4), 0.094 (w8a8), 0.111 (w4a8), their argmax parting only where tp =
+# 1's top-2 gap is at most 0.035; the planted fault 3.2 (w8a8) and 0.33
+# (w4a8).  The limit sits between them; a position whose gap exceeds twice
+# the limit cannot flip under it, so TP_GAP, half the limit, asks more.
+TP_LOGIT_LIMIT = 0.2
+TP_GAP = 0.1
+
+
+def outside_tp_gate(f: dict) -> bool:
+    """Whether a ForcedStream summary fails phase 15's gate for TP_FORCED."""
+    gap = f["max_gap_where_differs"]
+    return f["max_abs_dlogit"] > TP_LOGIT_LIMIT or (gap is not None and gap > TP_GAP)
+TP_AUTO = dict(backend="auto", attn_backend="auto")
+TP_CASES = (
+    ("auto", TP_AUTO, {}, "shared"),
+    ("pallas", dict(backend="pallas", attn_backend="auto"), {}, "shared"),
+    ("spec", TP_AUTO, dict(spec_decode=True, draft_k=4), "tiled"),
+    ("budget", TP_AUTO, dict(token_budget=64), "shared"),
+    ("kv8", TP_AUTO, dict(kv_quant="kv8"), "shared"),
+    ("kv4", TP_AUTO, dict(kv_quant="kv4"), "shared"),
+    ("w8a8", dict(TP_AUTO, weight_quant="int8"), {}, "shared"),
+    ("w4a8", dict(TP_AUTO, weight_quant="int4"), {}, "shared"),
+)
+
+
+def tp_jobs(seed: int, tp: int) -> list[dict]:
+    """The runs of phase 15 at degree `tp`: (a)'s cases (at tp = 2 each of
+    TP_PLANTED again, part "planted"), then (b) at tp = 2
+    (Llama-3.2-1B, full width and depth, bf16) or (c) at tp = 4 (Yi-9B,
+    full width and depth, bf16); at tp = 1 both (b) and (c)."""
+    import numpy as np
+
+    from repro_torch.configs import registry as cfg_registry
+
+    llama = cfg_registry.get_config("llama3.2-1b")
+    small = dataclasses.replace(llama, num_layers=2, dtype="float32")
+    jobs = []
+    for label, enc_kw, config, kind in TP_CASES:
+        rng = np.random.RandomState(seed)
+        prompts = (tiled_prompts if kind == "tiled" else shared_prefix_prompts)(
+            rng, small.vocab_size)
+        jobs.append(dict(part="a", label=label, cfg=small, enc=enc_kw, config=config,
+                         prompts=prompts))
+        if tp == 2 and label in TP_PLANTED:
+            jobs.append(dict(jobs[-1], part="planted"))
+    full = [("b", llama)] if tp in (1, 2) else []
+    full += [("c", cfg_registry.get_config("yi-9b"))] if tp in (1, 4) else []
+    for part, cfg in full:
+        jobs.append(dict(part=part, label=cfg.name, cfg=cfg,
+                         enc=dict(backend="fused", attn_backend="auto"), config={},
+                         prompts=shared_prefix_prompts(np.random.RandomState(seed),
+                                                       cfg.vocab_size)))
+    return jobs
+
+
+class ForcedStream:
+    """Teacher forcing for TP_FORCED: a drive whose engine commits, for
+    every request and position, tp = 1's token instead of its own argmax,
+    and reads the logits of each commit.  Made with `ref` None (at tp = 1)
+    it records each position's logits (`logits`, requests x max_new x
+    vocab); with `ref` (tp = 1's record: its logits and tokens) it forces
+    the tokens and keeps each position's largest |logit - tp = 1's| and
+    argmax, on the card until summary()."""
+
+    def __init__(self, torch, dev, n_req: int, max_new: int, vocab: int, ref=None):
+        self.torch, self.vocab, self.rows = torch, vocab, []
+        if ref is None:
+            self.logits = torch.zeros(n_req, max_new, vocab, device=dev)
+            return
+        self.ref = ref["logits"].to(dev)
+        self.tokens = ref["tokens"]
+        top2 = self.ref.topk(2, dim=-1).values
+        self.gap = top2[..., 0] - top2[..., 1]
+
+    def drive(self, prompts, max_new):
+        inner = submit_all(prompts, max_new)
+
+        def drive(eng):
+            commit = eng._commit
+
+            def forced(slots_sel, nxt, bad=frozenset()):
+                logits = eng._last_logits
+                if logits.dim() != 2:
+                    raise AssertionError(f"a forced case ran a window step: {logits.shape}")
+                for s in slots_sel:
+                    req = eng.slot_req[s]
+                    if req is None or s in bad:
+                        continue
+                    i = len(req.generated)
+                    row = logits[s, :self.vocab].float()
+                    if not hasattr(self, "ref"):
+                        self.logits[req.uid, i] = row
+                        continue
+                    self.rows.append(((row - self.ref[req.uid, i]).abs().max(), row.argmax(),
+                                      req.uid, i))
+                    nxt[s] = self.tokens[req.uid][i]
+                return commit(slots_sel, nxt, bad)
+            eng._commit = forced
+            return inner(eng)
+        return drive
+
+    def summary(self) -> dict:
+        """Over every forced position: the largest |logit - tp = 1's|, the
+        positions whose argmax is not tp = 1's token, the largest top-2 gap
+        of tp = 1's logits among them, and tp = 1's largest |logit|."""
+        torch = self.torch
+        d = torch.stack([r[0] for r in self.rows]).cpu()
+        am = torch.stack([r[1] for r in self.rows]).cpu()
+        uid = torch.tensor([r[2] for r in self.rows])
+        pos = torch.tensor([r[3] for r in self.rows])
+        want = torch.tensor([self.tokens[int(u)][int(i)] for u, i in zip(uid, pos)])
+        gap = self.gap[uid.to(self.gap.device), pos.to(self.gap.device)].cpu()
+        differ = am != want
+        return {"positions": len(self.rows), "max_abs_dlogit": d.max().item(),
+                "argmax_differs": int(differ.sum()),
+                "max_gap_where_differs": gap[differ].max().item() if differ.any() else None,
+                "min_gap": gap.min().item(),
+                "ref_logit_absmax": self.ref.abs().max().item()}
+
+
+def row_parallel_check(torch, dev, seed: int, tp: int, rank: int) -> dict:
+    """wo (K = 2048) and w_down (K = 8192) at Llama-3.2-1B's widths, N =
+    2048, row-parallel on this rank's K slice (linear_apply's row_group)
+    against one card's product of the whole weight on the same rows, at
+    decode (M = 4) and prefill (M = 64) on the "auto" route: w8a8 must be
+    one card's bit for bit (the ranks' exact integer sums added in f64, one
+    card's epilogue); w4a8 and f32 (auto and the plain reference rung, a
+    quarantine's last) are reported.  Returns the largest |difference| by
+    format and projection."""
+    import torch.distributed as dist
+
+    from repro_torch.core import packed
+    from repro_torch.core.encoding import Phase
+    from repro_torch.parallel import sharding
+
+    out = {}
+    for fmt, backend in (("int8", "auto"), ("int4", "auto"), ("none", "auto"),
+                         ("none", "reference")):
+        enc = packed.EncodingConfig(backend=backend, attn_backend="auto", weight_quant=fmt)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for name, k in (("wo", 2048), ("w_down", 8192)):
+            w = packed.linear_init(gen, k, 2048, enc=enc, device=dev)
+            lo, hi = rank * k // tp, (rank + 1) * k // tp
+            part = sharding.shard_linear(w, 2048, k, "cols", lo, hi, group=enc.quant_group)
+            for phase, m in ((Phase.DECODE, 4), (Phase.PREFILL, 64)):
+                x = torch.randn(m, k, generator=gen, device=dev)
+                one = packed.linear_apply(w, x, n=2048, phase=phase, enc=enc)
+                got = packed.linear_apply(part, x[:, lo:hi], n=2048, phase=phase, enc=enc,
+                                          row_group=dist.group.WORLD)
+                err = (got - one).abs().max().item()
+                if fmt == "int8" and err:
+                    raise AssertionError(f"w8a8 {name} row-parallel at tp={tp} rank {rank} "
+                                         f"{phase.value}: {err} from one card's")
+                label = f"{fmt} {backend} {name}"
+                out[label] = max(out.get(label, 0.0), err)
+    return out
+
+
+def tp_serve(torch, dev, seed: int, tp: int, rank: int, ref_dir: str) -> list[dict]:
+    """Serve every job of tp_jobs at degree `tp` in this process (rank
+    `rank` of a group of tp, or alone at tp = 1): each model made as this
+    rank's shard of the seed's weights (transformer.model_init(shard=)),
+    phase 4's trace (32 new tokens, 4 slots) through counted_run.  TP_FORCED
+    cases record their logits into `ref_dir` at tp = 1 and are forced on
+    that record at tp > 1 (ForcedStream); a "planted" job serves its case
+    again, forced, with every activation absmax all-reduce skipped, outside
+    counted_run (its ranks' logits part, as a fault's would)."""
+    from repro_torch.core import tree
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+
+    out, params, made = [], None, None
+    for job in tp_jobs(seed, tp):
+        enc = EncodingConfig(**job["enc"])
+        cfg = job["cfg"]
+        key = (cfg.name, cfg.num_layers, enc.weight_quant)
+        if made != key:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            shard = sharding.plan(cfg, enc, tp, rank) if tp > 1 else None
+            params = T.model_init(cfg, enc, seed=seed, device=dev, shard=shard)
+            torch.cuda.synchronize()
+            init_s, made = time.perf_counter() - t0, key
+        config = dict(slots=4, mesh_shape=(tp,), **job["config"])
+        label = f"{job['part']} {job['label']} tp={tp} rank {rank}"
+        drive = submit_all(job["prompts"], 32)
+        forced = None
+        if job["label"] in TP_FORCED and job["part"] in ("a", "planted"):
+            path = os.path.join(ref_dir, f"{job['label']}.pt")
+            ref = torch.load(path) if tp > 1 else None
+            forced = ForcedStream(torch, dev, len(job["prompts"]), 32, cfg.vocab_size, ref)
+            drive = forced.drive(job["prompts"], 32)
+        if job["part"] == "planted":
+            eng = engine_lib.Engine(params, cfg, enc, device=dev, config=EngineConfig(
+                max_seq=1024, block_size=16, **config))
+            reduce_max = collectives.all_reduce_max
+            collectives.all_reduce_max = lambda x, group: x
+            try:
+                drive(eng)
+            finally:
+                collectives.all_reduce_max = reduce_max
+            torch.cuda.synchronize()
+            out.append(dict(part="planted", label=job["label"], tp=tp, rank=rank,
+                            forced=forced.summary(),
+                            tokens_by_uid={r.uid: list(r.generated) for r in eng.finished}))
+            del eng
+            continue
+        eng, run = counted_run(torch, dev, params, cfg, enc, config, drive, label, "tp")
+        run.update(part=job["part"], label=job["label"], tp=tp, rank=rank, init_s=init_s,
+                   tokens_by_uid={r.uid: list(r.generated) for r in eng.finished},
+                   model_cfg=dict(heads=eng.model_cfg.num_heads,
+                                  kv_heads=eng.model_cfg.num_kv_heads,
+                                  d_ff=eng.model_cfg.d_ff))
+        if forced is not None and tp == 1:
+            torch.save({"logits": forced.logits.cpu(),
+                        "tokens": {int(u): [int(t) for t in toks]
+                                   for u, toks in run["tokens_by_uid"].items()}}, path)
+        elif forced is not None:
+            run["forced"] = forced.summary()
+        if job["part"] != "a":
+            run["weight_gib"] = sum(t.numel() * t.element_size() for t in tree.leaves(params)
+                                    if isinstance(t, torch.Tensor)) / 2**30
+        del eng, forced
+        out.append(run)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, world: int, device: str, seed: int, ref_dir: str) -> dict:
+    """One spawned rank of phase 15 (launch/mesh.launch_ranks runs it): the
+    row-parallel projections, then the serving runs."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    return {"row_parallel": row_parallel_check(torch, dev, seed, world, rank),
+            "runs": tp_serve(torch, dev, seed, world, rank, ref_dir)}
+
+
+def nccl_rank(rank: int, world: int, device: str, seed: int) -> dict:
+    """A rank of a world of one on NCCL: one decode step of a depth-2 f32
+    Llama, then each collective the forward uses run on that step's logits
+    through the NCCL group (reduce_in_group and gather_in_group skip the
+    size-1 shortcut), each equal to its input."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry as cfg_registry
+    from repro_torch.core.packed import EncodingConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import collectives
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving.config import EngineConfig
+
+    del rank, world
+    dev = torch.device(device)
+    cfg = dataclasses.replace(cfg_registry.get_config("llama3.2-1b"), num_layers=2,
+                              dtype="float32")
+    enc = EncodingConfig(**TP_AUTO)
+    eng = engine_lib.Engine(T.model_init(cfg, enc, seed=seed, device=dev), cfg, enc,
+                            device=dev, config=EngineConfig(slots=1, max_seq=256))
+    prompt = np.random.RandomState(seed).randint(1, cfg.vocab_size, 40).astype(np.int32)
+    eng.submit(engine_lib.Request(uid=0, prompt=prompt, max_new_tokens=2))
+    eng.run()
+    logits = eng._last_logits
+    group = dist.group.WORLD
+    backend = dist.get_backend(group)
+    same = {op: bool(torch.equal(collectives.reduce_in_group(logits, group, op), logits))
+            for op in ("sum", "max")}
+    same["gather"] = bool(torch.equal(collectives.gather_in_group(logits, group), logits))
+    torch.cuda.synchronize()
+    return {"backend": backend, "equal": same, "host_copies": collectives.counts["host_copies"]}
+
+
+def serve_tp(torch, dev, seed: int, smi: str) -> dict:
+    """Phase 15: tensor-parallel serving with every rank on this one card
+    (gloo between them, card tensors staged through the host: NCCL refuses
+    two ranks on one device).  tp = 1 here, then 2 and 4 ranks spawned by
+    launch/mesh.launch_ranks after the kernels are built.  (a) gates: every
+    case's tokens at tp = 2 and 4 equal to tp = 1's, on every rank, and
+    TP_FORCED's logits, fed tp = 1's tokens, within TP_LOGIT_LIMIT and
+    TP_GAP of tp = 1's, a gate the TP_PLANTED fault must fail; each rank's
+    w8a8 wo and w_down row-parallel equal one card's bit for bit; (b)
+    Llama-3.2-1B at tp = 2 and (c) Yi-9B at tp = 4, full width and depth,
+    report tokens/s, the decode p50, launches and collectives a step, peak
+    memory per rank and the share of tokens equal to tp = 1's (bf16 sums in
+    another order: reported, not gated).  A world of one on NCCL runs a
+    step and its collectives.  Ranks sharing one card time a rehearsal, not
+    tensor-parallel speed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        runs = {1: tp_serve(torch, dev, seed, 1, 0, ref_dir)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        row_parallel = {}
+        for tp in (2, 4):
+            t0 = time.perf_counter()
+            ranks = mesh_lib.launch_ranks(tp_rank, tp, seed, ref_dir, device=dev.type,
+                                          timeout_s=600, collective_timeout_s=300)
+            log(f"[tp] {tp} ranks on one card: {mesh_lib.rank_backend(tp, dev.type)[0]}, "
+                f"{time.perf_counter() - t0:.1f}s with their start")
+            runs[tp] = [run for r in ranks for run in r["runs"]]
+            row_parallel[tp] = [r["row_parallel"] for r in ranks]
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    log(f"[tp] wo / w_down row-parallel against one card's, largest |difference| a rank: "
+        f"{row_parallel} (w8a8 gated bit for bit)")
+
+    base = {(r["part"], r["label"]): r for r in runs[1]}
+    summary = {"a": {}, "full": {}, "forced": {}, "planted": {}, "row_parallel": row_parallel,
+               "limits": {"logit": TP_LOGIT_LIMIT, "gap": TP_GAP}}
+    differ, forced_fail = [], []
+    for tp in (2, 4):
+        for r in runs[tp]:
+            where = f"tp={tp} rank {r['rank']}"
+            if r["part"] == "planted":
+                summary["planted"].setdefault(r["label"], {})[where] = r["forced"]
+                continue
+            ref = base[(r["part"], r["label"])]
+            pos = sum(len(t) for t in ref["tokens_by_uid"].values())
+            eq = sum(a == b for u, t in ref["tokens_by_uid"].items()
+                     for a, b in zip(t, r["tokens_by_uid"][u]))
+            if r["part"] == "a":
+                summary["a"].setdefault(r["label"], {})[where] = {
+                    "collectives": r["collectives"], "host_copies": r["host_copies"],
+                    "launches": {k: v for k, v in r["launches"].items() if v},
+                    "token_match_share": eq / pos}
+                if r["tokens_by_uid"] != ref["tokens_by_uid"]:
+                    differ.append(f"{r['label']} {where} ({eq}/{pos} tokens equal)")
+                if r["label"] in TP_FORCED:
+                    f = r["forced"]
+                    summary["forced"].setdefault(r["label"], {})[where] = f
+                    if outside_tp_gate(f):
+                        forced_fail.append(f"{r['label']} {where}: {f}")
+                continue
+            dec = r["step_ms"].get("decode", {})
+            row = {k: r[k] for k in ("tok_s", "wall_s", "steps", "dispatches", "peak_gib",
+                                     "start_gib", "weight_gib", "init_s", "collectives",
+                                     "host_copies", "model_cfg", "step_ms")}
+            row.update(decode_p50_ms=dec.get("p50_ms"), token_match_share=eq / pos,
+                       requests_identical=sum(r["tokens_by_uid"][u] == t
+                                              for u, t in ref["tokens_by_uid"].items()),
+                       launches_per_step=sum(r["launches"].values()) / r["steps"],
+                       collectives_per_dispatch={k: v / sum(r["dispatches"].values())
+                                                 for k, v in r["collectives"].items()
+                                                 if k.startswith("all_")})
+            summary["full"].setdefault(r["label"], {})[f"tp={tp} rank {r['rank']}"] = row
+            log(f"[tp] ({r['part']}) {r['label']} tp={tp} rank {r['rank']}: "
+                f"{row['tok_s']:.1f} tok/s, decode p50 {row['decode_p50_ms']:.2f} ms, "
+                f"{row['launches_per_step']:.0f} launches a step, collectives a dispatch "
+                f"{row['collectives_per_dispatch']}, peak {row['peak_gib']:.2f} GiB "
+                f"(weights {row['weight_gib']:.2f} GiB), tokens equal to tp=1's "
+                f"{row['token_match_share']:.3f}, requests identical "
+                f"{row['requests_identical']}/8 ({smi}; ranks share the card: a rehearsal)")
+    for r in runs[1]:
+        if r["part"] != "a":
+            dec = r["step_ms"].get("decode", {})
+            summary["full"].setdefault(r["label"], {})["tp=1"] = {
+                "tok_s": r["tok_s"], "decode_p50_ms": dec.get("p50_ms"),
+                "peak_gib": r["peak_gib"], "weight_gib": r["weight_gib"], "steps": r["steps"],
+                "launches_per_step": sum(r["launches"].values()) / r["steps"]}
+            log(f"[tp] ({r['part']}) {r['label']} tp=1: {r['tok_s']:.1f} tok/s, decode p50 "
+                f"{dec.get('p50_ms', float('nan')):.2f} ms, peak {r['peak_gib']:.2f} GiB")
+    for label, ranks in summary["forced"].items():
+        log(f"[tp] (a) {label}, fed tp=1's tokens: " + "; ".join(
+            f"{where} max |dlogit| {f['max_abs_dlogit']:.4g}, argmax != tp=1's at "
+            f"{f['argmax_differs']}/{f['positions']} (largest tp=1 top-2 gap there "
+            f"{f['max_gap_where_differs']})" for where, f in ranks.items())
+            + f" (tp=1's smallest top-2 gap {next(iter(ranks.values()))['min_gap']:.4g}, "
+            f"largest |logit| {next(iter(ranks.values()))['ref_logit_absmax']:.4g})")
+    for label, ranks in summary["planted"].items():
+        log(f"[tp] (a) planted fault, {label} without the absmax all-reduce, fed tp=1's "
+            f"tokens: " + "; ".join(
+                f"{where} max |dlogit| {f['max_abs_dlogit']:.4g}, argmax != tp=1's at "
+                f"{f['argmax_differs']}/{f['positions']} (largest tp=1 top-2 gap there "
+                f"{f['max_gap_where_differs']})" for where, f in ranks.items()))
+    log(f"[tp] (a) gate for {', '.join(TP_FORCED)}: every logit within {TP_LOGIT_LIMIT} of "
+        f"tp=1's, the argmax tp=1's wherever its top-2 gap exceeds {TP_GAP}")
+    if differ:
+        raise AssertionError(f"(a) tokens differ from tp=1: {differ}")
+    if forced_fail:
+        raise AssertionError(f"(a) forced logits outside the gate: {forced_fail}")
+    missed = [label for label, ranks in summary["planted"].items()
+              if not any(outside_tp_gate(f) for f in ranks.values())]
+    if sorted(summary["planted"]) != sorted(TP_PLANTED) or missed:
+        raise AssertionError(f"(a) the gate does not catch the planted fault in {missed} "
+                             f"(planted runs: {sorted(summary['planted'])})")
+    # The ranks of one group hold the same logits, so emit the same tokens.
+    lockstep = all(r["tokens_by_uid"] == s["tokens_by_uid"]
+                   for tp in (2, 4) for r in runs[tp] for s in runs[tp]
+                   if (s["part"], s["label"]) == (r["part"], r["label"]))
+    if not lockstep:
+        raise AssertionError("(a)-(c): the ranks of one group emitted different tokens")
+    log(f"[tp] (a) {len(TP_CASES) - len(TP_FORCED)} cases at tp=2 and 4 on every rank: "
+        f"tokens == tp=1; {', '.join(TP_FORCED)} fed tp=1's tokens within the gate, which "
+        f"the planted fault fails; every case: every rank the same tokens, launches and "
+        f"collectives == tallied")
+    launches = {}
+    for tp_runs in runs.values():
+        for r in tp_runs:
+            for name, n in r.get("launches", {}).items():
+                launches[name] = launches.get(name, 0) + n
+    nccl = mesh_lib.launch_ranks(nccl_rank, 1, seed, device=dev.type, timeout_s=300)[0]
+    log(f"[tp] world of one on {nccl['backend']}: a decode step's logits through each "
+        f"collective unchanged {nccl['equal']}")
+    if nccl["backend"] != "nccl" or not all(nccl["equal"].values()):
+        raise AssertionError(f"NCCL world of one: {nccl}")
+    summary.update(launches=launches, nccl=nccl, phase_s=time.perf_counter() - t_phase)
+    log(f"[tp] phase 15 in {summary['phase_s']:.1f}s")
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3721,6 +4362,9 @@ def main() -> int:
     t1 = time.perf_counter()
     check_encdec_vlm_shapes(torch, dev, targets.H100, timer, results)
     log(f"[kernel] Whisper and InternVL shapes checked in {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    check_tp_shapes(torch, dev, targets.H100, timer, results)
+    log(f"[kernel] tensor-parallel shard shapes checked in {time.perf_counter() - t1:.1f}s")
     check_pack_kernels(torch, dev, targets.H100, timer, results)
     sampler = check_sampler(torch, dev, timer)
     log(f"[kernel] checks done in {time.perf_counter() - t0:.1f}s")
@@ -3747,7 +4391,8 @@ def main() -> int:
     served_packs = sum(WEIGHT_PACKS[loads:])  # the weight packs of the served models
     chaos = chaos_check(torch, dev, args.seed)
     train = train_check(torch, dev, args.seed, smi)
-    launches = {name: served["launches"][name]
+    tp = serve_tp(torch, dev, args.seed, smi)
+    launches = {name: served["launches"][name] + tp["launches"].get(name, 0)
                 + sum(r["launches"][name] for r in (*windows.values(), *quant.values(),
                                                     *kv.values(), *sampled.values(),
                                                     *dense.values(), *moe.values(),
@@ -3781,7 +4426,7 @@ def main() -> int:
                    "moe_forward": moe_forward, "moe": moe,
                    "recurrent_forward": recurrent_forward, "recurrent": recurrent,
                    "encdec_vlm_forward": encdec_vlm_forward, "encdec_vlm": encdec_vlm,
-                   "train": train, "table": table}, f, indent=1)
+                   "train": train, "tp": tp, "table": table}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

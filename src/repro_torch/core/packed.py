@@ -9,6 +9,14 @@ int8) and w_scale (per output channel, f32) and runs w8a8; "int4" stores
 w_q4 (nibble-packed int4) and w_scale4 (bf16, one per `quant_group` K
 elements) and runs w4a8.  Both quantize on the device the weight is made
 on, and route by `quant_backend` (kernels/ops.py).
+
+`linear_plain` undoes the packing of any of these formats (codes and
+scales as they are, no requantization) and `linear_from_plain` packs the
+plain form again, so a tensor-parallel rank's slice of a projection
+(parallel/sharding.py) is the slice of the very codes the full weight holds.
+A row-parallel projection (`row_group`: each rank holds a K slice of the
+weight and of the rows) returns the product summed over the group; its
+w8a8/w4a8 activation rows take the absmax of the whole row.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from repro_torch.core import encoding
 from repro_torch.core import targets as targets_lib
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.parallel import collectives
 
 # The weight formats and the registry's quant name of each.
 QUANT_KEYS = {"none": "none", "int8": "w8a8", "int4": "w4a8"}
@@ -96,26 +105,36 @@ def linear_apply(
     phase: encoding.Phase,
     enc: EncodingConfig = DEFAULT_ENCODING,
     out_dtype: torch.dtype | None = None,
+    row_group=None,
 ) -> torch.Tensor:
+    """y = x @ W^T (+ b) in `out_dtype` (default x.dtype).  `row_group`, a
+    tensor-parallel group over whose ranks K is split: the product is summed
+    over the group before the cast (ops: in f32; w8a8 as exact integer sums)
+    and the bias added once after it."""
     out_dtype = out_dtype or x.dtype
     if "w_q4" in params:
         y = ops.encoded_matmul_q4(
             x, params["w_q4"], params["w_scale4"], n=n, phase=phase, group=enc.quant_group,
             backend=enc.quant_backend(), target=enc.target, out_dtype=out_dtype,
+            row_group=row_group,
         )
     elif "w_q" in params:
         y = ops.encoded_matmul_q8(
             x, params["w_q"], params["w_scale"], n=n, phase=phase,
             backend=enc.quant_backend(), target=enc.target, out_dtype=out_dtype,
+            row_group=row_group,
         )
     elif "w_packed" in params:
         y = ops.encoded_matmul(
             x, params["w_packed"], n=n, phase=phase,
             backend=enc.resolved_backend(), target=enc.target, out_dtype=out_dtype,
+            row_group=row_group,
         )
     else:
         lead = x.shape[:-1]
         y = ref.matmul_reference(x.reshape(-1, x.shape[-1]), params["w_t"])
+        if row_group is not None:
+            y = collectives.all_reduce_sum(y, row_group)
         y = y.to(out_dtype).reshape(*lead, -1)
     if "b" in params:
         y = y + params["b"].to(out_dtype)
@@ -128,3 +147,46 @@ def linear_out_dim(params: dict) -> int:
             n1, _, n0, _ = params[key].shape
             return n1 * n0  # padded; callers pass the true `n` to linear_apply
     return params["w_t"].shape[0]
+
+
+def linear_plain(params: dict, n: int, k: int, *, group: int = ref.Q4_GROUP) -> dict:
+    """A projection's weights (N = n, K = k) as plain row-major tensors, the
+    packing undone and nothing requantized: {"w_t"} (unencoded), {"w"}
+    (packed f32/bf16), {"q" (n, k) int8, "s" (n,) f32} (int8) or {"q4" (n,
+    k) int8 codes, "s4" (n, ceil(k/group)) bf16} (int4), with "b" (n,)
+    where the projection has a bias."""
+    if "w_q4" in params:
+        codes = ref.unpack_nibbles(params["w_q4"]).to(torch.int8)
+        out = {"q4": ref.unpack(codes, (n, k)),
+               "s4": ref.unpack(params["w_scale4"], (n, -(-k // group)))}
+    elif "w_q" in params:
+        out = {"q": ref.unpack(params["w_q"], (n, k)), "s": params["w_scale"].reshape(-1)[:n]}
+    elif "w_packed" in params:
+        out = {"w": ref.unpack(params["w_packed"], (n, k))}
+    else:
+        out = {"w_t": params["w_t"]}
+    if "b" in params:
+        out["b"] = params["b"]
+    return out
+
+
+def linear_from_plain(plain: dict, *, group: int = ref.Q4_GROUP) -> dict:
+    """linear_plain's inverse: the stored form linear_init makes, packed at
+    (N0, K0) = (128, 128) (the pack kernel on a CUDA tensor)."""
+    t = encoding.PACK_TILE
+    if "q4" in plain:
+        out = {"w_q4": ref.pack_nibbles(ops.pack_lib.pack(plain["q4"].contiguous(), (t, t))),
+               "w_scale4": ops.pack_lib.pack(plain["s4"].contiguous(), (t, t // group))}
+    elif "q" in plain:
+        rhs4 = ops.pack_rhs(plain["q"].contiguous())
+        n1, _, n0, _ = rhs4.shape
+        s = torch.zeros(n1 * n0, dtype=torch.float32, device=rhs4.device)
+        s[: plain["s"].shape[0]] = plain["s"]
+        out = {"w_q": rhs4, "w_scale": s.reshape(n1, n0)}
+    elif "w" in plain:
+        out = {"w_packed": ops.pack_rhs(plain["w"].contiguous())}
+    else:
+        out = {"w_t": plain["w_t"].contiguous()}
+    if "b" in plain:
+        out["b"] = plain["b"].contiguous()
+    return out

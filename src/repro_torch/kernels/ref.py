@@ -54,10 +54,15 @@ def matmul_reference(lhs: torch.Tensor, rhs_t: torch.Tensor) -> torch.Tensor:
 # ---- int8 serving quantization (w8a8; kernels/mmt4d_q8.py) ---------------------
 
 
-def quantize_rows(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-row int8: returns (q (R, C) int8, scale (R,) f32)."""
+def quantize_rows(x2d: torch.Tensor, amax: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8: returns (q (R, C) int8, scale (R,) f32).
+    `amax` (R,), where given, replaces the rows' own absmax (a row whose
+    other columns lie on other tensor-parallel ranks)."""
     xf = x2d.float()
-    s = torch.clamp(xf.abs().amax(dim=1), min=1e-8) / 127.0
+    if amax is None:
+        amax = xf.abs().amax(dim=1)
+    s = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(xf / s[:, None]), -127, 127)
     return q.to(torch.int8), s
 

@@ -25,7 +25,9 @@ rest of the process (`demote`), past every rung that would pick the failing
 backend again; the demotion outranks even an explicit request.  The
 serving engine records each demotion in Engine.stats["degraded"].  The
 quarantine table is process-wide by design: one bad kernel must stay out of
-every engine of the process.  Attention keys carry the KV layout (kv8/kv4
+every engine of the process.  A fault tagged with a tensor-parallel shard
+demotes that shard's entry only ("key@shardN"), which every rank's dispatch
+still honours (JAX's shard-aware quarantine).  Attention keys carry the KV layout (kv8/kv4
 insert it before the target), so quarantine is tracked per layout: a kernel
 that fails on int4 pages does not quarantine the bf16 path.
 
@@ -102,13 +104,46 @@ def default_attn_backend(phase: Phase, bucket: str = "") -> str:
 
 
 # ---- quarantine ---------------------------------------------------------------
+#
+# Tensor-parallel serving makes the table shard-aware, as in the JAX
+# package: a fault attributed to one shard demotes only that shard's entry,
+# stored under "key@shardN", never the key itself.  Every rank dispatches
+# with shard=None, which takes the max level over the key and all its shard
+# entries (JAX's single SPMD dispatch), so every rank runs the same rung and
+# the ranks stay in lockstep.  An explicit shard resolves that shard's view
+# only (the key's own entry plus that shard's): Engine.stats reports it.
 
 _quarantine: dict[str, dict] = {}
 
+_SHARD_SEP = "@shard"
 
-def quarantine_level(key: str) -> int:
+
+def _shard_key(key: str, shard: int) -> str:
+    return f"{key}{_SHARD_SEP}{int(shard)}"
+
+
+def quarantine_level(key: str, shard: int | None = None) -> int:
+    """Demotion level of `key`: with shard=None the level every rank's
+    dispatch honours (the max over the key and each of its shard entries),
+    with shard=k the level seen from shard k alone."""
     entry = _quarantine.get(key)
-    return entry["level"] if entry else 0
+    lvl = entry["level"] if entry else 0
+    if shard is None:
+        prefix = key + _SHARD_SEP
+        for k, e in _quarantine.items():
+            if k.startswith(prefix):
+                lvl = max(lvl, e["level"])
+    else:
+        e = _quarantine.get(_shard_key(key, shard))
+        if e is not None:
+            lvl = max(lvl, e["level"])
+    return lvl
+
+
+def quarantine_snapshot() -> dict[str, dict]:
+    """{key: {"level", "from", "to", "reason"[, "shard"]}} for every demoted
+    key; shard-local demotions appear under their "key@shardN" entry."""
+    return {k: dict(v) for k, v in _quarantine.items()}
 
 
 def clear_quarantine() -> None:
@@ -116,8 +151,9 @@ def clear_quarantine() -> None:
     _quarantine.clear()
 
 
-def _apply_quarantine(key: str, ladder: list[tuple[str, str]]) -> KernelChoice:
-    lvl = quarantine_level(key)
+def _apply_quarantine(key: str, ladder: list[tuple[str, str]],
+                      shard: int | None = None) -> KernelChoice:
+    lvl = quarantine_level(key, shard)
     backend, source = ladder[min(lvl, len(ladder) - 1)]
     return KernelChoice(backend, f"quarantined:{source}" if lvl > 0 else source)
 
@@ -210,32 +246,38 @@ def _ladder_for_key(key: str, requested: str | None) -> list[tuple[str, str]]:
 
 def select(*, quant: str, phase: Phase, m: int,
            target: targets_lib.TargetSpec = targets_lib.H100,
-           requested: str | None = None) -> KernelChoice:
+           requested: str | None = None, shard: int | None = None) -> KernelChoice:
     """Resolve one matmul dispatch; a quarantined key outranks everything."""
     key = dispatch_key(quant, phase, m, target.name)
-    return _apply_quarantine(key, _ladder_for_key(key, requested))
+    return _apply_quarantine(key, _ladder_for_key(key, requested), shard)
 
 
 def select_attn(*, phase: Phase, s: int,
                 target: targets_lib.TargetSpec = targets_lib.H100,
-                requested: str | None = None, kv: str = "bf16") -> KernelChoice:
+                requested: str | None = None, kv: str = "bf16",
+                shard: int | None = None) -> KernelChoice:
     """Resolve one attention dispatch; a quarantined key outranks everything.
     `kv` is the KV layout axis: quarantine is tracked per layout's key."""
     key = attn_dispatch_key(phase, s, target.name, kv)
-    return _apply_quarantine(key, _ladder_for_key(key, requested))
+    return _apply_quarantine(key, _ladder_for_key(key, requested), shard)
 
 
-def resolve_key(key: str, *, requested: str | None = None) -> KernelChoice:
-    """What select()/select_attn() return for a key string, quarantine included."""
-    return _apply_quarantine(key, _ladder_for_key(key, requested))
+def resolve_key(key: str, *, requested: str | None = None,
+                shard: int | None = None) -> KernelChoice:
+    """What select()/select_attn() return for a key string, quarantine
+    included (with `shard`, as that shard sees it)."""
+    return _apply_quarantine(key, _ladder_for_key(key, requested), shard)
 
 
-def demote(key: str, *, failing: str, reason: str = "", requested: str | None = None) -> dict:
+def demote(key: str, *, failing: str, reason: str = "", requested: str | None = None,
+           shard: int | None = None) -> dict:
     """Quarantine `key`: advance its level past every rung that resolves to
-    the `failing` backend (the bottom rung clamps).  Returns the record
-    {"level", "from", "to", "reason"}."""
+    the `failing` backend (the bottom rung clamps).  With `shard` the
+    demotion is shard-local ("key@shardN"; the record carries "shard"),
+    though every rank's dispatch honours it.  Returns the record {"level",
+    "from", "to", "reason"[, "shard"]}."""
     ladder = _ladder_for_key(key, requested)
-    start = min(quarantine_level(key), len(ladder) - 1)
+    start = min(quarantine_level(key, shard), len(ladder) - 1)
     new = start
     while new < len(ladder) - 1:
         new += 1
@@ -243,5 +285,7 @@ def demote(key: str, *, failing: str, reason: str = "", requested: str | None = 
             break
     record = {"level": new, "from": ladder[start][0], "to": ladder[new][0],
               "reason": reason}
-    _quarantine[key] = record
+    if shard is not None:
+        record["shard"] = int(shard)
+    _quarantine[key if shard is None else _shard_key(key, shard)] = record
     return record

@@ -28,15 +28,21 @@ full width (Mixtral-8x22B's 56 layers and Grok-1-314B's 64 do not fit one
 card in bf16; the output names the cut; the recurrent families decode
 grouped on the dense cache, one dispatch per group of slots at a position); --max-seq sets the engine's max_seq (1024 by
 default; a windowed model's ring holds min(max_seq, window) slots).
+--mesh-shape N profiles N-way tensor-parallel serving: the ranks start as
+launch/serve.py starts them (NCCL with a card each, gloo where they share
+one), every rank runs the same steps on its shard, and rank 0 profiles its
+own; the output adds the host ops that took the most self time.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import os
 import time
 
@@ -46,12 +52,15 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core import encoding
 from repro_torch.core.packed import QUANT_KEYS, EncodingConfig
+from repro_torch.kernels import build
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding
 from repro_torch.serving import engine as engine_lib
 from repro_torch.serving.config import EngineConfig
 
 
-def main(argv: list[str] | None = None) -> dict:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--steps", type=int, default=8)
@@ -70,12 +79,32 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--kv-quant", dest="kv_quant", default="bf16", choices=encoding.KV_QUANTS)
     ap.add_argument("--sample", default="greedy", choices=["greedy", "temperature"])
     ap.add_argument("--temperature", type=float, default=0.8)
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh-shape", dest="mesh_shape", default="1",
+                    help="tensor-parallel degree N: N ranks, rank 0 profiles")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> dict:
+    args = _parser().parse_args(argv)
+    ranks = math.prod(EngineConfig.from_args(args).mesh_shape)
+    if ranks == 1:
+        return _profile(args, "cuda", 0)
+    build.build_all()  # once, before the ranks start
+    return mesh_lib.launch_ranks(_profile_rank, ranks, argv, device="cuda")[0]
+
+
+def _profile_rank(rank: int, world: int, device: str, argv) -> dict:
+    del world
+    return _profile(_parser().parse_args(argv), device, rank)
+
+
+def _profile(args, device: str, rank: int) -> dict:
+    config = EngineConfig.from_args(args)
     prompt_len = args.prompt_len or (512 if args.prefill else 300)
     kind = "prefill" if args.prefill else "decode"
     out_path = args.out or f"chiprun_out/profile_{kind}.json"
 
-    dev = T.resolve_device("cuda")
+    dev = T.resolve_device(device)
     cfg = registry.get_config(args.arch)
     depth = cfg.num_layers
     if args.layers is not None:
@@ -84,11 +113,14 @@ def main(argv: list[str] | None = None) -> dict:
     backend = "fused" if args.slots <= encoding.GEMV_MAX_ROWS else "auto"
     enc = EncodingConfig(backend=backend, attn_backend="auto", weight_quant=weight_quant,
                          quant_group=args.quant_group)
-    params = T.model_init(cfg, enc, seed=args.seed, device=dev)
+    shard = (sharding.plan(cfg, enc, config.tp_shards, rank) if config.tp_shards > 1
+             else None)
+    params = T.model_init(cfg, enc, seed=args.seed, device=dev, shard=shard)
     eng = engine_lib.Engine(params, cfg, enc,
                             config=EngineConfig(slots=args.slots, max_seq=args.max_seq,
-                                                block_size=16,
-                                                kv_quant=args.kv_quant, sample=args.sample),
+                                                block_size=16, kv_quant=args.kv_quant,
+                                                sample=args.sample,
+                                                mesh_shape=config.mesh_shape),
                             device=dev)
     rng = np.random.RandomState(args.seed)
     uid = itertools.count()
@@ -100,24 +132,31 @@ def main(argv: list[str] | None = None) -> dict:
                                           temperature=args.temperature))
 
     by_name: dict[str, list[float]] = collections.defaultdict(lambda: [0.0, 0])
+    host_ops: collections.Counter[str] = collections.Counter()
     wall = 0.0
 
     def profiled(n_steps: int) -> None:
-        """Run n_steps steps under the profiler; add their host time and
-        their device kernels to the totals."""
+        """Run n_steps steps under the profiler (rank 0; the other ranks of
+        a mesh run the same steps unprofiled); add their host time, their
+        device kernels and their host ops' self time to the totals."""
         nonlocal wall
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        with (contextlib.nullcontext() if rank
+              else torch.profiler.profile(activities=acts)) as prof:
             t0 = time.perf_counter()
             for _ in range(n_steps):
                 eng.step()
             torch.cuda.synchronize()
             wall += time.perf_counter() - t0
+        if rank:
+            return
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 row = by_name[e.name]
                 row[0] += e.time_range.elapsed_us() / 1e3
                 row[1] += 1
+        for a in prof.key_averages():
+            host_ops[a.key] += a.self_cpu_time_total / 1e3
 
     if args.prefill:
         for i in range(args.steps + 1):  # the first batch warms up, unprofiled
@@ -136,8 +175,11 @@ def main(argv: list[str] | None = None) -> dict:
     launches = sum(v[1] for v in by_name.values())
     step_ms = 1e3 * wall / args.steps
     busy_ms = busy / args.steps
+    if rank:
+        return {}
     out = {
         "card": torch.cuda.get_device_name(0),
+        "mesh_shape": list(config.mesh_shape),
         "arch": args.arch,
         "layers": cfg.num_layers,
         "reduced": ([] if cfg.num_layers == depth
@@ -161,11 +203,12 @@ def main(argv: list[str] | None = None) -> dict:
              for k, v in by_name.items()),
             key=lambda r: -r["ms_per_step"],
         ),
+        "host_self_ms_per_step": {k: v / args.steps for k, v in host_ops.most_common(15)},
     }
     for cut in out["reduced"]:
         print(f"[profile] reduced: {cut}")
     print(f"[profile] {out['card']} {args.arch} ({args.quant}, {args.kv_quant}, {args.sample}, "
-          f"{args.slots} slots): "
+          f"{args.slots} slots, mesh {'x'.join(map(str, config.mesh_shape))}): "
           f"{args.steps} {kind} steps, host {step_ms:.3f} ms/step, "
           f"device busy {busy_ms:.3f} ms/step, idle share {out['device_idle_share']:.3f}, "
           f"{out['kernel_launches_per_step']:.0f} kernel launches/step")
@@ -173,6 +216,8 @@ def main(argv: list[str] | None = None) -> dict:
         print("[profile] the profiler recorded no device activity")
     for r in out["kernels"][:15]:
         print(f"[profile] {r['ms_per_step']:8.4f} ms/step  x{r['count_per_step']:6.1f}  {r['name'][:90]}")
+    for name, ms in out["host_self_ms_per_step"].items():
+        print(f"[profile] host self {ms:8.3f} ms/step  {name[:90]}")
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)

@@ -40,12 +40,27 @@ a slot holds.  Whisper-tiny and InternVL2-26B take frames or patches beside
 their tokens, which the engine (token batches only, as the JAX engine) does
 not: --arch whisper-tiny or internvl2-26b exits with the engine's refusal,
 and those models run through models/transformer.greedy_generate (README).
+
+--mesh-shape N serves N-way tensor parallel (as in the JAX CLI: "2", or
+"2x4" for 2 replicas of 4-way TP): the CLI starts the N ranks itself
+(launch/mesh.launch_ranks: spawn, one process a rank, NCCL with a card
+each, gloo on the CPU or where the ranks share one card), builds the
+kernels once before they start, and each rank makes only its shard of the
+weights; rank 0 prints.  A rehearsal on the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --arch qwen2-1.5b --mesh-shape 2
+
+Tensor parallelism serves the attention-only token families (Llama,
+Qwen2/2.5, Yi); MoE and the recurrent families exit with the engine's
+refusal at N > 1.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -55,12 +70,15 @@ from repro_torch.configs import registry
 from repro_torch.core import encoding
 from repro_torch.core.packed import QUANT_KEYS, EncodingConfig
 from repro_torch.kernels import build
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
+from repro_torch.parallel import collectives
+from repro_torch.parallel import sharding
 from repro_torch.serving import engine as engine_lib
 from repro_torch.serving.config import EngineConfig
 
 
-def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--reduced", action="store_true",
@@ -107,24 +125,53 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
                          "decode dispatch; disables --spec-decode and --token-budget)")
     ap.add_argument("--temperature", type=float, default=0.8,
                     help="per-request sampling temperature (--sample temperature)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh-shape", dest="mesh_shape", default="1",
+                    help='serving mesh: "2" = 2-way tensor parallel, "2x4" = 2 replicas x '
+                         "4-way; the CLI starts that many ranks")
+    return ap
 
+
+def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
+    args = _parser().parse_args(argv)
     config = EngineConfig.from_args(args)
     cfg = registry.get_reduced(args.arch) if args.reduced else registry.get_config(args.arch)
     try:
         engine_lib.check_servable(cfg)
+        sharding.check_servable(cfg, config.tp_shards)
     except NotImplementedError as err:
         raise SystemExit(f"[serve] --arch {args.arch}: {err}") from None
+    ranks = math.prod(config.mesh_shape)
+    if ranks == 1:
+        return _serve(args, args.device, verbose=True)
+    if torch.device(args.device).type == "cuda":
+        build.build_all()  # once, before the ranks start: they would race in one build dir
+    return mesh_lib.launch_ranks(_serve_rank, ranks, argv, device=args.device)[0]
+
+
+def _serve_rank(rank: int, world: int, device: str, argv) -> list[engine_lib.Request]:
+    """One rank of `main`: the same requests on every rank, rank 0 prints."""
+    del world
+    return _serve(_parser().parse_args(argv), device, verbose=rank == 0)
+
+
+def _serve(args, device: str, *, verbose: bool) -> list[engine_lib.Request]:
+    config = EngineConfig.from_args(args)
+    cfg = registry.get_reduced(args.arch) if args.reduced else registry.get_config(args.arch)
     depth = cfg.num_layers
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     weight_quant = {v: k for k, v in QUANT_KEYS.items()}[args.quant]
     enc = EncodingConfig(enabled=True, backend=args.backend, attn_backend=args.attn_backend,
                          weight_quant=weight_quant, quant_group=args.quant_group)
-    params = T.model_init(cfg, enc, seed=args.seed, device=args.device)
-    eng = engine_lib.Engine(params, cfg, enc, config=config, device=args.device)
+    shard = None
+    if config.tp_shards > 1:  # make only this rank's part of the weights
+        shard = sharding.plan(cfg, enc, config.tp_shards,
+                              torch.distributed.get_rank() % config.tp_shards)
+    params = T.model_init(cfg, enc, seed=args.seed, device=device, shard=shard)
+    eng = engine_lib.Engine(params, cfg, enc, config=config, device=device)
     if eng.device.type == "cuda":
         build.build_all()  # compile outside the timed run (a no-op once built)
+    say = print if verbose else (lambda *a, **k: None)
 
     rng = np.random.RandomState(args.seed)
     t0 = time.perf_counter()
@@ -139,41 +186,48 @@ def main(argv: list[str] | None = None) -> list[engine_lib.Request]:
         torch.cuda.synchronize(eng.device)
     dt = time.perf_counter() - t0
     total_new = sum(len(r.generated) for r in done)
-    stats = eng.stats_view()
+    stats = eng.stats_view()  # every rank: at tp > 1 it gathers the ranks' page counters
     if cfg.num_layers != depth:
-        print(f"[serve] reduced: depth cut to {cfg.num_layers} of {depth} layers, full width")
-    print(f"[serve] {cfg.name} on {eng.device}: {len(done)} requests, {total_new} tokens "
+        say(f"[serve] reduced: depth cut to {cfg.num_layers} of {depth} layers, full width")
+    say(f"[serve] {cfg.name} on {eng.device}: {len(done)} requests, {total_new} tokens "
           f"in {dt:.2f}s ({total_new / dt:.2f} tok/s incl. prefill)")
-    print(f"[serve] attn_backend={stats['attn_backend'][0]} "
+    if eng.tp_shards > 1:
+        loc = eng.model_cfg
+        say(f"[serve] tensor parallel: {eng.tp_shards} ranks (mesh "
+              f"{'x'.join(map(str, config.mesh_shape))}, {eng.mesh.backend}); rank 0 holds "
+              f"{loc.num_heads} query and {loc.num_kv_heads} kv heads, {loc.d_ff} FFN columns, "
+              f"{eng.shard.vocab_rows} vocabulary rows; whole-head replications "
+              f"{list(eng.shard.replicated)}; collectives {dict(collectives.counts)}")
+    say(f"[serve] attn_backend={stats['attn_backend'][0]} "
           f"dispatches={stats['dispatches']} degraded={len(stats['degraded'][0])} "
           f"step p50={stats['watchdog']['p50_ms']:.2f}ms p99={stats['watchdog']['p99_ms']:.2f}ms")
     itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
     kv_bytes = encoding.kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
                                            itemsize=itemsize, kv_quant=stats["kv_quant"])
-    print(f"[serve] cache={stats['cache_mode']} decode={stats['decode_mode']} "
+    say(f"[serve] cache={stats['cache_mode']} decode={stats['decode_mode']} "
           f"kv={stats['kv_quant']} ({kv_bytes} bytes per cached token) sample={stats['sample']} "
           f"downgrades={stats.get('config_downgrades', [])}")
     if not T.attention_only(cfg):
-        print(f"[serve] cache bytes a slot (K/V rows and recurrent state): "
+        say(f"[serve] cache bytes a slot (K/V rows and recurrent state): "
               f"{T.cache_bytes(eng.caches) // eng.slots}")
     wb = T.decode_weight_stream_bytes(cfg, enc)
-    print(f"[serve] weights streamed per decode step ({args.quant}): projections "
+    say(f"[serve] weights streamed per decode step ({args.quant}): projections "
           f"{wb['projections'] / 1e6:.1f} MB + head {wb['head'] / 1e6:.1f} MB = "
           f"{sum(wb.values()) / 1e6:.1f} MB")
     if stats["cache_mode"] == "paged":
         pc = stats["prefix_cache"]
-        print(f"[serve] paged: peak_active={stats['peak_active']} pages={stats['pages_total']} "
+        say(f"[serve] paged: peak_active={stats['peak_active']} pages={stats['pages_total']} "
               f"peak_in_use={stats['peak_in_use']} preemptions={stats['preemptions']} "
               f"prefix hit_rate={pc['hit_rate']:.3f} hit_tokens={pc['hit_tokens']}")
     if "spec" in stats:
         sp = stats["spec"]
-        print(f"[serve] spec: proposed={sp['proposed']} accepted={sp['accepted']} "
+        say(f"[serve] spec: proposed={sp['proposed']} accepted={sp['accepted']} "
               f"acceptance={sp['acceptance_rate']:.3f} "
               f"mean_accepted_len={sp['mean_accepted_len']:.3f}")
     if "continuous" in stats:
-        print(f"[serve] token budget: {stats['continuous']}")
+        say(f"[serve] token budget: {stats['continuous']}")
     for r in done[: min(4, len(done))]:
-        print(f"  req {r.uid}: prompt[:4]={r.prompt[:4].tolist()} -> gen[:8]={r.generated[:8]}")
+        say(f"  req {r.uid}: prompt[:4]={r.prompt[:4].tolist()} -> gen[:8]={r.generated[:8]}")
     return done
 
 

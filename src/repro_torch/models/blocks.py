@@ -40,17 +40,20 @@ def attn_block_init(gen, cfg: ModelConfig, enc, *, device) -> dict:
     return p
 
 
-def attn_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None, aux=None):
+def attn_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None, aux=None,
+                     tp=None):
     """Pre-norm attention + MLP (or MoE); `cache` is updated in place.  An
-    MoE layer appends its load-balance loss to `aux` where it is a list."""
+    MoE layer appends its load-balance loss to `aux` where it is a list.
+    `tp` (a parallel/sharding.Shard) runs the rank's heads and FFN columns;
+    MoE under tensor parallelism is refused before it gets here."""
     x = x + L.attention_apply(
         params["attn"], L.norm_apply(params["ln1"], x, cfg),
-        cfg=cfg, enc=enc, phase=phase, cache=cache, pos=pos,
+        cfg=cfg, enc=enc, phase=phase, cache=cache, pos=pos, tp=tp,
     )
     y = L.norm_apply(params["ln2"], x, cfg)
     if cfg.num_experts:
         return x + L.moe_apply(params["moe"], y, cfg=cfg, enc=enc, phase=phase, aux=aux)
-    return x + L.mlp_apply(params["mlp"], y, cfg=cfg, enc=enc, phase=phase)
+    return x + L.mlp_apply(params["mlp"], y, cfg=cfg, enc=enc, phase=phase, tp=tp)
 
 
 def rec_block_init(gen, cfg: ModelConfig, enc, *, device) -> dict:

@@ -17,6 +17,11 @@ projections, each run on its own capacity buffer as JAX's vmap runs them.
 Its Switch load-balance aux loss (moe_aux) is training's: moe_apply hands
 it out only to a caller that passes an `aux` list, so serving pays nothing
 for it.
+
+Under tensor parallelism (`tp`, a parallel/sharding.Shard) attention_apply
+and mlp_apply run on the rank's heads and FFN columns (`cfg` carries their
+local counts) and sum their row-parallel output (wo, w_down) over the group
+in f32 before the cast (packed.linear_apply's row_group).
 """
 
 from __future__ import annotations
@@ -122,6 +127,7 @@ def attention_apply(
     kv_src: torch.Tensor | None = None,
     causal: bool = True,
     use_rope: bool = True,
+    tp=None,
 ) -> torch.Tensor:
     """Self-attention with RoPE (none where `use_rope` is False); updates
     `cache` in place.  With `kv_src` (B, Te, d_model) it is cross attention
@@ -148,7 +154,11 @@ def attention_apply(
     At PREFILL an int pos > 0 attends the cached keys before the new ones
     (cache[:, :pos], or under a window the last min(pos, S_c) positions from
     the ring), and the new K/V are written to cache[:, pos:pos+S], or under
-    a window each position p to ring slot p mod S_c (_prefill_write)."""
+    a window each position p to ring slot p mod S_c (_prefill_write).
+
+    `tp` (a parallel/sharding.Shard): `cfg` holds the rank's query and kv
+    heads, its cache their pages, and wo's output is summed over the group
+    (packed.linear_apply's row_group) where the plan splits attention."""
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     window = cfg.sliding_window
@@ -206,7 +216,9 @@ def attention_apply(
                 raise ValueError("paged caches are decode-only; prefill writes a "
                                  "temporary dense cache the engine scatters into pages")
             _prefill_write(cache, k, v, pos, window)
-    return packed.linear_apply(params["wo"], out.reshape(b, s, h * hd), n=d, phase=phase, enc=enc)
+    group = tp.group if tp is not None and tp.attn_split else None
+    return packed.linear_apply(params["wo"], out.reshape(b, s, h * hd), n=d, phase=phase,
+                               enc=enc, row_group=group)
 
 
 def cross_kv(params: dict, src: torch.Tensor, *, cfg: ModelConfig, enc,
@@ -421,7 +433,9 @@ def mlp_init(gen, cfg: ModelConfig, enc: packed.EncodingConfig, *, device) -> di
     }
 
 
-def mlp_apply(params, x, *, cfg: ModelConfig, enc, phase: Phase) -> torch.Tensor:
+def mlp_apply(params, x, *, cfg: ModelConfig, enc, phase: Phase, tp=None) -> torch.Tensor:
+    """SwiGLU or GELU MLP; under `tp` on the rank's d_ff columns (cfg.d_ff),
+    w_down's output summed over the group where the plan splits the MLP."""
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_kind == "swiglu":
         gate = packed.linear_apply(params["w_gate"], x, n=f, phase=phase, enc=enc)
@@ -430,7 +444,9 @@ def mlp_apply(params, x, *, cfg: ModelConfig, enc, phase: Phase) -> torch.Tensor
     else:
         up = packed.linear_apply(params["w_up"], x, n=f, phase=phase, enc=enc)
         hidden = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    return packed.linear_apply(params["w_down"], hidden, n=d, phase=phase, enc=enc)
+    group = tp.group if tp is not None and tp.mlp_split else None
+    return packed.linear_apply(params["w_down"], hidden, n=d, phase=phase, enc=enc,
+                               row_group=group)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,15 @@ is rematerialised in the backward pass (torch.utils.checkpoint), as the JAX
 package wraps each scan group in jax.checkpoint.  The entry points run on the card by
 default (`device="cuda"`) and raise when CUDA is absent; tests pass
 device="cpu" explicitly.
+
+Tensor-parallel serving (`tp=`, a parallel/sharding.Shard) runs one rank's
+part: `cfg` is the shard's (its heads and FFN columns), the caches hold
+its kv heads, and the vocabulary is split by rows: the embedding looks up
+the ids in the rank's rows, zeroes the others and sums over the group (one
+nonzero row and zeros: exact), and the head computes the rank's logit
+columns and gathers them, so every rank holds the same full logits.
+model_init(shard=) makes a rank's part directly, drawing every weight as
+the full init does and keeping only its slice.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from repro_torch.core import packed
 from repro_torch.core.encoding import Phase
 from repro_torch.models import blocks
 from repro_torch.models import layers as L
+from repro_torch.parallel import collectives
+from repro_torch.parallel import sharding
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -70,25 +81,44 @@ def attention_only(cfg: ModelConfig) -> bool:
 
 
 def model_init(cfg: ModelConfig, enc: packed.EncodingConfig, *, seed: int = 0,
-               device: torch.device | str = "cuda") -> dict:
-    """Random weights from `seed` (torch.Generator on `device`)."""
+               device: torch.device | str = "cuda",
+               shard: sharding.Shard | None = None) -> dict:
+    """Random weights from `seed` (torch.Generator on `device`).  With
+    `shard`, one tensor-parallel rank's part of the same weights: each layer
+    is drawn whole, in the same order, and sliced at once, so a rank never
+    holds more than one full layer."""
     _check_family(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab_size
     dt = cfg.activation_dtype
+    group = enc.quant_group
+
+    def part(kind, x):
+        if shard is None:
+            return x
+        if kind == "embed":
+            return sharding.shard_embed(x, shard)
+        if kind == "head":
+            return sharding.shard_head(x, cfg, shard, group)
+        return sharding.shard_layer(x, cfg, shard, group)
+
     # Vocab rows padded to a multiple of 256, as in the JAX package; ids
     # never index the pad and logits are sliced back to vocab_size.
-    v_pad = v + (-v) % 256
+    v_pad = sharding.vocab_padded(cfg)
     params = {
-        "embed": (d**-0.5 * torch.randn((v_pad, d), generator=gen, device=device)).to(dt),
+        "embed": part("embed", (d**-0.5 * torch.randn((v_pad, d), generator=gen,
+                                                      device=device)).to(dt)),
         "final_norm": L.norm_init(cfg, device=device),
-        "layers": [blocks.BLOCKS[t][0](gen, cfg, enc, device=device)
+        "layers": [part("layer", blocks.BLOCKS[t][0](gen, cfg, enc, device=device))
                    for t in layer_types(cfg)],
     }
     if not cfg.tie_embeddings:
-        params["head"] = packed.linear_init(gen, d, v, enc=enc, dtype=dt, device=device)
+        params["head"] = part("head", packed.linear_init(gen, d, v, enc=enc, dtype=dt,
+                                                         device=device))
+    if shard is not None:
+        params["tp_shard"] = (shard.tp, shard.rank)
     if cfg.family == "encdec":
         params["enc_layers"] = [blocks.BLOCKS["enc_attn"][0](gen, cfg, enc, device=device)
                                 for _ in range(cfg.encoder_layers)]
@@ -252,7 +282,8 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
             enc: packed.EncodingConfig, phase: Phase, caches: dict | None = None,
             pos: torch.Tensor | int = 0, last_logits_only: bool = False,
             logits_idx: torch.Tensor | None = None, frames: torch.Tensor | None = None,
-            patches: torch.Tensor | None = None, aux: list | None = None) -> torch.Tensor:
+            patches: torch.Tensor | None = None, aux: list | None = None,
+            tp: sharding.Shard | None = None) -> torch.Tensor:
     """tokens (B, S) -> f32 logits (B, S or 1 or K, vocab); caches update in place.
 
     `pos` is the position of tokens[:, 0]: an int shared by every row, or a
@@ -276,8 +307,16 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
     layer order (an MoE layer's load-balance loss; JAX's forward returns
     their sum).  Under Phase.TRAIN with autograd on, each layer runs under
     torch.utils.checkpoint: only its input is kept, and the backward pass
-    recomputes it."""
-    x = params["embed"][tokens].to(cfg.activation_dtype)
+    recomputes it.
+
+    `tp`: one tensor-parallel rank's forward (module docstring); `cfg` and
+    `params` are then the shard's, and the logits every rank returns are
+    the same full logits."""
+    vocab_group = tp.group if tp is not None and tp.vocab_split else None
+    if vocab_group is None:
+        x = params["embed"][tokens].to(cfg.activation_dtype)
+    else:
+        x = _embed_rows(params["embed"], tokens, tp).to(cfg.activation_dtype)
     b, s = tokens.shape
     extra = None
     if cfg.family == "encdec":
@@ -299,7 +338,8 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
     remat = phase is Phase.TRAIN and torch.is_grad_enabled()
     for t, lp, lc in zip(layer_types(cfg), params["layers"], layer_caches):
         apply = functools.partial(blocks.BLOCKS[t][1], lp, cfg=cfg, enc=enc, phase=phase,
-                                  cache=lc, pos=pos, extra=extra)
+                                  cache=lc, pos=pos, extra=extra,
+                                  **({} if tp is None else {"tp": tp}))
         if remat:
             x, *layer_aux = torch.utils.checkpoint.checkpoint(_with_aux, apply, x,
                                                               use_reentrant=False)
@@ -317,11 +357,25 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
         # A plain product outside any kernel, as the JAX package leaves it to
         # XLA.  It runs in the activation dtype (bf16 logits are rounded
         # before the f32 cast, where JAX keeps f32 out of the einsum).
-        logits = torch.matmul(x, params["embed"].t()).float()[..., : cfg.vocab_size]
+        logits = torch.matmul(x, params["embed"].t()).float()
     else:
-        logits = packed.linear_apply(params["head"], x, n=cfg.vocab_size, phase=phase,
+        n = cfg.vocab_size if vocab_group is None else tp.vocab_rows
+        logits = packed.linear_apply(params["head"], x, n=n, phase=phase,
                                      enc=enc, out_dtype=torch.float32)
-    return logits
+    if vocab_group is not None:
+        logits = collectives.all_gather_last(logits, vocab_group)
+    return logits[..., : cfg.vocab_size]
+
+
+def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor, tp: sharding.Shard) -> torch.Tensor:
+    """The vocabulary-parallel lookup: this rank's rows for the ids it holds,
+    zeros for the rest, summed over the group in f32 (exact: one nonzero
+    row per id)."""
+    local = tokens.long() - tp.vocab_lo
+    mine = (local >= 0) & (local < tp.vocab_rows)
+    rows = embed[torch.clamp(local, 0, tp.vocab_rows - 1)].float()
+    rows = torch.where(mine[..., None], rows, torch.zeros((), device=rows.device))
+    return collectives.all_reduce_sum(rows, tp.group)
 
 
 def _with_aux(apply, x: torch.Tensor) -> tuple:

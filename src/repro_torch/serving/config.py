@@ -3,9 +3,10 @@
 A copy of repro/serving/config.py (the port imports nothing of `repro`):
 the same fields, validation, resolve() rules and from_args routing, so a
 config reads the same in both packages (tests/test_torch_dense.py holds
-resolve() to JAX's).  The port's Engine serves every field but one: a
-`mesh_shape` with more than one device raises NotImplementedError
-(serving/engine.py); temperature sampling runs (serving/sampling.py).
+resolve() to JAX's).  The port's Engine serves every field: a `mesh_shape`
+with more than one device is tensor-parallel serving over torch.distributed,
+one rank a process (serving/engine.py); temperature sampling runs
+(serving/sampling.py).
 
 `Engine.__init__` historically grew ~15 ad-hoc keyword arguments (cache mode,
 paging geometry, speculative decode, token budget, SLO aging, sampling, ...),
@@ -21,7 +22,7 @@ pulls all of that into one frozen dataclass:
     run, with every applied rule recorded in `downgrades`;
   * `from_args(namespace)` — argparse routing for launch/serve.py;
   * the tensor-parallel fields `mesh_shape` / `tp_axis` for sharded serving
-    over a jax device mesh (launch/mesh.build_serving_mesh).
+    over a mesh of torch.distributed ranks (launch/mesh.build_serving_mesh).
 
 Engine keeps a deprecation shim — `Engine(params, cfg, enc, slots=8, ...)`
 still works and is folded into `EngineConfig(**kwargs)` — but new call sites
@@ -97,12 +98,12 @@ class EngineConfig:
     logits_guard: bool = True
     token_budget: int | None = None
     slo_aging_steps: int = 64
-    # ---- tensor parallelism (docs/PERF.md §Tensor-parallel capacity) -------
-    # Device-mesh shape for sharded serving: (1,) = single device (the
-    # default; nothing is device_put), (2,)/(4,) = 2/4-way tensor parallel.
-    # A 2-d shape (d, t) adds a leading "data" axis (replicated serving
-    # batch; reserved for data-parallel replicas).  The product must not
-    # exceed jax.device_count() — launch/mesh.build_serving_mesh raises a
+    # ---- tensor parallelism ---------------------------------------------------
+    # Mesh shape for sharded serving: (1,) = one device (the default),
+    # (2,)/(4,) = 2/4-way tensor parallel, one torch.distributed rank a
+    # device.  A 2-d shape (d, t) adds a leading "data" axis (replicas, each
+    # a tensor-parallel group of its own).  The product must equal the
+    # process group's world size — launch/mesh.build_serving_mesh raises a
     # clear error instead of silently running mesh=1.
     mesh_shape: tuple[int, ...] = (1,)
     tp_axis: str = "model"

@@ -82,16 +82,36 @@ recurrent state from zero.  The JAX engine prefills from the state the
 slot's previous request left behind, so a reused slot emits other tokens
 there; the port diverges from it on purpose (ROADMAP Queue 3, item 1).
 
-Not in this slice (raises NotImplementedError at construction, naming its
-ROADMAP slice): meshes larger than one card.  Refused at construction too,
-as in the JAX engine, whose batches are tokens only: the enc-dec and VLM
-families (check_servable), which run through models/transformer.forward.
+Tensor parallelism (mesh_shape=(N,), N > 1; the JAX engine's GSPMD path):
+one torch.distributed rank a device, each running this engine on the same
+requests (launch/mesh.py starts and joins them).  A rank holds its shard
+(parallel/sharding.py: query and kv heads, FFN columns and vocabulary rows;
+params given whole are sliced at construction) and its kv heads' pages,
+runs the hand-written kernels on them, and sums the row-parallel outputs
+over the group (parallel/collectives.py).  Every host decision is the same
+on every rank, or a collective hangs: the scheduler is deterministic, and
+the clock (deadlines, the watchdog) is rank 0's reading, broadcast.  Each
+rank keeps the allocator of its own shard; audit() compares them across
+ranks and names the first that diverged, and checks that every rank holds
+the same logits.  A kernel fault tagged with a shard demotes that shard's
+registry entry only; every rank dispatches on the max over shards, so all
+run the same rung (stats: per-shard attn_backend and degraded).  Unlike
+the JAX engine, which routes tp > 1 to its XLA paths because GSPMD cannot
+partition a Pallas call, the ranks keep their kernels and kv4.  At tp > 1
+the engine serves the attention-only token families; MoE and the recurrent
+blocks raise NotImplementedError (sharding.check_servable).  At tp > 1,
+`stats` and `audit()` are collective: call them on every rank.
+
+Refused at construction, as in the JAX engine, whose batches are tokens
+only: the enc-dec and VLM families (check_servable), which run through
+models/transformer.forward.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import time
 from typing import Callable
 
@@ -102,7 +122,10 @@ from repro_torch.core import encoding
 from repro_torch.core.encoding import Phase
 from repro_torch.core.packed import QUANT_KEYS, EncodingConfig
 from repro_torch.kernels import registry as registry_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
+from repro_torch.parallel import collectives
+from repro_torch.parallel import sharding
 from repro_torch.runtime import watchdog as watchdog_lib
 from repro_torch.serving import faults as faults_lib
 from repro_torch.serving import paged as paged_lib
@@ -303,13 +326,12 @@ def check_servable(cfg) -> None:
             "(transformer.greedy_generate), not the engine")
 
 
-def _check_supported(config: EngineConfig, enc: EncodingConfig, cfg) -> None:
-    check_servable(cfg)
-    todo = []
-    if config.mesh_devices > 1:
-        todo.append("mesh_shape > 1 (ROADMAP: tensor parallelism)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+def _rank0_clock(clock: Callable[[], float], group) -> Callable[[], float]:
+    """`clock` as rank 0 of `group` reads it, on every rank (one broadcast a
+    reading): deadlines and the watchdog decide the same on every rank."""
+    def read() -> float:
+        return collectives.broadcast_object(clock(), group)
+    return read
 
 
 class Engine:
@@ -348,7 +370,7 @@ class Engine:
                 f"kwargs, not both (got extra kwargs: {sorted(kwargs)})"
             )
         config = config.resolve(cfg)
-        _check_supported(config, enc, cfg)
+        check_servable(cfg)
         # kv4 packs two values a byte; only the decode kernels unpack
         # nibbles in registers.  Under a requested plain attention the
         # gather-and-dequantize of nibbles is not worth the capacity, so kv4
@@ -363,12 +385,31 @@ class Engine:
         self.decode_mode = config.decode_mode
         self.batch_prefill = bool(config.batch_prefill)
         self.device = T.resolve_device(device)
-        self.params = params
         self.cfg, self.enc = cfg, enc
         self.slots = config.slots
         self.max_seq = config.max_seq
         self.max_queue = config.max_queue
         self.clock = clock if clock is not None else time.monotonic
+        # Tensor parallelism: this rank's mesh, its shard (None on one
+        # card) and the model config of its shard (its heads, FFN columns).
+        self.tp_shards = config.tp_shards
+        self.mesh = self.shard = None
+        self.model_cfg = cfg
+        if config.mesh_devices > 1:
+            self.mesh = mesh_lib.build_serving_mesh(config.mesh_shape, tp_axis=config.tp_axis)
+        if self.tp_shards > 1:
+            self.shard = sharding.plan(cfg, enc, self.tp_shards, self.mesh.tp_rank,
+                                       group=self.mesh.tp_group)
+            self.model_cfg = self.shard.cfg
+            self.clock = _rank0_clock(self.clock, self.mesh.host_group)
+            mark = params.get("tp_shard")
+            if mark is None:
+                params = sharding.shard_params(params, cfg, enc, self.shard)
+            elif tuple(mark) != (self.shard.tp, self.shard.rank):
+                raise ValueError(f"params are the shard {tuple(mark)} (tp, rank) but this rank "
+                                 f"is {(self.shard.tp, self.shard.rank)}")
+        self.params = params
+        self._last_logits: torch.Tensor | None = None
         self.hooks = fault_hooks
         self.stream_cb = stream_cb
         self.logits_guard = bool(config.logits_guard)
@@ -434,14 +475,16 @@ class Engine:
             self.tenant_quota = config.tenant_quota
             # Suffix-only prefill gathers pool pages back as bf16 K/V: a
             # kv8/kv4 pool would dequantize and requantize them.  Quantized
-            # pools keep the write-skip half of the prefix cache.
-            self._suffix_ok = self.kv_quant == "bf16" and not cfg.sliding_window
+            # pools keep the write-skip half of the prefix cache, as do
+            # tensor-parallel ones (JAX's rule).
+            self._suffix_ok = (self.kv_quant == "bf16" and self.tp_shards == 1
+                               and not cfg.sliding_window)
             self.alloc = paged_lib.BlockAllocator(
                 pool_pages, self.block_size, self.kv_quant,
                 prefix_cache=self.prefix_cache, tenant_quota=self.tenant_quota,
             )
             self.caches = T.cache_init(
-                cfg, self.slots, self.max_seq, cache_mode="paged",
+                self.model_cfg, self.slots, self.max_seq, cache_mode="paged",
                 block_size=self.block_size, num_pages=pool_pages, kv_quant=self.kv_quant,
                 device=self.device,
             )
@@ -450,7 +493,8 @@ class Engine:
             )
             self.slot_pages: list[list[int]] = [[] for _ in range(self.slots)]
         else:
-            self.caches = T.cache_init(cfg, self.slots, self.max_seq, device=self.device)
+            self.caches = T.cache_init(self.model_cfg, self.slots, self.max_seq,
+                                       device=self.device)
             # Prefix caching and page quotas belong to the paged pool; a
             # dense engine carries the neutral values.
             self.prefix_cache = False
@@ -548,8 +592,8 @@ class Engine:
         """Prefill `tokens` at offset `pos` into the temporary dense `caches`.
         Serving prefill logits are not used (the first decode step recomputes
         the last prompt token), as in the JAX engine."""
-        T.forward(self.params, tokens, cfg=self.cfg, enc=self.enc, phase=Phase.PREFILL,
-                  caches=caches, pos=pos, last_logits_only=True)
+        T.forward(self.params, tokens, cfg=self.model_cfg, enc=self.enc, phase=Phase.PREFILL,
+                  caches=caches, pos=pos, last_logits_only=True, tp=self.shard)
 
     def _decode(self, tokens: torch.Tensor, pos: torch.Tensor | int, caches: dict,
                 temp: torch.Tensor | None = None,
@@ -558,8 +602,9 @@ class Engine:
         `pos` is (B,) (vectorized) or an int shared by every row (grouped
         decode).  Greedy, or with `temp` (B,) and `key` (sample="temperature")
         sampled per row as JAX's decode_sampled does."""
-        logits = T.forward(self.params, tokens, cfg=self.cfg, enc=self.enc,
-                           phase=Phase.DECODE, caches=caches, pos=pos)[:, -1]
+        logits = T.forward(self.params, tokens, cfg=self.model_cfg, enc=self.enc,
+                           phase=Phase.DECODE, caches=caches, pos=pos, tp=self.shard)[:, -1]
+        self._last_logits = logits
         if temp is None:
             return torch.argmax(logits, dim=-1), logits
         return sampling_lib.sample_rows(logits, temp, key), logits
@@ -583,9 +628,11 @@ class Engine:
         """The verify / mixed dispatch: one decode-phase forward over the
         (B, L) window, row b's tokens at pos[b] .. pos[b]+L-1 (masked-causal
         inside the window, all L K/V pairs written).  Logits (B, L or K, V)."""
-        return T.forward(self.params, tokens, cfg=self.cfg, enc=self.enc,
-                         phase=Phase.DECODE, caches=self.caches, pos=pos,
-                         logits_idx=logits_idx)
+        logits = T.forward(self.params, tokens, cfg=self.model_cfg, enc=self.enc,
+                           phase=Phase.DECODE, caches=self.caches, pos=pos,
+                           logits_idx=logits_idx, tp=self.shard)
+        self._last_logits = logits
+        return logits
 
     def _attn_s(self, phase: Phase) -> int:
         """The logical KV length the next dispatch of `phase` attends: the
@@ -626,15 +673,14 @@ class Engine:
         """Demote `key` to the next rung of its ladder for the rest of the
         process and record it in stats["degraded"].  The model consults the
         registry on every call, so the next dispatch runs the demoted rung.
-        One card has no shards to keep apart: a shard-tagged fault demotes
-        the key itself, and its entry names the shard."""
+        A shard-tagged fault demotes only that shard's entry ("key@shardN"),
+        as in the JAX engine; every rank dispatches on the max over shards,
+        so the whole group runs the demoted rung."""
         requested = self._requested_for(key)
-        before = registry_lib.resolve_key(key, requested=requested)
+        before = registry_lib.resolve_key(key, requested=requested, shard=shard)
         record = registry_lib.demote(key, failing=before.backend, reason=reason,
-                                     requested=requested)
+                                     requested=requested, shard=shard)
         entry = {"key": key, "step": self.step_count, **record}
-        if shard is not None:
-            entry["shard"] = int(shard)
         self.degraded.append(entry)
         self.lifecycle["kernel_faults"] += 1
         return entry
@@ -811,7 +857,7 @@ class Engine:
             toks = np.zeros((len(batch), lp), np.int32)
             for i, (_, r, _) in enumerate(batch):
                 toks[i, : len(r.prompt)] = r.prompt
-            tmp = T.cache_init(self.cfg, len(batch), lp, device=self.device)
+            tmp = T.cache_init(self.model_cfg, len(batch), lp, device=self.device)
             self._dispatch("prefill", self._prefill, self._tensor(toks), tmp)
             self._scatter_prefill(tmp, batch)
         for _s, r, plan, lead in suffix:
@@ -884,7 +930,7 @@ class Engine:
         skip = lead * bs
         plen = len(req.prompt)
         lp = max(bs, min(1 << (plen - 1).bit_length(), self.num_blocks * bs))
-        tmp = T.cache_init(self.cfg, 1, lp, device=self.device)
+        tmp = T.cache_init(self.model_cfg, 1, lp, device=self.device)
         self._gather_prefix(tmp, plan.pages[:lead])
         toks = np.zeros((1, lp - skip), np.int32)
         toks[0, : plen - skip] = np.asarray(req.prompt[skip:], np.int32)
@@ -977,7 +1023,11 @@ class Engine:
     def stats(self) -> dict:
         """The JAX engine's stats, key for key (the resolved modes, KV layout
         and config downgrades included), plus "dispatches": the dispatch
-        count per kind."""
+        count per kind.  At tp > 1, JAX's per-shard forms: "attn_backend" and
+        "degraded" are {shard: value}, and "tp" holds the shard count, the
+        mesh, the axis, the encoding downgrades (none: the ranks keep their
+        kernels) and every rank's allocator counters ("per_shard_pages", an
+        all-gather: call stats on every rank)."""
         out = {
             "cache_mode": self.cache_mode,
             "decode_mode": self.decode_mode,
@@ -994,6 +1044,21 @@ class Engine:
             "lifecycle": dict(self.lifecycle),
             "degraded": [dict(d) for d in self.degraded],
         }
+        if self.tp_shards > 1:
+            out["attn_backend"] = {
+                k: registry_lib.select_attn(
+                    phase=Phase.DECODE, s=self._attn_s(Phase.DECODE), target=self.enc.target,
+                    requested=self.enc.attn_backend, kv=self.kv_quant, shard=k,
+                ).backend
+                for k in range(self.tp_shards)
+            }
+            out["degraded"] = {k: [dict(d) for d in self.degraded if d.get("shard") in (None, k)]
+                               for k in range(self.tp_shards)}
+            out["tp"] = {"shards": self.tp_shards, "mesh_shape": list(self.config.mesh_shape),
+                         "tp_axis": self.config.tp_axis, "enc_downgrades": []}
+            if self.cache_mode == "paged":
+                out["tp"]["per_shard_pages"] = collectives.all_gather_object(
+                    dict(self.alloc.stats), self.mesh.host_group)
         if self.config.downgrades:
             out["config_downgrades"] = list(self.config.downgrades)
         if self.spec_decode:
@@ -1038,21 +1103,53 @@ class Engine:
         """`stats` with the mesh-stable schema of the JAX package: attn_backend
         and degraded as {shard: value} dicts (one card: shard 0)."""
         out = self.stats
-        out["attn_backend"] = {0: out["attn_backend"]}
-        out["degraded"] = {0: out["degraded"]}
+        if self.tp_shards == 1:
+            out["attn_backend"] = {0: out["attn_backend"]}
+            out["degraded"] = {0: out["degraded"]}
         return out
 
     def audit(self) -> None:
         """Assert allocator/table consistency; pages held by a fault hook
-        count as one extra table.  A dense cache has nothing to audit."""
-        if self.cache_mode != "paged":
+        count as one extra table.  A dense cache has nothing to audit.
+
+        At tp > 1 (collective: every rank calls it) every rank's allocator
+        counters and audit result are gathered; a rank whose counters differ
+        from rank 0's raises AllocatorInvariantError ("diverged", naming the
+        first such shard) on every rank, as does a rank whose own audit
+        failed, and every rank must hold the same last logits, bit for bit."""
+        err = None
+        if self.cache_mode == "paged":
+            tables = [self.slot_pages[s] for s in range(self.slots)
+                      if self.slot_req[s] is not None]
+            if self.hooks is not None and hasattr(self.hooks, "held_pages"):
+                held = list(self.hooks.held_pages())
+                if held:
+                    tables.append(held)
+            if self.tp_shards == 1:
+                self.alloc.audit(tables)
+                return
+            try:
+                self.alloc.audit(tables)
+            except AssertionError as exc:
+                err = str(exc)
+        if self.tp_shards == 1:
             return
-        tables = [self.slot_pages[s] for s in range(self.slots) if self.slot_req[s] is not None]
-        if self.hooks is not None and hasattr(self.hooks, "held_pages"):
-            held = list(self.hooks.held_pages())
-            if held:
-                tables.append(held)
-        self.alloc.audit(tables)
+        logits = self._last_logits
+        digest = (None if logits is None
+                  else hashlib.sha256(logits.detach().cpu().numpy().tobytes()).hexdigest())
+        stats = dict(self.alloc.stats) if self.cache_mode == "paged" else {}
+        rows = collectives.all_gather_object((stats, err, digest), self.mesh.host_group)
+        for k, (st, _e, _d) in enumerate(rows[1:], start=1):
+            if st != rows[0][0]:
+                raise paged_lib.AllocatorInvariantError(
+                    f"shard allocators diverged: shard 0 -> {rows[0][0]}, shard {k} -> {st}")
+        for k, (_st, e, _d) in enumerate(rows):
+            if e is not None:
+                raise paged_lib.AllocatorInvariantError(f"shard {k} audit failed: {e}")
+        for k, (_st, _e, d) in enumerate(rows[1:], start=1):
+            if d != rows[0][2]:
+                raise AssertionError(f"ranks hold different logits: shard 0 {rows[0][2]}, "
+                                     f"shard {k} {d}")
 
     # ---- commit ----------------------------------------------------------------------
 

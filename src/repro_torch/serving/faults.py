@@ -52,10 +52,11 @@ FAULT_KINDS = (
 class KernelFaultError(RuntimeError):
     """A kernel dispatch failure raised by a fault hook, tagged with the
     registry key the engine should quarantine.  `shard` names the
-    tensor-parallel shard the fault is local to, as in the JAX package; the
-    port's engine serves one card (it refuses meshes), so it demotes the key
-    itself and records the shard in stats["degraded"].  Real CUDA errors
-    are not KernelFaultErrors and are never caught by the engine."""
+    tensor-parallel shard the fault is local to, as in the JAX package: the
+    engine demotes that shard's registry entry only ("key@shardN"), which
+    every rank's dispatch honours, and records the shard in
+    stats["degraded"].  Real CUDA errors are not KernelFaultErrors and are
+    never caught by the engine."""
 
     def __init__(self, key: str, message: str = "injected kernel fault",
                  *, shard: int | None = None):

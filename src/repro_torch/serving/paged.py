@@ -1,7 +1,9 @@
 """Block-paged KV-cache allocator — the serving memory plan behind Engine's
 cache_mode="paged".  A copy of repro/serving/paged.py (the port imports
-nothing of `repro`); the tensor-parallel ShardedBlockAllocator waits for the
-TP slice.
+nothing of `repro`), ShardedBlockAllocator included: one process mirroring
+every shard's allocator, as JAX's single SPMD process does.  The port's
+tensor-parallel engine runs a rank a process, so each rank keeps its own
+shard's BlockAllocator and Engine.audit() compares them across ranks.
 
 The dense engine reserves a worst-case (slots, max_seq) KV row per slot; HBM
 is spent on sequence positions that mostly never exist (short prompts, early
@@ -650,3 +652,179 @@ class BlockAllocator:
                         "freed page still holds scale state", page=p,
                         owner=self.page_owner.get(p),
                     )
+
+
+class ShardedBlockAllocator:
+    """Per-shard paged bookkeeping for tensor-parallel serving.
+
+    Under head-parallel attention every shard holds ITS OWN head-slice of
+    every KV page, so each shard owns a full per-shard pool and block table
+    — but page IDENTITY must agree across shards (the block table threaded
+    into the SPMD dispatch is one logical table; shard k's gather of page p
+    must read shard k's slice of the same request's history).  This class
+    drives one `BlockAllocator` per shard in lockstep: every operation
+    (alloc, share, free, prompt plan/commit, written markers, tenant
+    charges, cache eviction — eviction is deterministic, it runs inside each
+    shard's alloc()) is applied to all shards and the results are asserted
+    identical.  BlockAllocator is deterministic by construction (LIFO free
+    list, exact refcounts, radix-tree walk order fixed by insertion, LRU
+    ranks totally ordered by (quota class, tick, page id)), so mirrored
+    shards can only diverge through a bookkeeping bug — which this class
+    converts into an `AllocatorInvariantError` naming the shard, instead of
+    silent cross-shard KV corruption.
+
+    COW, preemption, eviction, and `audit()` therefore stay SHARD-LOCAL:
+    each shard's allocator proves its own exact partition (per-shard audit
+    is what the JAX package's tests pin after preemption/replay), while the
+    engine keeps exactly one host block table.  The interface mirrors
+    BlockAllocator, so Engine code is allocator-agnostic."""
+
+    def __init__(self, num_pages: int, block_size: int, *, shards: int,
+                 kv_quant: str = "bf16", prefix_cache: bool = True,
+                 tenant_quota: int | None = None):
+        assert shards >= 1, shards
+        self.shards = [
+            BlockAllocator(num_pages, block_size, kv_quant,
+                           prefix_cache=prefix_cache,
+                           tenant_quota=tenant_quota)
+            for _ in range(shards)
+        ]
+        self.num_pages = num_pages
+        self.block_size = block_size
+        self.kv_quant = kv_quant
+        self.prefix_cache = prefix_cache
+        self.tenant_quota = tenant_quota
+
+    @property
+    def _p(self) -> BlockAllocator:
+        return self.shards[0]
+
+    def _mirror(self, results, what: str):
+        first = results[0]
+        for k, r in enumerate(results[1:], start=1):
+            if r != first:
+                raise AllocatorInvariantError(
+                    f"shard allocators diverged on {what}: shard 0 -> "
+                    f"{first!r}, shard {k} -> {r!r}"
+                )
+        return first
+
+    # -- capacity (identical across shards by construction) ------------------
+
+    @property
+    def capacity(self) -> int:
+        return self._p.capacity
+
+    def available(self) -> int:
+        return self._mirror([a.available() for a in self.shards], "available")
+
+    def in_use(self) -> int:
+        return self._p.in_use()
+
+    def blocks_for_tokens(self, tokens: int) -> int:
+        return self._p.blocks_for_tokens(tokens)
+
+    def shareable_blocks(self, prompt_len: int) -> int:
+        return self._p.shareable_blocks(prompt_len)
+
+    def plan_fits(self, nblocks: int, shared: dict[int, int]) -> bool:
+        return self._mirror(
+            [a.plan_fits(nblocks, shared) for a in self.shards], "plan_fits"
+        )
+
+    # -- mirrored page ops ----------------------------------------------------
+
+    def alloc(self, *, owner: int | None = None,
+              tenant: str = DEFAULT_TENANT) -> int | None:
+        return self._mirror(
+            [a.alloc(owner=owner, tenant=tenant) for a in self.shards],
+            "alloc",
+        )
+
+    def share(self, page: int, *, owner: int | None = None,
+              tenant: str = DEFAULT_TENANT) -> int:
+        return self._mirror(
+            [a.share(page, owner=owner, tenant=tenant) for a in self.shards],
+            "share",
+        )
+
+    def free_page(self, page: int, *, owner: int | None = None,
+                  tenant: str = DEFAULT_TENANT) -> None:
+        for a in self.shards:
+            a.free_page(page, owner=owner, tenant=tenant)
+
+    def free_pages(self, pages: list[int], *, owner: int | None = None,
+                   tenant: str = DEFAULT_TENANT) -> None:
+        for a in self.shards:
+            a.free_pages(pages, owner=owner, tenant=tenant)
+
+    def claim_owner(self, pages: list[int], owner: int) -> None:
+        for a in self.shards:
+            a.claim_owner(pages, owner)
+
+    def mark_written(self, pages: list[int]) -> None:
+        for a in self.shards:
+            a.mark_written(pages)
+
+    def is_written(self, page: int) -> bool:
+        return self._mirror(
+            [a.is_written(page) for a in self.shards], "is_written"
+        )
+
+    def is_registered(self, page: int) -> bool:
+        return self._mirror(
+            [a.is_registered(page) for a in self.shards], "is_registered"
+        )
+
+    # -- mirrored prompt planning ---------------------------------------------
+
+    def plan_prompt(self, prompt: np.ndarray) -> tuple[int, dict[int, int]]:
+        return self._mirror(
+            [a.plan_prompt(prompt) for a in self.shards], "plan_prompt"
+        )
+
+    def commit_prompt(
+        self, prompt: np.ndarray, nblocks: int, shared: dict[int, int],
+        *, tenant: str = DEFAULT_TENANT,
+    ) -> PagePlan | None:
+        plans = [a.commit_prompt(prompt, nblocks, shared, tenant=tenant)
+                 for a in self.shards]
+        self._mirror(
+            [(p.pages, p.shared) if p is not None else None for p in plans],
+            "commit_prompt",
+        )
+        return plans[0]
+
+    # -- mirrored tenant accounting -------------------------------------------
+
+    def tenant_usage(self) -> dict[str, float]:
+        return self._mirror(
+            [a.tenant_usage() for a in self.shards], "tenant_usage"
+        )
+
+    def tenant_footprint(self) -> dict[str, float]:
+        return self._mirror(
+            [a.tenant_footprint() for a in self.shards], "tenant_footprint"
+        )
+
+    # -- observability / invariants -------------------------------------------
+
+    @property
+    def stats(self) -> dict:
+        """Shard-0 counters (mirrors are identical — asserted on every
+        mutating op) plus the shard count, so engine stats stay one dict."""
+        return {**self._p.stats, "tp_shards": len(self.shards)}
+
+    def per_shard_stats(self) -> list[dict]:
+        return [dict(a.stats) for a in self.shards]
+
+    def audit(self, tables_in_use: list[list[int]]) -> None:
+        """Run the exact-partition audit on EVERY shard's allocator: each
+        shard must independently account for the same referenced tables."""
+        for k, a in enumerate(self.shards):
+            try:
+                a.audit(tables_in_use)
+            except AssertionError as exc:
+                raise AllocatorInvariantError(
+                    f"shard {k} audit failed: {exc}"
+                ) from exc

@@ -8,12 +8,24 @@ versions on the CPU."""
 
 import numpy as np
 import pytest
+import torch
 
 from repro.serving import engine as jengine
 from repro_torch.kernels import registry
 from repro_torch.serving import engine as engine_lib
 from repro_torch.serving.config import EngineConfig
 from test_torch_archs import AUTO, CASES, IDS, JENC, _model
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions run many small
+    ops, which more threads only slow down where the suite's workers already
+    share every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

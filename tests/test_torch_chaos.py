@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -47,6 +48,17 @@ JCFG = jcfg_registry.get_reduced("qwen2-1.5b")
 CFG = cfg_registry.get_reduced("qwen2-1.5b")
 JPARAMS = JT.model_init(jax.random.PRNGKey(0), JCFG, JENC)
 PARAMS = convert.params_from_jax(jax.tree.map(np.asarray, JPARAMS), CFG, ENC, "cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions run many small
+    ops, which more threads only slow down where the suite's workers already
+    share every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -225,7 +237,8 @@ def test_fault_shard_roundtrips(tmp_path):
 
 
 def test_shard_tagged_fault_records_its_shard():
-    """One card: a shard-tagged kernel fault demotes the key and its
+    """One card: a shard-tagged kernel fault demotes that shard's entry,
+    which the card's dispatch honours (the level over every shard), and its
     stats["degraded"] entry names the shard; the stream still conforms."""
     prompts = _prompts(n=2)
     sched = faults_lib.FaultSchedule(

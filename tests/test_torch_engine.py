@@ -4,8 +4,8 @@ Llama-3.2-1B with converted weights: identical tokens, and identical
 preemption and prefix-cache counts, on a mixed-length trace, a shared-prefix
 trace that runs the suffix prefill, and a small-pool trace that preempts.
 Also the port's registry keys, quarantine, lifecycle, the speculative,
-token-budget and many-slot configurations against the JAX engine, and the
-slice it refuses (meshes).  The quantized KV pools, the dense cache and
+token-budget and many-slot configurations against the JAX engine, and a
+mesh it cannot cover.  The quantized KV pools, the dense cache and
 temperature sampling are held against the JAX engine in
 tests/test_torch_kvquant.py, tests/test_torch_dense.py and
 tests/test_torch_sample.py."""
@@ -234,11 +234,15 @@ def test_engine_lifecycle(model):
     assert eng.stats["pages_in_use"] == 0
 
 
-@pytest.mark.parametrize("kw,match", [
-    pytest.param(dict(mesh_shape=(2,)), "tensor parallelism", id="kw1-tensor parallelism"),
+@pytest.mark.parametrize("kw,exc,match", [
+    pytest.param(dict(mesh_shape=(2,)), ValueError, "needs 2 ranks",
+                 id="kw1-tensor parallelism"),
 ])
-def test_engine_refuses_later_slices(model, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_engine_refuses_later_slices(model, kw, exc, match):
+    """Tensor parallelism is served since its slice landed (its ranks:
+    tests/test_torch_tp_engine.py); a mesh larger than this process's group
+    (here: no group) is refused, never served as mesh=1."""
+    with pytest.raises(exc, match=match):
         _engine(model, enc=EncodingConfig(backend="auto", attn_backend="auto"), **kw)
 
 

@@ -52,6 +52,17 @@ from repro_torch.serving.config import EngineConfig
 QUANTS = ["int8", "int4"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions run many small
+    ops, which more threads only slow down where the suite's workers already
+    share every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(rng, *shape):
     return rng.randn(*shape).astype(np.float32)
 

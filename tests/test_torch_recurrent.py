@@ -59,6 +59,17 @@ STRICT = {"xla_allow_excess_precision": False}
 ENC = EncodingConfig(enabled=True, backend="fused", attn_backend="pallas")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions run many small
+    ops, which more threads only slow down where the suite's workers already
+    share every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jenc(wq="none"):
     return JEncodingConfig(enabled=True, backend="xla", attn_backend="xla", weight_quant=wq)
 

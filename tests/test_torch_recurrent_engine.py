@@ -61,6 +61,17 @@ CASES = ([(a, r, "none") for a in ARCHS for r in ROUTES]
 IDS = [f"{a}-{r}-{w}" for a, r, w in CASES]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions run many small
+    ops, which more threads only slow down where the suite's workers already
+    share every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _clean_quarantine():
     registry.clear_quarantine()
