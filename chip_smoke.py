@@ -73,7 +73,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
              cache at pos 1499 and InternVL's (D = 128, G = 6, S_c = 1024),
              and the projections at both models' K x N (K = 384, 1536, 3200,
              6144, 16384; the untied heads N = 51865, 92553) at rows 1, 4
-             and their prefill rows.  Every bf16 attention row, at every
+             and their prefill rows; then the tensor-parallel shard shapes
+             (TP_SHAPES; phase 15).  Every bf16 attention row, at every
              shape, is held element by element to bf16_attn_limit (kv8/kv4
              rows against the dequantized K/V), every f32 one to 1e-4;
   3. forward a depth-2, full-width f32 model served through the kernels and
@@ -200,28 +201,45 @@ Phases, in order; any failure raises and the exit code is non-zero:
              shapes, its collectives 2 a layer plus the embedding's and the
              head's a dispatch (and 2 a layer of absmax reduces with
              int8/int4 weights), each staged; wo and w_down row-parallel at
-             Llama's widths against one card's product, w8a8 bit for bit;
-             (b) Llama-3.2-1B at tp = 2 and (c) Yi-9B at tp = 4, full
-             width and depth, bf16, phase 4's trace, every request ok:
-             tokens/s, decode p50, launches and collectives a step, peak
-             memory a rank and the share of tokens equal to the tp = 1 run
-             of the same call; then a world of one on NCCL runs a decode
-             step and each collective on its logits.  Phase 2 checks the
-             kernels at the shard shapes too (TP_SHAPES).
+             Llama's widths, and 8 experts' w_down at Mixtral's (K =
+             16384, N = 6144) in one stacked reduction, against one card's
+             product, w8a8 bit for bit; (d) Mixtral-8x22B and Grok-1-314B
+             at full width, depth 2, f32, phase 11's trace (8 new) at tp =
+             1, 2 and 4, every expert's FFN columns split and the router
+             whole: "auto" served twice at tp = 1 with the same tokens
+             both times, and its tokens equal tp = 1's on every rank, w8a8 fed
+             tp = 1's tokens within the same gate, which w8a8 with the
+             experts' stacked absmax all-reduce skipped must fail; launches
+             equal the tally at the shard's widths (5 projections at the
+             dispatch's rows and 3 an expert at its capacity rows),
+             collectives 2 a layer (wo and the experts' stacked w_down)
+             plus 2 a dispatch; (b) Llama-3.2-1B at tp = 2, (c) Yi-9B at
+             tp = 4 and (e) Mixtral-8x22B at depth 8 at tp = 2, full width,
+             bf16 (Llama and Yi at full depth, phase 4's trace; Mixtral
+             phase 11's run), every request ok: tokens/s, decode p50,
+             launches and collectives a step, peak memory a rank and the
+             share of tokens equal to the tp = 1 run of the same call
+             (Mixtral's: phase 11's); then a world of one on NCCL runs a
+             decode step and each collective on its logits.  Phase 2
+             checks the kernels at the shard shapes too (TP_SHAPES: the
+             Llama and Yi shards' projections and heads, the MoE experts'
+             projections at tp = 2 and 4).
 
-In phases 4 to 9, 11 and 12 every kernel's launch count (per KV layout for the
-decode kernels), set to 0 before each run and read after it, must equal the
-dispatches that resolved to it (tallied here from each dispatch's rows,
-weight format, cache and KV layout, and the registry) x layers x (7
-projections, or for an MoE layer 5 at the dispatch's rows and 3 a expert
-at its capacity buffer's rows, or 1 attention; 8 projections and no
-attention for an RG-LRU or RWKV layer), plus an untied head's one
-projection a dispatch; pack and unpack must not launch at all (the
-packed projections run their GEMMs' plain-row entries), and every other
-kernel of the table but batch_mmt4d must have launched in these runs.
-Every model made on the card must launch one weight pack per projection
-weight (two for int4: codes and scales); the table's pack launches are
-those of the models of phases 4-9 and 11-13.
+In phases 4 to 9, 11, 12 and 15 every kernel's launch count (per KV layout
+for the decode kernels), set to 0 before each run and read after it, must
+equal the dispatches that resolved to it (tallied here from each dispatch's
+rows, weight format, cache and KV layout, and the registry) x layers x (7
+projections, or for an MoE layer 5 at the dispatch's rows and 3 a expert at
+its capacity buffer's rows, or 1 attention; 8 projections and no attention
+for an RG-LRU or RWKV layer), plus an untied head's one projection a
+dispatch; at tp > 1 the same tally holds on every rank, each projection at
+the shard's widths (an MoE expert's w_gate/w_up 16384 / tp or 32768 / tp
+rows, its w_down as many columns); pack and unpack must not launch at all
+(the packed projections run their GEMMs' plain-row entries), and every other
+kernel of the table but batch_mmt4d must have launched in these runs. Every
+model made on the card must launch one weight pack per projection weight
+(two for int4: codes and scales); the table's pack launches are those of the
+models of phases 4-9 and 11-13.
 
 The third line from the end is the kernel table as JSON, the next the card's
 name and power limit, and the last {"ok": true, "device": {...}}.  Details go
@@ -232,6 +250,7 @@ The script needs torch with CUDA and the repository's src/ beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2723,8 +2742,10 @@ def serve_moe(torch, dev, seed: int) -> dict:
             f"{cfg.num_experts} experts) + {stream['head'] / 1e9:.3f} GB of head: floor "
             f"{floor_ms:.3f} ms at the data-sheet rate; reduced: {reduced}")
         prompts = moe_prompts(np.random.RandomState(seed + 11), cfg.vocab_size)
-        _, out = counted_run(torch, dev, params, cfg, enc, dict(slots=4, max_seq=8192),
-                             submit_all(prompts, 32), f"{cfg.name} {tag} trace", "moe")
+        eng, out = counted_run(torch, dev, params, cfg, enc, dict(slots=4, max_seq=8192),
+                               submit_all(prompts, 32), f"{cfg.name} {tag} trace", "moe")
+        out["tokens_by_uid"] = {r.uid: list(r.generated) for r in eng.finished}
+        del eng
         if out["cache_mode"] != "dense" or out["max_rows"].get("prefill", 0) < MOE_LONG_PROMPT:
             raise AssertionError(f"{tag}: not the ring or no long prefill: {out}")
         runs[f"{tag} trace"] = dict(out, init_s=init_s, weights_gib=weights_gib,
@@ -2986,12 +3007,18 @@ WHISPER_MAX_SEQ = 448          # Whisper's decoder context
 # and 4 kv heads at D = 64; Yi-9B at tp = 4: q 4096 -> 1024, k/v 4096 -> 128,
 # o 1024 -> 4096, gate/up 4096 -> 2752, down 2752 -> 4096, its head 4096 ->
 # 16000 vocabulary rows, attention 8 query heads on one kv head at D = 128.
+# An expert of Mixtral-8x22B at tp = 2 (Grok-1-314B's at tp = 4: the same
+# shapes): w_gate/w_up 6144 -> 8192, w_down 8192 -> 6144; Mixtral's at tp =
+# 4: 6144 -> 4096, 4096 -> 6144 (Grok's at tp = 2, 6144 -> 16384 and 16384
+# -> 6144, are Mixtral's whole experts: check_moe_shapes).
 TP_SHAPES = {
     "llama tp2": dict(kn=((2048, 1024), (2048, 256), (1024, 2048), (2048, 4096), (4096, 2048)),
                       heads=(16, 4), d=64),
     "yi tp4": dict(kn=((4096, 1024), (4096, 128), (1024, 4096), (4096, 2752), (2752, 4096),
                        (4096, 16000)),
                    heads=(8, 1), d=128),
+    "mixtral tp2 / grok tp4 expert": dict(kn=((6144, 8192), (8192, 6144))),
+    "mixtral tp4 expert": dict(kn=((6144, 4096), (4096, 6144))),
 }
 
 
@@ -3002,9 +3029,10 @@ def check_tp_shapes(torch, dev, target, timer, results: dict) -> None:
     with matmul as the yardstick, w8a8 fused_gemv_q8 and w4a8 g16
     fused_gemv_q4 at 4 rows bit for bit; paged decode at the shard's heads
     (B = 4, L = 1, pos {37, 300, 511, 900}) on bf16, kv8 and kv4 pools and
-    flash prefill (bf16, B = 4, 512 x 512), SDPA the yardstick.  A K that
-    is no multiple of 128 (Yi's 2752 FFN columns a rank) is zero-padded on
-    the rows as kernels/ops.py pads them."""
+    flash prefill (bf16, B = 4, 512 x 512), SDPA the yardstick, where the
+    entry names heads (the MoE experts' entries are projections only).  A K
+    that is no multiple of 128 (Yi's 2752 FFN columns a rank) is
+    zero-padded on the rows as kernels/ops.py pads them."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -3071,6 +3099,8 @@ def check_tp_shapes(torch, dev, target, timer, results: dict) -> None:
                   bytes_moved=4 * k + n * k // 2 + n * (k // 16) * 2 + 16 + 4 * n * 4,
                   flops=8 * n * k, dname="int8")
             del rhs4_p, s_w4, w_t
+        if "heads" not in shape:
+            continue
         h, kvh = shape["heads"]
         d = shape["d"]
         g = h // kvh
@@ -3900,11 +3930,36 @@ TP_CASES = (
 )
 
 
+# (d)'s engines: Mixtral-8x22B and Grok-1-314B at full width, depth 2 of 56
+# / 64, f32, phase 11's trace with TP_MOE_NEW new tokens a request, at tp =
+# 1, 2 and 4: a rank holds every expert's FFN columns (16384 / tp for
+# Mixtral, 32768 / tp for Grok) and the whole router, and every rank routes
+# alike.  "auto" is served twice at tp = 1, which must repeat itself token
+# for token (idle slots and pads route and take capacity beside the live
+# rows, so their cache writes must land alike every run), and is held to
+# tp = 1's tokens at tp = 2 and 4; w8a8 is forced on tp = 1's and
+# gated as (a)'s TP_FORCED, and at tp = 2 served again with the experts'
+# stacked absmax all-reduce skipped, which must fail the gate.
+TP_MOE = ("mixtral-8x22b", "grok-1-314b")
+TP_MOE_CASES = (("auto", TP_AUTO), ("w8a8", dict(TP_AUTO, weight_quant="int8")))
+TP_MOE_NEW = 8
+# (e): Mixtral-8x22B at full width, depth 8 of 56, bf16, phase 11's run (its
+# trace, 4 slots, max_seq 8192, backend "fused", 32 new) at tp = 2,
+# reported against phase 11's own tp = 1 run.
+TP_MOE_REPORT_LAYERS = 8
+# row_parallel_check's projections: (name, K, N, experts reduced together).
+TP_ROW_PARALLEL = (("wo", 2048, 2048, 1), ("w_down", 8192, 2048, 1),
+                   ("experts w_down", 16384, 6144, 8))
+
+
 def tp_jobs(seed: int, tp: int) -> list[dict]:
     """The runs of phase 15 at degree `tp`: (a)'s cases (at tp = 2 each of
-    TP_PLANTED again, part "planted"), then (b) at tp = 2
-    (Llama-3.2-1B, full width and depth, bf16) or (c) at tp = 4 (Yi-9B,
-    full width and depth, bf16); at tp = 1 both (b) and (c)."""
+    TP_PLANTED again, part "planted", every absmax all-reduce skipped),
+    (d)'s MoE cases (at tp = 2 w8a8 again, part "planted", the experts'
+    stacked absmax all-reduce skipped), then (b) at tp = 2 (Llama-3.2-1B,
+    full width and depth, bf16) or (c) at tp = 4 (Yi-9B, full width and
+    depth, bf16), at tp = 1 both, and (e) at tp = 2 (Mixtral at depth 8;
+    its tp = 1 is phase 11's run)."""
     import numpy as np
 
     from repro_torch.configs import registry as cfg_registry
@@ -3917,17 +3972,54 @@ def tp_jobs(seed: int, tp: int) -> list[dict]:
         prompts = (tiled_prompts if kind == "tiled" else shared_prefix_prompts)(
             rng, small.vocab_size)
         jobs.append(dict(part="a", label=label, cfg=small, enc=enc_kw, config=config,
-                         prompts=prompts))
+                         prompts=prompts, max_new=32, forced=label in TP_FORCED, plant=None))
         if tp == 2 and label in TP_PLANTED:
-            jobs.append(dict(jobs[-1], part="planted"))
+            jobs.append(dict(jobs[-1], part="planted", plant="absmax"))
+    for arch in TP_MOE:
+        cfg = dataclasses.replace(cfg_registry.get_config(arch), num_layers=2, dtype="float32")
+        prompts = moe_prompts(np.random.RandomState(seed + 11), cfg.vocab_size)
+        for case, enc_kw in TP_MOE_CASES:
+            jobs.append(dict(part="d", label=f"{arch} {case}", cfg=cfg, enc=enc_kw,
+                             config=dict(max_seq=8192), prompts=prompts, max_new=TP_MOE_NEW,
+                             forced=case in TP_FORCED, plant=None))
+            if tp == 2 and case in TP_PLANTED:
+                jobs.append(dict(jobs[-1], part="planted", plant="stacked absmax"))
+    fused = dict(backend="fused", attn_backend="auto")
     full = [("b", llama)] if tp in (1, 2) else []
     full += [("c", cfg_registry.get_config("yi-9b"))] if tp in (1, 4) else []
     for part, cfg in full:
-        jobs.append(dict(part=part, label=cfg.name, cfg=cfg,
-                         enc=dict(backend="fused", attn_backend="auto"), config={},
+        jobs.append(dict(part=part, label=cfg.name, cfg=cfg, enc=fused, config={},
                          prompts=shared_prefix_prompts(np.random.RandomState(seed),
-                                                       cfg.vocab_size)))
+                                                       cfg.vocab_size),
+                         max_new=32, forced=False, plant=None))
+    if tp == 2:
+        mix = cfg_registry.get_config("mixtral-8x22b")
+        cfg = dataclasses.replace(mix, num_layers=TP_MOE_REPORT_LAYERS)
+        jobs.append(dict(part="e", label=f"{mix.name} depth {cfg.num_layers}", cfg=cfg,
+                         enc=fused, config=dict(max_seq=8192),
+                         prompts=moe_prompts(np.random.RandomState(seed + 11), cfg.vocab_size),
+                         max_new=32, forced=False, plant=None))
     return jobs
+
+
+@contextlib.contextmanager
+def planted_fault(plant: str):
+    """Phase 15's planted fault: "absmax" skips every activation absmax
+    all-reduce (each rank quantizes its K slice on its own scale), "stacked
+    absmax" only the MoE experts' stacked one (a reduction of more than one
+    projection's rows)."""
+    from repro_torch.parallel import collectives
+
+    reduce_max, reduce_each = collectives.all_reduce_max, collectives.all_reduce_max_each
+    if plant == "absmax":
+        collectives.all_reduce_max = lambda x, group: x
+    else:
+        collectives.all_reduce_max_each = (
+            lambda xs, group: list(xs) if len(xs) > 1 else reduce_each(xs, group))
+    try:
+        yield
+    finally:
+        collectives.all_reduce_max, collectives.all_reduce_max_each = reduce_max, reduce_each
 
 
 class ForcedStream:
@@ -3999,9 +4091,12 @@ def row_parallel_check(torch, dev, seed: int, tp: int, rank: int) -> dict:
     """wo (K = 2048) and w_down (K = 8192) at Llama-3.2-1B's widths, N =
     2048, row-parallel on this rank's K slice (linear_apply's row_group)
     against one card's product of the whole weight on the same rows, at
-    decode (M = 4) and prefill (M = 64) on the "auto" route: w8a8 must be
-    one card's bit for bit (the ranks' exact integer sums added in f64, one
-    card's epilogue); w4a8 and f32 (auto and the plain reference rung, a
+    decode (M = 4) and prefill (M = 64) on the "auto" route; then 8
+    experts' w_down at Mixtral's widths (K = 16384, N = 6144)
+    through one linear_apply_row_parallel (the experts' stacked reduction)
+    against one card's linear_apply of each: w8a8 must be one card's bit
+    for bit (the ranks' exact integer sums added in f64, one card's
+    epilogue); w4a8 and f32 (auto and the plain reference rung, a
     quarantine's last) are reported.  Returns the largest |difference| by
     format and projection."""
     import torch.distributed as dist
@@ -4011,25 +4106,34 @@ def row_parallel_check(torch, dev, seed: int, tp: int, rank: int) -> dict:
     from repro_torch.parallel import sharding
 
     out = {}
+    group = dist.group.WORLD
     for fmt, backend in (("int8", "auto"), ("int4", "auto"), ("none", "auto"),
                          ("none", "reference")):
         enc = packed.EncodingConfig(backend=backend, attn_backend="auto", weight_quant=fmt)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        for name, k in (("wo", 2048), ("w_down", 8192)):
-            w = packed.linear_init(gen, k, 2048, enc=enc, device=dev)
+        for name, k, n, experts in TP_ROW_PARALLEL:
+            ws = [packed.linear_init(gen, k, n, enc=enc, device=dev) for _ in range(experts)]
             lo, hi = rank * k // tp, (rank + 1) * k // tp
-            part = sharding.shard_linear(w, 2048, k, "cols", lo, hi, group=enc.quant_group)
+            parts = [sharding.shard_linear(w, n, k, "cols", lo, hi, group=enc.quant_group)
+                     for w in ws]
             for phase, m in ((Phase.DECODE, 4), (Phase.PREFILL, 64)):
-                x = torch.randn(m, k, generator=gen, device=dev)
-                one = packed.linear_apply(w, x, n=2048, phase=phase, enc=enc)
-                got = packed.linear_apply(part, x[:, lo:hi], n=2048, phase=phase, enc=enc,
-                                          row_group=dist.group.WORLD)
-                err = (got - one).abs().max().item()
+                xs = [torch.randn(m, k, generator=gen, device=dev) for _ in ws]
+                one = [packed.linear_apply(w, x, n=n, phase=phase, enc=enc)
+                       for w, x in zip(ws, xs)]
+                if experts == 1:
+                    got = [packed.linear_apply(parts[0], xs[0][:, lo:hi], n=n, phase=phase,
+                                               enc=enc, row_group=group)]
+                else:
+                    got = packed.linear_apply_row_parallel(
+                        parts, [x[:, lo:hi] for x in xs], n=n, phase=phase, enc=enc,
+                        row_group=group)
+                err = max((g - o).abs().max().item() for g, o in zip(got, one))
                 if fmt == "int8" and err:
                     raise AssertionError(f"w8a8 {name} row-parallel at tp={tp} rank {rank} "
                                          f"{phase.value}: {err} from one card's")
                 label = f"{fmt} {backend} {name}"
                 out[label] = max(out.get(label, 0.0), err)
+            del ws, parts
     return out
 
 
@@ -4037,15 +4141,15 @@ def tp_serve(torch, dev, seed: int, tp: int, rank: int, ref_dir: str) -> list[di
     """Serve every job of tp_jobs at degree `tp` in this process (rank
     `rank` of a group of tp, or alone at tp = 1): each model made as this
     rank's shard of the seed's weights (transformer.model_init(shard=)),
-    phase 4's trace (32 new tokens, 4 slots) through counted_run.  TP_FORCED
-    cases record their logits into `ref_dir` at tp = 1 and are forced on
-    that record at tp > 1 (ForcedStream); a "planted" job serves its case
-    again, forced, with every activation absmax all-reduce skipped, outside
-    counted_run (its ranks' logits part, as a fault's would)."""
+    the job's trace (4 slots) through counted_run.  Forced cases record
+    their logits into `ref_dir` at tp = 1 and are forced on that record at
+    tp > 1 (ForcedStream); a "planted" job serves its case again, forced,
+    under its planted_fault, outside counted_run (its ranks' logits part,
+    as a fault's would)."""
     from repro_torch.core import tree
     from repro_torch.core.packed import EncodingConfig
     from repro_torch.models import transformer as T
-    from repro_torch.parallel import collectives, sharding
+    from repro_torch.parallel import sharding
     from repro_torch.serving import engine as engine_lib
     from repro_torch.serving.config import EngineConfig
 
@@ -4058,48 +4162,54 @@ def tp_serve(torch, dev, seed: int, tp: int, rank: int, ref_dir: str) -> list[di
             params = None
             gc.collect()
             torch.cuda.empty_cache()
-            t0 = time.perf_counter()
             shard = sharding.plan(cfg, enc, tp, rank) if tp > 1 else None
-            params = T.model_init(cfg, enc, seed=seed, device=dev, shard=shard)
-            torch.cuda.synchronize()
-            init_s, made = time.perf_counter() - t0, key
+            params, init_s = in_turn(torch, tp, rank, lambda: T.model_init(
+                cfg, enc, seed=seed, device=dev, shard=shard))
+            made = key
         config = dict(slots=4, mesh_shape=(tp,), **job["config"])
         label = f"{job['part']} {job['label']} tp={tp} rank {rank}"
-        drive = submit_all(job["prompts"], 32)
+        max_new = job["max_new"]
+        drive = submit_all(job["prompts"], max_new)
         forced = None
-        if job["label"] in TP_FORCED and job["part"] in ("a", "planted"):
+        if job["forced"]:
             path = os.path.join(ref_dir, f"{job['label']}.pt")
             ref = torch.load(path) if tp > 1 else None
-            forced = ForcedStream(torch, dev, len(job["prompts"]), 32, cfg.vocab_size, ref)
-            drive = forced.drive(job["prompts"], 32)
+            forced = ForcedStream(torch, dev, len(job["prompts"]), max_new, cfg.vocab_size, ref)
+            drive = forced.drive(job["prompts"], max_new)
         if job["part"] == "planted":
             eng = engine_lib.Engine(params, cfg, enc, device=dev, config=EngineConfig(
-                max_seq=1024, block_size=16, **config))
-            reduce_max = collectives.all_reduce_max
-            collectives.all_reduce_max = lambda x, group: x
-            try:
+                **{"max_seq": 1024, "block_size": 16, **config}))
+            with planted_fault(job["plant"]):
                 drive(eng)
-            finally:
-                collectives.all_reduce_max = reduce_max
             torch.cuda.synchronize()
             out.append(dict(part="planted", label=job["label"], tp=tp, rank=rank,
-                            forced=forced.summary(),
+                            plant=job["plant"], forced=forced.summary(),
                             tokens_by_uid={r.uid: list(r.generated) for r in eng.finished}))
             del eng
             continue
         eng, run = counted_run(torch, dev, params, cfg, enc, config, drive, label, "tp")
+        tokens_by_uid = {r.uid: list(r.generated) for r in eng.finished}
+        if tp == 1 and job["part"] == "d" and not job["forced"]:
+            del eng
+            eng, _ = counted_run(torch, dev, params, cfg, enc, config,
+                                 submit_all(job["prompts"], max_new), f"{label} again", "tp")
+            again = {r.uid: list(r.generated) for r in eng.finished}
+            if again != tokens_by_uid:
+                raise AssertionError(f"{label}: served twice, the tokens differ: "
+                                     f"{tokens_by_uid} then {again}")
+            log(f"[tp] {label}: served twice, the same tokens")
         run.update(part=job["part"], label=job["label"], tp=tp, rank=rank, init_s=init_s,
-                   tokens_by_uid={r.uid: list(r.generated) for r in eng.finished},
+                   tokens_by_uid=tokens_by_uid,
                    model_cfg=dict(heads=eng.model_cfg.num_heads,
                                   kv_heads=eng.model_cfg.num_kv_heads,
-                                  d_ff=eng.model_cfg.d_ff))
+                                  d_ff=eng.model_cfg.d_ff, experts=eng.model_cfg.num_experts))
         if forced is not None and tp == 1:
             torch.save({"logits": forced.logits.cpu(),
                         "tokens": {int(u): [int(t) for t in toks]
                                    for u, toks in run["tokens_by_uid"].items()}}, path)
         elif forced is not None:
             run["forced"] = forced.summary()
-        if job["part"] != "a":
+        if job["part"] not in ("a", "d"):
             run["weight_gib"] = sum(t.numel() * t.element_size() for t in tree.leaves(params)
                                     if isinstance(t, torch.Tensor)) / 2**30
         del eng, forced
@@ -4108,6 +4218,28 @@ def tp_serve(torch, dev, seed: int, tp: int, rank: int, ref_dir: str) -> list[di
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def in_turn(torch, tp: int, rank: int, make):
+    """(make(), its seconds), the ranks of the group making theirs one
+    after another: they share one card, and the transients of their inits
+    together (each rank quantizes every whole weight it draws, Grok's f32
+    head of 3.2 GB among them) would not fit it.  The memory a rank's
+    caching allocator freed goes back to the card before the next turn."""
+    import torch.distributed as dist
+
+    out = seconds = None
+    for turn in range(tp):
+        if turn == rank:
+            t0 = time.perf_counter()
+            out = make()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        if tp > 1:
+            dist.barrier()
+    return out, seconds
 
 
 def tp_rank(rank: int, world: int, device: str, seed: int, ref_dir: str) -> dict:
@@ -4158,21 +4290,24 @@ def nccl_rank(rank: int, world: int, device: str, seed: int) -> dict:
     return {"backend": backend, "equal": same, "host_copies": collectives.counts["host_copies"]}
 
 
-def serve_tp(torch, dev, seed: int, smi: str) -> dict:
+def serve_tp(torch, dev, seed: int, smi: str, moe_tp1: dict) -> dict:
     """Phase 15: tensor-parallel serving with every rank on this one card
     (gloo between them, card tensors staged through the host: NCCL refuses
     two ranks on one device).  tp = 1 here, then 2 and 4 ranks spawned by
-    launch/mesh.launch_ranks after the kernels are built.  (a) gates: every
-    case's tokens at tp = 2 and 4 equal to tp = 1's, on every rank, and
-    TP_FORCED's logits, fed tp = 1's tokens, within TP_LOGIT_LIMIT and
-    TP_GAP of tp = 1's, a gate the TP_PLANTED fault must fail; each rank's
-    w8a8 wo and w_down row-parallel equal one card's bit for bit; (b)
-    Llama-3.2-1B at tp = 2 and (c) Yi-9B at tp = 4, full width and depth,
-    report tokens/s, the decode p50, launches and collectives a step, peak
-    memory per rank and the share of tokens equal to tp = 1's (bf16 sums in
+    launch/mesh.launch_ranks after the kernels are built.  (a) and (d)
+    gate: (d)'s "auto" tp = 1 serves repeating themselves (tp_serve), every
+    case's tokens at tp = 2 and 4 equal to tp = 1's, on every
+    rank, and the forced cases' logits, fed tp = 1's tokens, within
+    TP_LOGIT_LIMIT and TP_GAP of tp = 1's, a gate every planted fault must
+    fail; each rank's w8a8 wo, w_down and stacked expert w_down
+    row-parallel equal one card's bit for bit; (b) Llama-3.2-1B at tp = 2,
+    (c) Yi-9B at tp = 4, full width and depth, and (e) Mixtral-8x22B at
+    depth 8 at tp = 2 (against `moe_tp1`, phase 11's bf16 run) report
+    tokens/s, the decode p50, launches and collectives a step, peak memory
+    per rank and the share of tokens equal to tp = 1's (bf16 sums in
     another order: reported, not gated).  A world of one on NCCL runs a
-    step and its collectives.  Ranks sharing one card time a rehearsal, not
-    tensor-parallel speed."""
+    step and its collectives.  Ranks sharing one card time a rehearsal,
+    not tensor-parallel speed."""
     import shutil
     import tempfile
 
@@ -4182,26 +4317,34 @@ def serve_tp(torch, dev, seed: int, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     ref_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    degree_s = {}
     try:
+        t0 = time.perf_counter()
         runs = {1: tp_serve(torch, dev, seed, 1, 0, ref_dir)}
+        degree_s[1] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
         row_parallel = {}
         for tp in (2, 4):
             t0 = time.perf_counter()
             ranks = mesh_lib.launch_ranks(tp_rank, tp, seed, ref_dir, device=dev.type,
-                                          timeout_s=600, collective_timeout_s=300)
+                                          timeout_s=900, collective_timeout_s=300)
+            degree_s[tp] = time.perf_counter() - t0
             log(f"[tp] {tp} ranks on one card: {mesh_lib.rank_backend(tp, dev.type)[0]}, "
-                f"{time.perf_counter() - t0:.1f}s with their start")
+                f"{degree_s[tp]:.1f}s with their start")
             runs[tp] = [run for r in ranks for run in r["runs"]]
             row_parallel[tp] = [r["row_parallel"] for r in ranks]
     finally:
         shutil.rmtree(ref_dir, ignore_errors=True)
-    log(f"[tp] wo / w_down row-parallel against one card's, largest |difference| a rank: "
-        f"{row_parallel} (w8a8 gated bit for bit)")
+    log(f"[tp] wo / w_down / the experts' stacked w_down row-parallel against one "
+        f"card's, largest |difference| a rank: {row_parallel} (w8a8 gated bit for bit)")
 
-    base = {(r["part"], r["label"]): r for r in runs[1]}
-    summary = {"a": {}, "full": {}, "forced": {}, "planted": {}, "row_parallel": row_parallel,
+    jobs2 = tp_jobs(seed, 2)
+    moe_tp1 = dict(moe_tp1, part="e", weight_gib=moe_tp1["weights_gib"],
+                   label=next(j["label"] for j in jobs2 if j["part"] == "e"))
+    base = {(r["part"], r["label"]): r for r in [*runs[1], moe_tp1]}
+    summary = {"a": {}, "d": {}, "full": {}, "forced": {}, "planted": {},
+               "row_parallel": row_parallel, "degree_s": degree_s,
                "limits": {"logit": TP_LOGIT_LIMIT, "gap": TP_GAP}}
     differ, forced_fail = [], []
     for tp in (2, 4):
@@ -4214,14 +4357,15 @@ def serve_tp(torch, dev, seed: int, smi: str) -> dict:
             pos = sum(len(t) for t in ref["tokens_by_uid"].values())
             eq = sum(a == b for u, t in ref["tokens_by_uid"].items()
                      for a, b in zip(t, r["tokens_by_uid"][u]))
-            if r["part"] == "a":
-                summary["a"].setdefault(r["label"], {})[where] = {
+            if r["part"] in ("a", "d"):
+                summary[r["part"]].setdefault(r["label"], {})[where] = {
                     "collectives": r["collectives"], "host_copies": r["host_copies"],
                     "launches": {k: v for k, v in r["launches"].items() if v},
-                    "token_match_share": eq / pos}
+                    "model_cfg": r["model_cfg"], "init_s": r["init_s"],
+                    "wall_s": r["wall_s"], "token_match_share": eq / pos}
                 if r["tokens_by_uid"] != ref["tokens_by_uid"]:
                     differ.append(f"{r['label']} {where} ({eq}/{pos} tokens equal)")
-                if r["label"] in TP_FORCED:
+                if "forced" in r:
                     f = r["forced"]
                     summary["forced"].setdefault(r["label"], {})[where] = f
                     if outside_tp_gate(f):
@@ -4245,50 +4389,59 @@ def serve_tp(torch, dev, seed: int, smi: str) -> dict:
                 f"{row['collectives_per_dispatch']}, peak {row['peak_gib']:.2f} GiB "
                 f"(weights {row['weight_gib']:.2f} GiB), tokens equal to tp=1's "
                 f"{row['token_match_share']:.3f}, requests identical "
-                f"{row['requests_identical']}/8 ({smi}; ranks share the card: a rehearsal)")
-    for r in runs[1]:
-        if r["part"] != "a":
+                f"{row['requests_identical']}/{len(ref['tokens_by_uid'])} ({smi}; ranks share "
+                f"the card: a rehearsal)")
+    for r in base.values():
+        if r["part"] in ("b", "c", "e"):
             dec = r["step_ms"].get("decode", {})
-            summary["full"].setdefault(r["label"], {})["tp=1"] = {
+            label = r["label"]
+            summary["full"].setdefault(label, {})["tp=1"] = {
                 "tok_s": r["tok_s"], "decode_p50_ms": dec.get("p50_ms"),
                 "peak_gib": r["peak_gib"], "weight_gib": r["weight_gib"], "steps": r["steps"],
                 "launches_per_step": sum(r["launches"].values()) / r["steps"]}
-            log(f"[tp] ({r['part']}) {r['label']} tp=1: {r['tok_s']:.1f} tok/s, decode p50 "
+            log(f"[tp] ({r['part']}) {label} tp=1: {r['tok_s']:.1f} tok/s, decode p50 "
                 f"{dec.get('p50_ms', float('nan')):.2f} ms, peak {r['peak_gib']:.2f} GiB")
+    for label, ranks in summary["d"].items():
+        log(f"[tp] (d) {label}: " + "; ".join(
+            f"{where} {v['model_cfg']['d_ff']} FFN columns an expert, init {v['init_s']:.1f}s, "
+            f"served in {v['wall_s']:.1f}s, collectives {v['collectives']}"
+            for where, v in ranks.items()))
     for label, ranks in summary["forced"].items():
-        log(f"[tp] (a) {label}, fed tp=1's tokens: " + "; ".join(
+        log(f"[tp] {label}, fed tp=1's tokens: " + "; ".join(
             f"{where} max |dlogit| {f['max_abs_dlogit']:.4g}, argmax != tp=1's at "
             f"{f['argmax_differs']}/{f['positions']} (largest tp=1 top-2 gap there "
             f"{f['max_gap_where_differs']})" for where, f in ranks.items())
             + f" (tp=1's smallest top-2 gap {next(iter(ranks.values()))['min_gap']:.4g}, "
             f"largest |logit| {next(iter(ranks.values()))['ref_logit_absmax']:.4g})")
+    plants = {j["label"]: j["plant"] for j in jobs2 if j["part"] == "planted"}
     for label, ranks in summary["planted"].items():
-        log(f"[tp] (a) planted fault, {label} without the absmax all-reduce, fed tp=1's "
-            f"tokens: " + "; ".join(
+        log(f"[tp] planted fault, {label} without the {plants.get(label)} all-reduce, fed "
+            f"tp=1's tokens: " + "; ".join(
                 f"{where} max |dlogit| {f['max_abs_dlogit']:.4g}, argmax != tp=1's at "
                 f"{f['argmax_differs']}/{f['positions']} (largest tp=1 top-2 gap there "
                 f"{f['max_gap_where_differs']})" for where, f in ranks.items()))
-    log(f"[tp] (a) gate for {', '.join(TP_FORCED)}: every logit within {TP_LOGIT_LIMIT} of "
-        f"tp=1's, the argmax tp=1's wherever its top-2 gap exceeds {TP_GAP}")
+    log(f"[tp] gate for the forced cases {sorted(summary['forced'])}: every logit within "
+        f"{TP_LOGIT_LIMIT} of tp=1's, the argmax tp=1's wherever its top-2 gap exceeds {TP_GAP}")
     if differ:
-        raise AssertionError(f"(a) tokens differ from tp=1: {differ}")
+        raise AssertionError(f"(a), (d) tokens differ from tp=1: {differ}")
     if forced_fail:
-        raise AssertionError(f"(a) forced logits outside the gate: {forced_fail}")
+        raise AssertionError(f"forced logits outside the gate: {forced_fail}")
     missed = [label for label, ranks in summary["planted"].items()
               if not any(outside_tp_gate(f) for f in ranks.values())]
-    if sorted(summary["planted"]) != sorted(TP_PLANTED) or missed:
-        raise AssertionError(f"(a) the gate does not catch the planted fault in {missed} "
+    if sorted(summary["planted"]) != sorted(plants) or missed:
+        raise AssertionError(f"the gate does not catch the planted fault in {missed} "
                              f"(planted runs: {sorted(summary['planted'])})")
     # The ranks of one group hold the same logits, so emit the same tokens.
     lockstep = all(r["tokens_by_uid"] == s["tokens_by_uid"]
                    for tp in (2, 4) for r in runs[tp] for s in runs[tp]
                    if (s["part"], s["label"]) == (r["part"], r["label"]))
     if not lockstep:
-        raise AssertionError("(a)-(c): the ranks of one group emitted different tokens")
-    log(f"[tp] (a) {len(TP_CASES) - len(TP_FORCED)} cases at tp=2 and 4 on every rank: "
-        f"tokens == tp=1; {', '.join(TP_FORCED)} fed tp=1's tokens within the gate, which "
-        f"the planted fault fails; every case: every rank the same tokens, launches and "
-        f"collectives == tallied")
+        raise AssertionError("(a)-(e): the ranks of one group emitted different tokens")
+    log(f"[tp] (a) {len(TP_CASES) - len(TP_FORCED)} Llama cases and (d) "
+        f"{len(TP_MOE)} MoE models unquantized at tp=2 and 4 on every rank: tokens == tp=1; "
+        f"{sorted(summary['forced'])} fed tp=1's tokens within the gate, which every planted "
+        f"fault fails; every case: every rank the same tokens, launches and collectives == "
+        f"tallied")
     launches = {}
     for tp_runs in runs.values():
         for r in tp_runs:
@@ -4391,7 +4544,7 @@ def main() -> int:
     served_packs = sum(WEIGHT_PACKS[loads:])  # the weight packs of the served models
     chaos = chaos_check(torch, dev, args.seed)
     train = train_check(torch, dev, args.seed, smi)
-    tp = serve_tp(torch, dev, args.seed, smi)
+    tp = serve_tp(torch, dev, args.seed, smi, moe["bf16 trace"])
     launches = {name: served["launches"][name] + tp["launches"].get(name, 0)
                 + sum(r["launches"][name] for r in (*windows.values(), *quant.values(),
                                                     *kv.values(), *sampled.values(),

@@ -17,6 +17,8 @@ plain form again, so a tensor-parallel rank's slice of a projection
 A row-parallel projection (`row_group`: each rank holds a K slice of the
 weight and of the rows) returns the product summed over the group; its
 w8a8/w4a8 activation rows take the absmax of the whole row.
+`linear_apply_row_parallel` runs several such projections (an MoE layer's
+experts' w_down) with one collective of each kind for them all.
 """
 
 from __future__ import annotations
@@ -109,36 +111,69 @@ def linear_apply(
 ) -> torch.Tensor:
     """y = x @ W^T (+ b) in `out_dtype` (default x.dtype).  `row_group`, a
     tensor-parallel group over whose ranks K is split: the product is summed
-    over the group before the cast (ops: in f32; w8a8 as exact integer sums)
-    and the bias added once after it."""
+    over the group before the cast (linear_apply_row_parallel) and the bias
+    added once after it."""
+    if row_group is not None:
+        return linear_apply_row_parallel([params], [x], n=n, phase=phase, enc=enc,
+                                         out_dtype=out_dtype, row_group=row_group)[0]
     out_dtype = out_dtype or x.dtype
     if "w_q4" in params:
         y = ops.encoded_matmul_q4(
             x, params["w_q4"], params["w_scale4"], n=n, phase=phase, group=enc.quant_group,
             backend=enc.quant_backend(), target=enc.target, out_dtype=out_dtype,
-            row_group=row_group,
         )
     elif "w_q" in params:
         y = ops.encoded_matmul_q8(
             x, params["w_q"], params["w_scale"], n=n, phase=phase,
             backend=enc.quant_backend(), target=enc.target, out_dtype=out_dtype,
-            row_group=row_group,
         )
     elif "w_packed" in params:
         y = ops.encoded_matmul(
             x, params["w_packed"], n=n, phase=phase,
             backend=enc.resolved_backend(), target=enc.target, out_dtype=out_dtype,
-            row_group=row_group,
         )
     else:
-        lead = x.shape[:-1]
         y = ref.matmul_reference(x.reshape(-1, x.shape[-1]), params["w_t"])
-        if row_group is not None:
-            y = collectives.all_reduce_sum(y, row_group)
-        y = y.to(out_dtype).reshape(*lead, -1)
+        y = y.to(out_dtype).reshape(*x.shape[:-1], -1)
     if "b" in params:
         y = y + params["b"].to(out_dtype)
     return y
+
+
+def linear_apply_row_parallel(
+    params: list[dict],
+    xs: list[torch.Tensor],
+    *,
+    n: int,
+    phase: encoding.Phase,
+    enc: EncodingConfig = DEFAULT_ENCODING,
+    out_dtype: torch.dtype | None = None,
+    row_group,
+) -> list[torch.Tensor]:
+    """[linear_apply(p, x, row_group=row_group) for p, x in zip(params, xs)]
+    for projections of one weight format, each on this rank's K slice,
+    with one collective of each kind for them all (ops.row_parallel_matmuls:
+    the int8/int4 rows' absmax in one all_reduce_max, every product in one
+    all_reduce_sum): an MoE layer's experts' w_down reduce together."""
+    out_dtype = out_dtype or xs[0].dtype
+    first = params[0]
+    kw = dict(n=n, phase=phase, row_group=row_group, target=enc.target, out_dtype=out_dtype)
+    if "w_q4" in first:
+        ys = ops.row_parallel_matmuls(xs, [(p["w_q4"], p["w_scale4"]) for p in params],
+                                      quant="w4a8", backend=enc.quant_backend(),
+                                      group=enc.quant_group, **kw)
+    elif "w_q" in first:
+        ys = ops.row_parallel_matmuls(xs, [(p["w_q"], p["w_scale"]) for p in params],
+                                      quant="w8a8", backend=enc.quant_backend(), **kw)
+    elif "w_packed" in first:
+        ys = ops.row_parallel_matmuls(xs, [(p["w_packed"],) for p in params], quant="none",
+                                      backend=enc.resolved_backend(), **kw)
+    else:
+        parts = [ref.matmul_reference(x.reshape(-1, x.shape[-1]), p["w_t"])
+                 for p, x in zip(params, xs)]
+        ys = [y.to(out_dtype).reshape(*x.shape[:-1], -1)
+              for y, x in zip(collectives.all_reduce_sum_each(parts, row_group), xs)]
+    return [y + p["b"].to(out_dtype) if "b" in p else y for y, p in zip(ys, params)]
 
 
 def linear_out_dim(params: dict) -> int:

@@ -44,6 +44,11 @@ there; both are exact relayouts, so the tokens are the same.  The weight
 packs at load (pack_rhs, pack_rhs_q8, pack_rhs_q4) go through
 kernels/pack.py (the pack kernel on a CUDA tensor, ref.pack on the CPU).
 The "xla" and "reference" routes keep ref.pack / ref.unpack.
+
+A tensor-parallel rank's row-parallel projections (its K slice of wo,
+w_down, an MoE layer's experts' w_down) run through row_parallel_matmuls:
+the same routes, with the products (and the quantized rows' absmax) summed
+over the group, one collective of each kind for all projections of a call.
 """
 
 from __future__ import annotations
@@ -85,33 +90,33 @@ def encoded_matmul(
     backend: str = "xla",
     target: targets_lib.TargetSpec = targets_lib.H100,
     out_dtype: torch.dtype | None = None,
-    row_group=None,
 ) -> torch.Tensor:
     """x (..., K) @ W^T where rhs4 is the packed (N1, K1, N0, K0) weight.
-    Returns (..., n) in `out_dtype` (default x.dtype); accumulation is f32.
-    `row_group`: x and W are this rank's K slice of a row-parallel
-    projection; the f32 product is summed over the group before the cast."""
+    Returns (..., n) in `out_dtype` (default x.dtype); accumulation is f32."""
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1])
+    out2d = _float_out(x2d, rhs4, n, phase, backend, target)
+    return out2d[:, :n].to(out_dtype).reshape(*lead, n)
+
+
+def _float_out(x2d: torch.Tensor, rhs4: torch.Tensor, n: int, phase: Phase, backend: str,
+               target: targets_lib.TargetSpec) -> torch.Tensor:
+    """x2d (M, K) @ the packed float weight on the backend the registry
+    resolves `backend` to: f32, (M, n) on the reference rung, else
+    (M, N1 * N0)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
-    out_dtype = out_dtype or x.dtype
     n1, k1, n0, k0 = rhs4.shape
-    k = x.shape[-1]
+    m, k = x2d.shape
     if k > k1 * k0:
         raise ValueError(f"x K {k} exceeds packed K {k1 * k0}")
-    lead = x.shape[:-1]
-    x2d = x.reshape(-1, k)
-    m = x2d.shape[0]
     backend = registry.select(
         quant="none", phase=phase, m=m, target=target, requested=backend
     ).backend
-
     if backend == "reference":
-        out2d = ref.matmul_reference(x2d, ref.unpack(rhs4, (n, k1 * k0))[:, :k])
-    else:
-        out2d = _float_product(x2d, rhs4, phase, backend)
-    if row_group is not None:
-        out2d = collectives.all_reduce_sum(out2d[:, :n], row_group)
-    return out2d[:, :n].to(out_dtype).reshape(*lead, n)
+        return ref.matmul_reference(x2d, ref.unpack(rhs4, (n, k1 * k0))[:, :k])
+    return _float_product(x2d, rhs4, phase, backend)
 
 
 def _float_product(x2d: torch.Tensor, rhs4: torch.Tensor, phase: Phase,
@@ -167,23 +172,14 @@ def pack_rhs_q4(w_t: torch.Tensor, *, group: int = ref.Q4_GROUP
     return ref.pack_nibbles(rhs4), s_w4
 
 
-def _quantized_rows(x: torch.Tensor, k_packed: int,
-                    row_group=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (..., K) -> int8 rows (M, k_packed) and their scales (M,): K is
-    zero-padded to the packed weight's before the per-row quantizer.  With
-    `row_group` (a row-parallel projection's tensor-parallel group, whose
-    ranks each hold a K slice of the rows) each row's absmax is the max over
-    the group, so the codes are those of the whole row."""
+def _padded_rows(x: torch.Tensor, k_packed: int) -> torch.Tensor:
+    """x (..., K) as rows (M, k_packed), K zero-padded to the packed
+    weight's."""
     k = x.shape[-1]
     if k > k_packed:
         raise ValueError(f"x K {k} exceeds packed K {k_packed}")
     x2d = x.reshape(-1, k)
-    if k != k_packed:
-        x2d = F.pad(x2d, (0, k_packed - k))
-    if row_group is None:
-        return ref.quantize_rows(x2d)
-    amax = collectives.all_reduce_max(x2d.float().abs().amax(dim=1), row_group)
-    return ref.quantize_rows(x2d, amax=amax)
+    return F.pad(x2d, (0, k_packed - k)) if k != k_packed else x2d
 
 
 def _packed_rows(xq: torch.Tensor, s_a: torch.Tensor, phase: Phase,
@@ -197,33 +193,18 @@ def _packed_rows(xq: torch.Tensor, s_a: torch.Tensor, phase: Phase,
 def encoded_matmul_q8(x: torch.Tensor, rhs4_q: torch.Tensor, s_w: torch.Tensor, *, n: int,
                       phase: Phase, backend: str = "xla",
                       target: targets_lib.TargetSpec = targets_lib.H100,
-                      out_dtype: torch.dtype | None = None, row_group=None) -> torch.Tensor:
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """w8a8: x (..., K) @ W^T with W the packed int8 rhs4_q and its scales
-    s_w (N1, N0).  Returns (..., n) in `out_dtype` (default x.dtype).
-
-    `row_group`: x and W are this rank's K slice of a row-parallel
-    projection.  The rows are quantized with the whole row's absmax
-    (_quantized_rows), the kernel runs with unit scales, so its output is
-    the exact integer sum of the rank's K slice, those sums are added over
-    the group in f64, and the epilogue (acc * s_a) * s_w runs once on the
-    total, as one card's kernel runs it: the result is one card's, bit for
-    bit, while each rank's sum stays below 2^24 in magnitude (f32 holds it
-    exactly)."""
+    s_w (N1, N0).  The rows are quantized per row (ref.quantize_rows, after
+    padding K to the packed weight's).  Returns (..., n) in `out_dtype`
+    (default x.dtype)."""
     out_dtype = out_dtype or x.dtype
     n1, k1, n0, k0 = rhs4_q.shape
-    lead = x.shape[:-1]
-    xq, s_a = _quantized_rows(x, k1 * k0, row_group)
-    m = xq.shape[0]
-    backend = registry.select(quant="w8a8", phase=phase, m=m, target=target,
+    xq, s_a = ref.quantize_rows(_padded_rows(x, k1 * k0))
+    backend = registry.select(quant="w8a8", phase=phase, m=xq.shape[0], target=target,
                               requested=backend).backend
-    if row_group is None:
-        out2d = _q8_product(xq, rhs4_q, s_a, s_w, phase, backend)
-    else:
-        acc = _q8_product(xq, rhs4_q, torch.ones_like(s_a), torch.ones_like(s_w), phase,
-                          backend)[:, :n]
-        acc = collectives.all_reduce_sum(acc.double(), row_group).float()
-        out2d = acc * s_a[:, None] * s_w.reshape(1, n1 * n0)[:, :n]
-    return out2d[:, :n].to(out_dtype).reshape(*lead, n)
+    out2d = _q8_product(xq, rhs4_q, s_a, s_w, phase, backend)
+    return out2d[:, :n].to(out_dtype).reshape(*x.shape[:-1], n)
 
 
 def _q8_product(xq: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Tensor, s_w: torch.Tensor,
@@ -245,34 +226,95 @@ def _q8_product(xq: torch.Tensor, rhs4_q: torch.Tensor, s_a: torch.Tensor, s_w: 
 def encoded_matmul_q4(x: torch.Tensor, rhs4_p: torch.Tensor, s_w4: torch.Tensor, *, n: int,
                       phase: Phase, group: int = ref.Q4_GROUP, backend: str = "xla",
                       target: targets_lib.TargetSpec = targets_lib.H100,
-                      out_dtype: torch.dtype | None = None, row_group=None) -> torch.Tensor:
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """w4a8: x (..., K) @ W^T with W the nibble-packed int4 rhs4_p and its
-    group scales s_w4 (N1, K1, N0, K0/group).  Returns (..., n) in
-    `out_dtype` (default x.dtype).  `row_group`: x and W are this rank's K
-    slice (whole groups) of a row-parallel projection; the rows take the
-    whole row's absmax (_quantized_rows) and the f32 products are summed
-    over the group.  The kernel rounds its exact f64 group sums to f32 once,
-    so a rank's sum is rounded before the group adds it: the result is one
-    card's to within those roundings, not bit for bit."""
+    group scales s_w4 (N1, K1, N0, K0/group); the rows quantized as
+    encoded_matmul_q8 quantizes them.  Returns (..., n) in `out_dtype`
+    (default x.dtype)."""
     out_dtype = out_dtype or x.dtype
     n1, k1, n0, k0p = rhs4_p.shape
-    k0 = 2 * k0p
-    lead = x.shape[:-1]
-    xq, s_a = _quantized_rows(x, k1 * k0, row_group)
-    m = xq.shape[0]
-    backend = registry.select(quant="w4a8", phase=phase, m=m, target=target,
+    xq, s_a = ref.quantize_rows(_padded_rows(x, k1 * 2 * k0p))
+    backend = registry.select(quant="w4a8", phase=phase, m=xq.shape[0], target=target,
                               requested=backend).backend
+    out2d = _q4_product(xq, rhs4_p, s_a, s_w4, group, phase, backend)
+    return out2d[:, :n].to(out_dtype).reshape(*x.shape[:-1], n)
+
+
+def _q4_product(xq: torch.Tensor, rhs4_p: torch.Tensor, s_a: torch.Tensor, s_w4: torch.Tensor,
+                group: int, phase: Phase, backend: str) -> torch.Tensor:
+    """The w4a8 product of int8 rows xq (M, K) on `backend`'s route:
+    (M, N1 * N0) f32."""
+    m = xq.shape[0]
+    n1, _, n0, k0p = rhs4_p.shape
     if backend == "fused" and phase is Phase.DECODE and m <= encoding.GEMV_MAX_ROWS:
-        out2d = q4_lib.fused_gemv_q4(xq, rhs4_p, s_a[:, None], s_w4, group)
-    elif backend == "xla":
-        lhs4, sa2 = _packed_rows(xq, s_a, phase, k0)
-        out2d = ref.unpack(ref.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group), (m, n1 * n0))
-    else:  # "pallas", and "fused" outside the GEMV's rows: the plain-row entry
-        m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
-        out2d = q4_lib.mmt4d_q4_rows(xq, rhs4_p, s_a, s_w4, group, m0)
-    if row_group is not None:
-        out2d = collectives.all_reduce_sum(out2d[:, :n], row_group)
-    return out2d[:, :n].to(out_dtype).reshape(*lead, n)
+        return q4_lib.fused_gemv_q4(xq, rhs4_p, s_a[:, None], s_w4, group)
+    if backend == "xla":
+        lhs4, sa2 = _packed_rows(xq, s_a, phase, 2 * k0p)
+        return ref.unpack(ref.mmt4d_q4(lhs4, rhs4_p, sa2, s_w4, group), (m, n1 * n0))
+    # "pallas", and "fused" outside the GEMV's rows: the plain-row entry
+    m0 = encoding.select_tile_sizes(phase, m_hint=m).m0
+    return q4_lib.mmt4d_q4_rows(xq, rhs4_p, s_a, s_w4, group, m0)
+
+
+# ---- row-parallel projections (tensor parallelism) ------------------------------
+
+
+def row_parallel_matmuls(xs: list[torch.Tensor], weights: list[tuple], *, quant: str, n: int,
+                         phase: Phase, row_group, backend: str = "xla",
+                         target: targets_lib.TargetSpec = targets_lib.H100,
+                         out_dtype: torch.dtype | None = None,
+                         group: int = ref.Q4_GROUP) -> list[torch.Tensor]:
+    """Row-parallel projections: each xs[i] (..., K_i) and its weight are
+    this rank's K slice of a projection whose products are summed over
+    `row_group`.  `weights[i]` is what encoded_matmul (quant "none":
+    (rhs4,)), encoded_matmul_q8 ("w8a8": (rhs4_q, s_w)) or
+    encoded_matmul_q4 ("w4a8": (rhs4_p, s_w4)) takes; each result, (..., n)
+    in `out_dtype` (default xs[0].dtype), is what that function computes
+    on the whole rows and weight, as follows.
+
+      none  the f32 products summed over the group, then cast.
+      w8a8  the rows quantized with the whole row's absmax; the kernel runs
+            with unit scales, so its output is the exact integer sum of the
+            rank's K slice; the sums are added over the group in f64 and the
+            epilogue (acc * s_a) * s_w runs once on the total, as one card's
+            kernel runs it: one card's result bit for bit while each rank's
+            sum stays below 2^24 in magnitude (f32 holds it exactly).
+      w4a8  the rows quantized with the whole row's absmax, the f32
+            products summed.  The kernel rounds its exact f64 group sums to
+            f32 once, so a rank's sum is rounded before the group adds
+            them: one card's to within those roundings, not bit for bit.
+
+    Every projection of the call shares each collective: one
+    all_reduce_max of all their rows' absmax (w8a8, w4a8) and one
+    all_reduce_sum of all their products, so a layer's experts
+    (models/layers.moe_apply) reduce once, not once an expert."""
+    out_dtype = out_dtype or xs[0].dtype
+    x2ds = [x.reshape(-1, x.shape[-1]) for x in xs]
+    if quant == "none":
+        parts = [_float_out(x2d, w[0], n, phase, backend, target)[:, :n]
+                 for x2d, w in zip(x2ds, weights)]
+        outs = collectives.all_reduce_sum_each(parts, row_group)
+    else:
+        k_packed = [w[0].shape[1] * w[0].shape[3] * (2 if quant == "w4a8" else 1)
+                    for w in weights]
+        rows = [_padded_rows(x2d, kp) for x2d, kp in zip(x2ds, k_packed)]
+        amax = collectives.all_reduce_max_each([r.float().abs().amax(dim=1) for r in rows],
+                                               row_group)
+        qs = [ref.quantize_rows(r, amax=a) for r, a in zip(rows, amax)]
+        routes = [registry.select(quant=quant, phase=phase, m=xq.shape[0], target=target,
+                                  requested=backend).backend for xq, _ in qs]
+        if quant == "w8a8":
+            acc = [_q8_product(xq, w[0], torch.ones_like(s_a), torch.ones_like(w[1]), phase,
+                               route)[:, :n].double()
+                   for (xq, s_a), w, route in zip(qs, weights, routes)]
+            outs = [total.float() * s_a[:, None] * w[1].reshape(1, -1)[:, :n]
+                    for total, (_, s_a), w in zip(collectives.all_reduce_sum_each(acc, row_group),
+                                                  qs, weights)]
+        else:
+            parts = [_q4_product(xq, w[0], s_a, w[1], group, phase, route)[:, :n]
+                     for (xq, s_a), w, route in zip(qs, weights, routes)]
+            outs = collectives.all_reduce_sum_each(parts, row_group)
+    return [out.to(out_dtype).reshape(*x.shape[:-1], n) for out, x in zip(outs, xs)]
 
 
 # The counterparts' names in the JAX package (repro/kernels/ops.py re-exports

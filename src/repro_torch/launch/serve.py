@@ -52,8 +52,14 @@ weights; rank 0 prints.  A rehearsal on the CPU:
       --arch qwen2-1.5b --mesh-shape 2
 
 Tensor parallelism serves the attention-only token families (Llama,
-Qwen2/2.5, Yi); MoE and the recurrent families exit with the engine's
-refusal at N > 1.
+Qwen2/2.5, Yi) and MoE (Mixtral, Grok: each rank every expert's FFN
+columns and the whole router); the recurrent families exit with the
+engine's refusal at N > 1.  Mixtral-8x22B at full depth in w8a8 on four
+cards (~141 GB of weights, a quarter a card; each rank draws and slices one
+expert projection at a time):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+      --mesh-shape 4 --quant w8a8 --max-seq 8192
 """
 
 from __future__ import annotations
@@ -195,7 +201,8 @@ def _serve(args, device: str, *, verbose: bool) -> list[engine_lib.Request]:
         loc = eng.model_cfg
         say(f"[serve] tensor parallel: {eng.tp_shards} ranks (mesh "
               f"{'x'.join(map(str, config.mesh_shape))}, {eng.mesh.backend}); rank 0 holds "
-              f"{loc.num_heads} query and {loc.num_kv_heads} kv heads, {loc.d_ff} FFN columns, "
+              f"{loc.num_heads} query and {loc.num_kv_heads} kv heads, {loc.d_ff} FFN columns"
+              f"{f' of each of {loc.num_experts} experts' if loc.num_experts else ''}, "
               f"{eng.shard.vocab_rows} vocabulary rows; whole-head replications "
               f"{list(eng.shard.replicated)}; collectives {dict(collectives.counts)}")
     say(f"[serve] attn_backend={stats['attn_backend'][0]} "

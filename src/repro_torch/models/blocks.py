@@ -27,14 +27,15 @@ from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
 
-def attn_block_init(gen, cfg: ModelConfig, enc, *, device) -> dict:
+def attn_block_init(gen, cfg: ModelConfig, enc, *, device, take_expert=None) -> dict:
+    """`take_expert`: moe_init's `take` (an MoE layer's experts)."""
     p = {
         "ln1": L.norm_init(cfg, device=device),
         "attn": L.attention_init(gen, cfg, enc, device=device),
         "ln2": L.norm_init(cfg, device=device),
     }
     if cfg.num_experts:
-        p["moe"] = L.moe_init(gen, cfg, enc, device=device)
+        p["moe"] = L.moe_init(gen, cfg, enc, device=device, take=take_expert)
     else:
         p["mlp"] = L.mlp_init(gen, cfg, enc, device=device)
     return p
@@ -44,15 +45,16 @@ def attn_block_apply(params, x, *, cfg, enc, phase, cache, pos, extra=None, aux=
                      tp=None):
     """Pre-norm attention + MLP (or MoE); `cache` is updated in place.  An
     MoE layer appends its load-balance loss to `aux` where it is a list.
-    `tp` (a parallel/sharding.Shard) runs the rank's heads and FFN columns;
-    MoE under tensor parallelism is refused before it gets here."""
+    `tp` (a parallel/sharding.Shard) runs the rank's heads and FFN columns
+    (an MoE layer's: every expert's)."""
     x = x + L.attention_apply(
         params["attn"], L.norm_apply(params["ln1"], x, cfg),
         cfg=cfg, enc=enc, phase=phase, cache=cache, pos=pos, tp=tp,
     )
     y = L.norm_apply(params["ln2"], x, cfg)
     if cfg.num_experts:
-        return x + L.moe_apply(params["moe"], y, cfg=cfg, enc=enc, phase=phase, aux=aux)
+        return x + L.moe_apply(params["moe"], y, cfg=cfg, enc=enc, phase=phase, aux=aux,
+                               tp=tp)
     return x + L.mlp_apply(params["mlp"], y, cfg=cfg, enc=enc, phase=phase, tp=tp)
 
 

@@ -18,10 +18,11 @@ Its Switch load-balance aux loss (moe_aux) is training's: moe_apply hands
 it out only to a caller that passes an `aux` list, so serving pays nothing
 for it.
 
-Under tensor parallelism (`tp`, a parallel/sharding.Shard) attention_apply
-and mlp_apply run on the rank's heads and FFN columns (`cfg` carries their
-local counts) and sum their row-parallel output (wo, w_down) over the group
-in f32 before the cast (packed.linear_apply's row_group).
+Under tensor parallelism (`tp`, a parallel/sharding.Shard) attention_apply,
+mlp_apply and moe_apply run on the rank's heads and FFN columns (`cfg`
+carries their local counts) and sum their row-parallel output (wo, w_down)
+over the group in f32 before the cast (packed.linear_apply's row_group; an
+MoE layer's E experts' w_down in one all-reduce).
 """
 
 from __future__ import annotations
@@ -185,11 +186,15 @@ def attention_apply(
     if phase is Phase.DECODE:
         if cache is None:
             raise ValueError("decode needs a KV cache")
+        # An MoE layer routes every row, idle slots and pads included, and
+        # their capacity claims reach the live rows: their K/V writes must
+        # land the same way every run (_last_write_wins).
+        settle = cfg.num_experts > 0
         if "table" in cache:
-            out = _paged_decode(q, k, v, cache, positions, enc=enc)
+            out = _paged_decode(q, k, v, cache, positions, enc=enc, settle=settle)
         else:
             out = _dense_decode(q, k, v, cache, positions, None if per_row else pos, enc=enc,
-                                window=window)
+                                window=window, settle=settle)
     else:
         q_off = 0
         k_att, v_att = k, v
@@ -302,23 +307,47 @@ def _prefill_write(cache: dict, k: torch.Tensor, v: torch.Tensor, pos: int,
         cache["v"][:, slots] = v
 
 
-def _paged_decode(q, k, v, cache: dict, positions: torch.Tensor, *, enc) -> torch.Tensor:
+def _last_write_wins(slot: torch.Tensor, *values: torch.Tensor) -> list[torch.Tensor]:
+    """`values` (B, L, ...) as a window writes them to the cache slots `slot`
+    (B, L), with every write to a slot that the window writes more than
+    once replaced by the last such write in row-major order.  index_put_
+    lands duplicate indices in no fixed order on CUDA; with this every
+    duplicate carries the same value, so every run leaves what a serial
+    scatter (the CPU's, against which the tests hold the JAX engine) leaves."""
+    flat = slot.reshape(-1)
+    n = flat.numel()
+    order = torch.argsort(flat, stable=True)  # equal slots in window order
+    key = flat[order]
+    idx = torch.arange(n, device=flat.device)
+    ends = torch.ones(n, dtype=torch.bool, device=flat.device)
+    ends[:-1] = key[1:] != key[:-1]
+    # For each sorted write, the last write of its run of equal slots.
+    last = torch.where(ends, idx, n).flip(0).cummin(0).values.flip(0)
+    winner = torch.empty_like(order)
+    winner[order] = order[last]
+    return [x.reshape(n, *x.shape[2:])[winner].reshape(x.shape) for x in values]
+
+
+def _paged_decode(q, k, v, cache: dict, positions: torch.Tensor, *, enc,
+                  settle: bool = False) -> torch.Tensor:
     """Write the window's K/V into the page pool (quantized on write for a
     kv8/kv4 pool, whose layout its dtype names), then attend the live pages.
 
     Pads past the last logical block clamp to the final table entry (JAX's
     contract).  The engine widens the table to cover every window
     (Engine._live_table_width), so a pad inside the table lands on the
-    scratch page or on a masked future offset of a private page.  index_put_
-    writes duplicate indices in no fixed order on CUDA; the only duplicates
-    are such pads (and idle rows on scratch), whose values are never read
-    unmasked."""
+    scratch page or on a masked future offset of a private page, and every
+    idle row writes the scratch page at offset 0, then reads it there.  Such
+    writes are the only duplicates; where those rows' values reach a live
+    row (`settle`: an MoE layer's capacity), _last_write_wins settles them."""
     table = cache["table"]
     bs_page = cache["k"].shape[1]
     layout = encoding.kv_layout_for_storage(cache["k"].dtype)
     blk = torch.clamp(positions // bs_page, max=table.shape[1] - 1)
     pg = torch.gather(table.long(), 1, blk)
     off = positions % bs_page
+    if settle:
+        k, v = _last_write_wins(pg * bs_page + off, k, v)
     if layout.quantized:
         k, k_scale = layout.quantize(k)
         v, v_scale = layout.quantize(v)
@@ -345,20 +374,23 @@ def _paged_decode(q, k, v, cache: dict, positions: torch.Tensor, *, enc) -> torc
 
 
 def _dense_decode(q, k, v, cache: dict, positions: torch.Tensor, shared_pos: int | None, *,
-                  enc, window: int) -> torch.Tensor:
+                  enc, window: int, settle: bool = False) -> torch.Tensor:
     """Write the window's K/V into the dense (B, S_c, KV, D) cache, then
     attend it.  A (B,) pos scatters each row's own slots, clamped at the
     cache edge (the engine caps every window so a clamped slot is only ever
     a pad colliding with other pads); a shared pos writes one slot column,
     its start clamped so the window fits, as JAX's dynamic_update_slice.
     Under a sliding window both write slot pos mod S_c of the ring instead.
-    Rejected draft and pad slots stay masked until a real write lands."""
+    Rejected draft and pad slots stay masked until a real write lands.
+    `settle` as _paged_decode's: duplicate slots take their last write."""
     b, s = positions.shape
     s_c = cache["k"].shape[1]
     if shared_pos is None:
         rows = torch.arange(b, device=q.device)[:, None].expand(b, s)
         wslot = (torch.remainder(positions, s_c) if window
                  else torch.clamp(positions, max=s_c - 1))
+        if settle:
+            k, v = _last_write_wins(rows * s_c + wslot, k, v)
         cache["k"].index_put_((rows, wslot), k)
         cache["v"].index_put_((rows, wslot), v)
         pos = positions[:, 0]
@@ -453,18 +485,20 @@ def mlp_apply(params, x, *, cfg: ModelConfig, enc, phase: Phase, tp=None) -> tor
 # MoE (token-choice top-k, capacity-bounded scatter dispatch)
 
 
-def moe_init(gen, cfg: ModelConfig, enc: packed.EncodingConfig, *, device) -> dict:
+def moe_init(gen, cfg: ModelConfig, enc: packed.EncodingConfig, *, device,
+             take=None) -> dict:
     """The router (f32 in the unquantized formats, as in JAX) and E experts'
     SwiGLU projections, each a list of E per-expert projections drawn from
-    `gen` in order: router, gates, ups, downs."""
+    `gen` in order: router, gates, ups, downs.  `take(name, p)`, where
+    given, replaces each expert projection as soon as it is drawn (a
+    tensor-parallel rank keeps its slice: transformer.model_init(shard=))."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     kw = dict(enc=enc, dtype=cfg.activation_dtype, device=device)
-    return {
-        "router": packed.linear_init(gen, d, e, enc=enc, dtype=torch.float32, device=device),
-        "w_gate": [packed.linear_init(gen, d, f, **kw) for _ in range(e)],
-        "w_up": [packed.linear_init(gen, d, f, **kw) for _ in range(e)],
-        "w_down": [packed.linear_init(gen, f, d, **kw) for _ in range(e)],
-    }
+    take = take or (lambda name, p: p)
+    out = {"router": packed.linear_init(gen, d, e, enc=enc, dtype=torch.float32, device=device)}
+    for name, (k, n) in (("w_gate", (d, f)), ("w_up", (d, f)), ("w_down", (f, d))):
+        out[name] = [take(name, packed.linear_init(gen, k, n, **kw)) for _ in range(e)]
+    return out
 
 
 def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -531,15 +565,28 @@ def moe_positions(eidx: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, t
     return position, position < cap
 
 
-def _expert_apply(params: dict, i: int, xe: torch.Tensor, *, cfg: ModelConfig, enc,
-                  phase: Phase) -> torch.Tensor:
-    """Expert i's SwiGLU on its rows, as JAX's vmapped _expert_matmul runs
-    each expert: three projections through the registry at xe's row count."""
+def _experts_apply(params: dict, xs, *, cfg: ModelConfig, enc, phase: Phase,
+                   tp=None) -> torch.Tensor:
+    """Every expert's SwiGLU on its rows, xs[i] (rows, D) for expert i, as
+    JAX's vmapped _expert_matmul runs each expert: three projections
+    through the registry at the rows' count.  (E, rows, D) in the rows'
+    dtype.  Under `tp` (a Shard whose plan splits the FFN) each expert runs
+    on the rank's FFN columns and the E w_down partials are summed over the
+    group before the cast, in one all-reduce for all experts (and one
+    absmax all-reduce with int8/int4 weights: packed.linear_apply_row_parallel)."""
     f, d = cfg.d_ff, cfg.d_model
-    gate = packed.linear_apply(params["w_gate"][i], xe, n=f, phase=phase, enc=enc)
-    up = packed.linear_apply(params["w_up"][i], xe, n=f, phase=phase, enc=enc)
-    hidden = F.silu(gate.float()).to(xe.dtype) * up
-    return packed.linear_apply(params["w_down"][i], hidden, n=d, phase=phase, enc=enc)
+    hidden = []
+    for i, xe in enumerate(xs):
+        gate = packed.linear_apply(params["w_gate"][i], xe, n=f, phase=phase, enc=enc)
+        up = packed.linear_apply(params["w_up"][i], xe, n=f, phase=phase, enc=enc)
+        hidden.append(F.silu(gate.float()).to(xe.dtype) * up)
+    if tp is not None and tp.mlp_split:
+        ys = packed.linear_apply_row_parallel(params["w_down"], hidden, n=d, phase=phase,
+                                              enc=enc, row_group=tp.group)
+    else:
+        ys = [packed.linear_apply(w, h, n=d, phase=phase, enc=enc)
+              for w, h in zip(params["w_down"], hidden)]
+    return torch.stack(ys)
 
 
 def moe_aux(probs: torch.Tensor, eidx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -551,7 +598,7 @@ def moe_aux(probs: torch.Tensor, eidx: torch.Tensor, cfg: ModelConfig) -> torch.
 
 
 def moe_apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig, enc,
-              phase: Phase, aux: list | None = None) -> torch.Tensor:
+              phase: Phase, aux: list | None = None, tp=None) -> torch.Tensor:
     """Capacity-bounded token-choice top-k MoE (JAX layers.moe_apply, rule
     for rule).  x (B, S, D) -> (B, S, D).
 
@@ -564,7 +611,15 @@ def moe_apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig, enc,
     through the (T, E) gate matrix.  moe_shard_map falls back to this grouped path, as JAX's does
     without a mesh (one card).
     Where `aux` is a list, the dispatch's load-balance loss (moe_aux) is
-    appended to it; serving passes none and computes none."""
+    appended to it; serving passes none and computes none.
+
+    Under tensor parallelism (`tp`, a parallel/sharding.Shard: `cfg` holds
+    the rank's FFN columns, the router is whole) every rank routes the same
+    replicated rows through the same router at the same shapes, so all
+    ranks agree on the top-k, the queue places, the capacity drops and
+    `keep`; each expert runs on the rank's columns, and the partial outputs
+    are summed over the group before the cast and the combine
+    (_experts_apply), as one card casts its expert outputs before it."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -575,8 +630,8 @@ def moe_apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig, enc,
 
     rows = moe_expert_rows(cfg, t, phase)
     if moe_runs_dense(cfg, phase):
-        ys = torch.stack([_expert_apply(params, i, xt, cfg=cfg, enc=enc, phase=phase)
-                          for i in range(e)])  # (E, T, D)
+        ys = _experts_apply(params, [xt] * e, cfg=cfg, enc=enc, phase=phase,
+                            tp=tp)  # (E, T, D)
         wfull = torch.zeros((t, e), dtype=torch.float32, device=x.device)
         wfull.scatter_(1, eidx, gate)
         out = torch.einsum("etd,te->td", ys.float(), wfull)
@@ -599,11 +654,8 @@ def moe_apply(params: dict, x: torch.Tensor, *, cfg: ModelConfig, enc,
                    accumulate=True)
 
     buf_e = buf.transpose(0, 1)  # (E, G, cap, D)
-    ys = torch.stack([
-        _expert_apply(params, i, buf_e[i].reshape(rows, d), cfg=cfg, enc=enc,
-                      phase=phase).reshape(groups, cap, d)
-        for i in range(e)
-    ])  # (E, G, cap, D)
+    ys = _experts_apply(params, [buf_e[i].reshape(rows, d) for i in range(e)], cfg=cfg,
+                        enc=enc, phase=phase, tp=tp).reshape(e, groups, cap, d)
 
     gathered = ys.transpose(0, 1)[gsel, eidx_g, safe_pos]  # (G, tg, k, D)
     w = (gate_g * keep).float()[..., None]

@@ -84,9 +84,10 @@ def model_init(cfg: ModelConfig, enc: packed.EncodingConfig, *, seed: int = 0,
                device: torch.device | str = "cuda",
                shard: sharding.Shard | None = None) -> dict:
     """Random weights from `seed` (torch.Generator on `device`).  With
-    `shard`, one tensor-parallel rank's part of the same weights: each layer
-    is drawn whole, in the same order, and sliced at once, so a rank never
-    holds more than one full layer."""
+    `shard`, one tensor-parallel rank's part of the same weights, drawn in
+    the same order: each layer is drawn whole and sliced at once, an MoE
+    layer each expert projection as it is drawn, so a rank never holds more
+    than one full dense layer or one full expert projection."""
     _check_family(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -102,7 +103,14 @@ def model_init(cfg: ModelConfig, enc: packed.EncodingConfig, *, seed: int = 0,
             return sharding.shard_embed(x, shard)
         if kind == "head":
             return sharding.shard_head(x, cfg, shard, group)
-        return sharding.shard_layer(x, cfg, shard, group)
+        return sharding.shard_layer(x, cfg, shard, group, experts=False)
+
+    def layer(t):
+        kw = {}
+        if shard is not None and t == "attn" and cfg.num_experts:
+            kw["take_expert"] = functools.partial(sharding.shard_ffn_linear, full=cfg,
+                                                  shard=shard, group=group)
+        return part("layer", blocks.BLOCKS[t][0](gen, cfg, enc, device=device, **kw))
 
     # Vocab rows padded to a multiple of 256, as in the JAX package; ids
     # never index the pad and logits are sliced back to vocab_size.
@@ -111,8 +119,7 @@ def model_init(cfg: ModelConfig, enc: packed.EncodingConfig, *, seed: int = 0,
         "embed": part("embed", (d**-0.5 * torch.randn((v_pad, d), generator=gen,
                                                       device=device)).to(dt)),
         "final_norm": L.norm_init(cfg, device=device),
-        "layers": [part("layer", blocks.BLOCKS[t][0](gen, cfg, enc, device=device))
-                   for t in layer_types(cfg)],
+        "layers": [layer(t) for t in layer_types(cfg)],
     }
     if not cfg.tie_embeddings:
         params["head"] = part("head", packed.linear_init(gen, d, v, enc=enc, dtype=dt,

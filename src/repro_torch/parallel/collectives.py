@@ -3,13 +3,16 @@ leaves them to GSPMD).
 
 Three carry the forward's data, on a rank's tensor-parallel group:
 
-  all_reduce_sum   the row-parallel projections' f32 partials (wo, w_down)
-                   and the vocabulary-parallel embedding's masked rows
+  all_reduce_sum   the row-parallel projections' f32 partials (wo, w_down;
+                   an MoE layer's experts' w_down in one call,
+                   all_reduce_sum_each) and the vocabulary-parallel
+                   embedding's masked rows
   all_gather_last  the vocabulary-parallel head's logit slices, joined on
                    the last axis in rank order
   all_reduce_max   the per-row absmax of a row-parallel w8a8/w4a8
                    activation, so every rank quantizes its K slice with the
-                   scale of the whole row
+                   scale of the whole row (an MoE layer's experts in one
+                   call, all_reduce_max_each)
 
 Each is the identity when the group is None or of size 1, so a one-card
 engine runs launch for launch as before.  Two more carry host decisions on
@@ -65,6 +68,23 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max of `x` over the group's ranks (a new tensor)."""
     return x if size(group) == 1 else reduce_in_group(x, group, "max")
+
+
+def all_reduce_sum_each(xs: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """all_reduce_sum of every tensor of `xs` (one dtype, equal trailing
+    shapes) in one collective: joined on the first axis, reduced, split."""
+    return _each(xs, group, all_reduce_sum)
+
+
+def all_reduce_max_each(xs: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """all_reduce_max of every tensor of `xs` in one collective."""
+    return _each(xs, group, all_reduce_max)
+
+
+def _each(xs: list[torch.Tensor], group, reduce) -> list[torch.Tensor]:
+    if size(group) == 1:
+        return list(xs)
+    return list(reduce(torch.cat(xs), group).split([x.shape[0] for x in xs]))
 
 
 def all_gather_last(x: torch.Tensor, group) -> torch.Tensor:

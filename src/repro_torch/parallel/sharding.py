@@ -35,14 +35,20 @@ makes):
   attention  tp divides neither the query heads nor, as above, the kv
              heads, or a w4a8 wo slice would cut a quantization group:
              every rank holds and computes the whole attention, no reduce
-  mlp        tp does not divide d_ff, or a w4a8 w_down slice would cut a
-             group: every rank computes the whole MLP, no reduce
+  mlp        tp does not divide d_ff (an MoE's: each expert's), or a w4a8
+             w_down slice would cut a group: every rank computes the whole
+             MLP or every whole expert, no reduce
   vocab      tp does not divide the padded vocabulary: the embedding and
              head replicate
 
+An MoE layer splits as JAX's rule splits it: the expert axis never, each
+expert's w_gate/w_up column-parallel and its w_down row-parallel over the
+plan's FFN columns (`d_ff` being the experts'), the router replicated;
+every rank routes its (replicated) rows alike (models/layers.moe_apply).
+
 Tensor parallelism serves the attention-only token families (Llama,
-Qwen2/2.5, Yi); MoE and the recurrent blocks raise NotImplementedError at
-tp > 1 (`check_servable`) until the next slice.
+Qwen2/2.5, Yi) and the MoE family (Mixtral, Grok); the recurrent blocks
+raise NotImplementedError at tp > 1 (`check_servable`) until a later slice.
 """
 
 from __future__ import annotations
@@ -110,17 +116,18 @@ def cache_role(names: list[str], ndim: int) -> str:
 
 
 def check_servable(cfg: ModelConfig, tp: int) -> None:
-    """Tensor parallelism serves attention-only dense models; MoE and the
-    recurrent blocks wait for the next slice (JAX serves them under GSPMD)."""
+    """Tensor parallelism serves the attention blocks, dense or MoE; the
+    recurrent blocks wait for a later slice (JAX serves them under GSPMD)."""
     if tp <= 1:
         return
-    if cfg.num_experts or any(t != "attn" for t in cfg.block_pattern):
+    other = sorted(set(cfg.block_pattern) - {"attn"})
+    if other:
         raise NotImplementedError(
             f"tensor-parallel serving (mesh tp={tp}) of {cfg.name} ({cfg.family}, blocks "
-            f"{sorted(set(cfg.block_pattern))}{', MoE' if cfg.num_experts else ''}) is not "
-            "ported yet: this slice serves attention-only dense models; MoE (expert columns "
-            "per rank, router replicated) and the recurrent blocks at tp > 1 come in the next "
-            "slice (ROADMAP Queue 1, item 5)")
+            f"{sorted(set(cfg.block_pattern))}) is not ported yet: tp > 1 serves the attention "
+            f"blocks, dense and MoE, not {other}; the recurrent blocks at tp > 1 (each rank its "
+            "own RWKV heads or RG-LRU channels) are ROADMAP Queue 1's item \"the recurrent "
+            "blocks at tp > 1\"")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,11 +235,27 @@ def shard_linear(p: dict, n: int, k: int, axis: str, lo: int, hi: int, *,
     return packed.linear_from_plain(_slice_plain(plain, axis, lo, hi, group), group=group)
 
 
-def shard_layer(lp: dict, full: ModelConfig, shard: Shard, group: int) -> dict:
-    """A dense attention block's parameters (ln1, attn, ln2, mlp) on this
+def shard_ffn_linear(name: str, p: dict, full: ModelConfig, shard: Shard, group: int) -> dict:
+    """One FFN projection on this rank, a dense MLP's or an expert's, cut to
+    the rank's FFN units: their output rows of w_gate/w_up
+    (column-parallel), their input columns of w_down (row-parallel); the
+    whole projection where the plan does not split the MLP."""
+    if not shard.mlp_split:
+        return p
+    lo, hi = shard.ff_lo, shard.ff_lo + shard.cfg.d_ff
+    if name == "w_down":
+        return shard_linear(p, full.d_model, full.d_ff, "cols", lo, hi, group=group)
+    return shard_linear(p, full.d_ff, full.d_model, "rows", lo, hi, group=group)
+
+
+def shard_layer(lp: dict, full: ModelConfig, shard: Shard, group: int, *,
+                experts: bool = True) -> dict:
+    """An attention block's parameters (ln1, attn, ln2, mlp or moe) on this
     rank: query heads and their kv heads column-split, wo row-split by its
-    input heads, w_gate/w_up by FFN columns and w_down by FFN rows; the norms
-    and whatever the plan replicates stay whole."""
+    input heads, the MLP's or every expert's projections by FFN columns
+    (shard_ffn_linear), the router, the norms and whatever the plan
+    replicates whole.  `experts=False` leaves the experts as they are
+    (transformer.model_init(shard=) slices each as it draws it)."""
     d, hd = full.d_model, full.head_dim
     loc = shard.cfg
     out = dict(lp)
@@ -247,12 +270,13 @@ def shard_layer(lp: dict, full: ModelConfig, shard: Shard, group: int) -> dict:
             "wv": shard_linear(a["wv"], kvd, d, "rows", *kv, group=group),
             "wo": shard_linear(a["wo"], d, full.num_heads * hd, "cols", *q, group=group),
         }
-    if shard.mlp_split:
-        m = lp["mlp"]
-        f = (shard.ff_lo, shard.ff_lo + loc.d_ff)
-        out["mlp"] = {name: shard_linear(m[name], full.d_ff, d, "rows", *f, group=group)
-                      for name in ("w_gate", "w_up") if name in m}
-        out["mlp"]["w_down"] = shard_linear(m["w_down"], d, full.d_ff, "cols", *f, group=group)
+    if "mlp" in lp:
+        out["mlp"] = {name: shard_ffn_linear(name, p, full, shard, group)
+                      for name, p in lp["mlp"].items()}
+    if "moe" in lp and experts:
+        out["moe"] = {name: p if name == "router" else
+                      [shard_ffn_linear(name, e, full, shard, group) for e in p]
+                      for name, p in lp["moe"].items()}
     return out
 
 

@@ -85,8 +85,9 @@ there; the port diverges from it on purpose (ROADMAP Queue 3, item 1).
 Tensor parallelism (mesh_shape=(N,), N > 1; the JAX engine's GSPMD path):
 one torch.distributed rank a device, each running this engine on the same
 requests (launch/mesh.py starts and joins them).  A rank holds its shard
-(parallel/sharding.py: query and kv heads, FFN columns and vocabulary rows;
-params given whole are sliced at construction) and its kv heads' pages,
+(parallel/sharding.py: query and kv heads, FFN columns, every expert's FFN
+columns beside the whole router, and vocabulary rows; params given whole
+are sliced at construction) and its kv heads' pages or ring rows,
 runs the hand-written kernels on them, and sums the row-parallel outputs
 over the group (parallel/collectives.py).  Every host decision is the same
 on every rank, or a collective hangs: the scheduler is deterministic, and
@@ -98,8 +99,9 @@ registry entry only; every rank dispatches on the max over shards, so all
 run the same rung (stats: per-shard attn_backend and degraded).  Unlike
 the JAX engine, which routes tp > 1 to its XLA paths because GSPMD cannot
 partition a Pallas call, the ranks keep their kernels and kv4.  At tp > 1
-the engine serves the attention-only token families; MoE and the recurrent
-blocks raise NotImplementedError (sharding.check_servable).  At tp > 1,
+the engine serves the attention-only token families and MoE (every rank
+routes alike: models/layers.moe_apply); the recurrent blocks raise
+NotImplementedError (sharding.check_servable).  At tp > 1,
 `stats` and `audit()` are collective: call them on every rank.
 
 Refused at construction, as in the JAX engine, whose batches are tokens

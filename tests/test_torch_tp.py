@@ -188,10 +188,20 @@ def test_plan_whole_head_replications():
     assert sharding.plan(one, EncodingConfig(weight_quant="int4", quant_group=32), 4, 0
                          ).replicated == ("attention",)
     assert sharding.plan(one, enc, 3, 0).replicated == ("attention", "mlp", "vocab")
-    for arch in ("mixtral-8x22b", "rwkv6-1.6b", "recurrentgemma-9b"):
-        with pytest.raises(NotImplementedError, match="next slice"):
+    for arch in ("rwkv6-1.6b", "recurrentgemma-9b"):
+        with pytest.raises(NotImplementedError, match="the recurrent blocks at tp > 1"):
             sharding.plan(cfg_registry.get_reduced(arch), enc, 2, 0)
-    sharding.plan(cfg_registry.get_reduced("mixtral-8x22b"), enc, 1, 0)
+    # MoE serves at tp > 1: each expert's FFN columns split, the router whole.
+    mix = cfg_registry.get_reduced("mixtral-8x22b")
+    s = sharding.plan(mix, enc, 2, 1)
+    assert s.mlp_split and (s.cfg.d_ff, s.ff_lo, s.cfg.num_experts) == (64, 64, 4)
+    full = T.model_init(mix, enc, seed=0, device="cpu")["layers"][0]["moe"]
+    moe = T.model_init(mix, enc, seed=0, device="cpu", shard=s)["layers"][0]["moe"]
+    assert torch.equal(moe["router"]["w_packed"], full["router"]["w_packed"])
+    d = mix.d_model
+    assert _plain(moe["w_gate"][3], 64, d)["w"].shape == (64, d)
+    assert _plain(moe["w_down"][3], d, 64)["w"].shape == (d, 64)
+    sharding.plan(mix, enc, 1, 0)
 
 
 def _plain(p, n, k, group=16):
@@ -205,11 +215,13 @@ def _assert_equal(a: dict, b: dict, what):
 
 
 @pytest.mark.parametrize("fmt", list(FORMATS))
-@pytest.mark.parametrize("arch,kv", [("qwen2-1.5b", 4), ("llama3.2-1b", None), ("yi-9b", 2)])
+@pytest.mark.parametrize("arch,kv", [("qwen2-1.5b", 4), ("llama3.2-1b", None), ("yi-9b", 2),
+                                     ("mixtral-8x22b", None), ("grok-1-314b", None)])
 def test_shards_reassemble_bit_for_bit(arch, kv, fmt):
     """Every rank's shard at tp = 2 and 4, unpacked and put back together,
     is the full param tree bit for bit (codes and scales included); each
-    rank holds its own heads, FFN columns and vocabulary rows; model_init
+    rank holds its own heads, FFN columns and vocabulary rows (an MoE
+    layer: every expert's FFN columns, the router whole); model_init
     with shard= makes the same shard as slicing the full init."""
     kw = {} if kv is None else {"num_kv_heads": kv}
     cfg = cfg_registry.get_reduced(arch, **kw)
@@ -218,6 +230,7 @@ def test_shards_reassemble_bit_for_bit(arch, kv, fmt):
     d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     vp = sharding.vocab_padded(cfg)
+    cache_mode = "dense" if cfg.sliding_window else "paged"
     for tp in (2, 4):
         shards = [sharding.plan(cfg, enc, tp, r) for r in range(tp)]
         parts = [sharding.shard_params(full, cfg, enc, s) for s in shards]
@@ -226,35 +239,58 @@ def test_shards_reassemble_bit_for_bit(arch, kv, fmt):
             assert p["embed"].shape == (vp // tp, d)
             wq = _plain(p["layers"][0]["attn"]["wq"], s.cfg.num_heads * hd, d)
             assert next(iter(wq.values())).shape == (h // tp * hd, d)
-            wd = _plain(p["layers"][0]["mlp"]["w_down"], d, s.cfg.d_ff)
-            assert next(iter(wd.values())).shape[0] == d and s.cfg.d_ff == f // tp
-            caches = T.cache_init(s.cfg, 1, 16, cache_mode="paged", block_size=8, device="cpu")
+            for _, ffn in _ffns(p["layers"][0]):
+                wd = _plain(ffn["w_down"], d, s.cfg.d_ff)
+                assert next(iter(wd.values())).shape[0] == d and s.cfg.d_ff == f // tp
+            caches = T.cache_init(s.cfg, 1, 16, cache_mode=cache_mode, block_size=8,
+                                  device="cpu")
             assert caches["layers"][0]["k"].shape[-2] == max(1, kvh // tp)
             mine = T.model_init(cfg, enc, seed=3, device="cpu", shard=s)
             for i, (lp, mp) in enumerate(zip(p["layers"], mine["layers"])):
-                for blk in ("attn", "mlp"):
-                    for name in lp[blk]:
+                blocks = [("attn", lp["attn"], mp["attn"])] + [
+                    (where, a, b) for (where, a), (_, b) in zip(_ffns(lp), _ffns(mp))]
+                for where, a, b in blocks:
+                    for name in a:
                         n, k = _nk(cfg, s.cfg, name)
-                        _assert_equal(_plain(lp[blk][name], n, k), _plain(mp[blk][name], n, k),
-                                      (tp, s.rank, i, name))
+                        _assert_equal(_plain(a[name], n, k), _plain(b[name], n, k),
+                                      (tp, s.rank, i, where, name))
+                if cfg.num_experts:  # the router replicated, bit for bit
+                    for q in (lp, mp):
+                        _assert_equal(q["moe"]["router"], full["layers"][i]["moe"]["router"],
+                                      (tp, s.rank, i, "router"))
             assert torch.equal(mine["embed"], p["embed"])
         assert torch.equal(torch.cat([p["embed"] for p in parts]), full["embed"])
         for i, lp in enumerate(full["layers"]):
-            for blk, name, axis in (("attn", "wq", 0), ("attn", "wk", 0), ("attn", "wv", 0),
-                                    ("attn", "wo", 1), ("mlp", "w_gate", 0), ("mlp", "w_up", 0),
-                                    ("mlp", "w_down", 1)):
-                n, k = _nk(cfg, cfg, name)
-                want = _plain(lp[blk][name], n, k)
-                got = [_plain(p["layers"][i][blk][name], *_nk(cfg, s.cfg, name))
-                       for s, p in zip(shards, parts)]
-                if name in ("wk", "wv") and kvh < tp:  # each kv head on tp / kv ranks
-                    got = [g for j, g in enumerate(got) if j % (tp // kvh) == 0]
-                _assert_equal(_join(got, axis), want, (tp, i, name))
+            whole = [("attn", lp["attn"], [p["layers"][i]["attn"] for p in parts])]
+            for j, (where, ffn) in enumerate(_ffns(lp)):
+                whole.append((where, ffn, [_ffns(p["layers"][i])[j][1] for p in parts]))
+            for where, want_blk, got_blks in whole:
+                for name, axis in (("wq", 0), ("wk", 0), ("wv", 0), ("wo", 1), ("w_gate", 0),
+                                   ("w_up", 0), ("w_down", 1)):
+                    if name not in want_blk:
+                        continue
+                    n, k = _nk(cfg, cfg, name)
+                    want = _plain(want_blk[name], n, k)
+                    got = [_plain(g[name], *_nk(cfg, s.cfg, name))
+                           for s, g in zip(shards, got_blks)]
+                    if name in ("wk", "wv") and kvh < tp:  # each kv head on tp / kv ranks
+                        got = [g for j, g in enumerate(got) if j % (tp // kvh) == 0]
+                    _assert_equal(_join(got, axis), want, (tp, i, where, name))
         if "head" in full:
             want = _plain(full["head"], cfg.vocab_size, d)
             got = _join([_plain(p["head"], vp // tp, d) for p in parts], 0)
             _assert_equal({k: v[: cfg.vocab_size] for k, v in got.items()}, want, (tp, "head"))
             assert all(not v[cfg.vocab_size:].any() for v in got.values())
+
+
+def _ffns(lp: dict) -> list[tuple[str, dict]]:
+    """A layer's FFN projections by place: its MLP, or each expert's
+    w_gate/w_up/w_down."""
+    if "mlp" in lp:
+        return [("mlp", lp["mlp"])]
+    moe = lp["moe"]
+    return [(f"expert {e}", {name: moe[name][e] for name in ("w_gate", "w_up", "w_down")})
+            for e in range(len(moe["w_gate"]))]
 
 
 def _nk(full, loc, name) -> tuple[int, int]:

@@ -13,7 +13,8 @@ schedule (on an attention key, and on a matmul key, whose last rung, the
 plain reference, must still sum the row-parallel products), the
 row-parallel projections against one card's (w8a8 bit for bit), an allocator made to diverge on the last rank (named by every
 rank's audit), the ValueError for a world size that does not fit, and the
-NotImplementedError for MoE and recurrent models at tp > 1.  The ranks check that the shards really split (heads,
+NotImplementedError for the recurrent models at tp > 1 (MoE serves at tp >
+1: tests/test_torch_tp_moe.py).  The ranks check that the shards really split (heads,
 FFN columns, kv pages, vocabulary rows); the collectives are counted per
 dispatch: 2 a layer plus the embedding's and the head's, plus 2 a layer of
 activation absmax reduces with int8 or int4 weights."""
@@ -119,8 +120,7 @@ def test_mesh_larger_than_the_world_is_refused(model):
 @pytest.mark.parametrize("tp", [2, 4])
 def test_tp_ranks_match_jax_and_tp1(model, references, tp):
     jcfg, cfg, _, params = model
-    refused = {"moe": cfg_registry.get_reduced("mixtral-8x22b"),
-               "rwkv": cfg_registry.get_reduced("rwkv6-1.6b"),
+    refused = {"rwkv": cfg_registry.get_reduced("rwkv6-1.6b"),
                "hybrid": cfg_registry.get_reduced("recurrentgemma-9b")}
     ranks = mesh_lib.launch_ranks(W.rank_main, tp, cfg, params, refused, timeout_s=240,
                                   collective_timeout_s=60)
@@ -142,7 +142,7 @@ def test_tp_ranks_match_jax_and_tp1(model, references, tp):
         assert out["row_parallel"][("int8", "w_down")] == 0.0
         assert f"shard {tp - 1}" in out["diverged"] and "diverged" in out["diverged"]
         assert f"needs {2 * tp} ranks but the process group has {tp}" in out["refused"]["world"]
-        for label in ("moe", "rwkv", "hybrid"):
-            assert "next slice" in out["refused"][label], label
+        for label in ("rwkv", "hybrid"):
+            assert "the recurrent blocks at tp > 1" in out["refused"][label], label
     for kind in ("chaos", "chaos_matmul"):
         assert all(r[kind]["snapshot"] == ranks[0][kind]["snapshot"] for r in ranks)
